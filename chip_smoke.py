@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (zeggs_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from csrc/, writes a full-width v1 fixture made from
+a seed (75-joint skeleton, random PyTorch-default weights, statistics, a
+style BVH and three WAVs) under build/chip_smoke/, then:
+
+  1. checks each kernel against its plain PyTorch version at the main
+     path's shapes (one step and a 600-frame rollout, fp32 and bf16 weights);
+  2. drives the main path: the generate CLI in CSV mode over three clips on
+     the card, with every kernel's launch count reset just before;
+  3. compares a request on the card (fp32 rollout weights) with the same
+     request on the CPU;
+  4. prints times, each beside the card's name and power limit, one JSON
+     line of kernel results and, last, {"ok": true, "device": {...}}.
+
+Any failure ends the run with a nonzero exit and without the last line.
+It exits nonzero at once when no CUDA device is available.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SEED = 1234
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
+CLIPS = {"clip_04s": 4.0, "clip_10s": 10.0, "clip_12s": 12.0}
+DT = 1.0 / 60.0
+
+# kernel against plain: one step shares rounded inputs and differs only in
+# the order of float32 sums; a whole rollout is held to the pose MAE budget
+# of docs/DESIGN.md section 5
+STEP_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+ROLLOUT_MAE = 1e-3
+CARD_VS_CPU_MAE = 1e-3
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# fixture
+# ---------------------------------------------------------------------------
+
+def skeleton(rng, njoints=75):
+    """Hips -> Spine -> Spine1 -> Spine2 -> Neck -> Head, then chains of
+    four joints hung from random earlier joints."""
+    names = ["Hips", "Spine", "Spine1", "Spine2", "Neck", "Head"]
+    parents = [-1, 0, 1, 2, 3, 4]
+    while len(names) < njoints:
+        p = int(rng.integers(0, len(names)))
+        for _ in range(min(4, njoints - len(names))):
+            names.append(f"Joint{len(names)}")
+            parents.append(p)
+            p = len(names) - 1
+    return names, parents
+
+
+def motion(rng, names, parents, nframes):
+    J = len(names)
+    t = np.linspace(0, 4 * np.pi, nframes)[:, None, None]
+    rot = rng.uniform(5, 25, (1, J, 3)) * np.sin(t + rng.uniform(0, 2 * np.pi, (1, J, 3)))
+    offsets = rng.uniform(-10, 10, (J, 3)).astype(np.float32)
+    offsets[0] = 0
+    pos = np.repeat(offsets[None], nframes, axis=0)
+    pos[:, 0, 0] += np.linspace(0, 40, nframes)
+    pos[:, 0, 1] += 90.0
+    return {"rotations": rot.astype(np.float32), "positions": pos.astype(np.float32),
+            "offsets": offsets, "parents": np.asarray(parents, np.int32), "names": names,
+            "order": "zyx", "frametime": DT}
+
+
+def speech_like(rng, seconds, fs=16000):
+    t = np.arange(int(seconds * fs)) / fs
+    f0 = 140 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    x = sum(np.sin(k * phase) / k for k in range(1, 8))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2
+    x += 0.02 * rng.normal(size=t.shape)
+    return (0.3 * x / np.abs(x).max()).astype(np.float32)
+
+
+def write_fixture(torch):
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.io import bvh, checkpoint, wav, weights
+    from zeggs_tpu_torch.models.decoder import Decoder
+    from zeggs_tpu_torch.models.speech_encoder import SpeechEncoder
+    from zeggs_tpu_torch.models.style_encoder import StyleEncoder
+
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    data, models, results = WORK / "processed", WORK / "models", WORK / "results"
+    for d in (data, models, results):
+        d.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    names, parents = skeleton(rng)
+    J = len(names)
+    pose_in, pose_out = 6 + 15 * J + 3, 6 + 15 * J
+
+    (data / "data_definition.json").write_text(json.dumps(
+        {"dt": DT, "label_names": ["Neutral", "Happy", "Sad"], "parents": parents,
+         "bone_names": names}))
+    shutil.copy(ROOT / "configs" / "data_pipeline_conf_v1.json", data / "data_pipeline_conf.json")
+    np.savez(data / "stats.npz",
+             audio_input_mean=rng.normal(size=81).astype(np.float32),
+             audio_input_std=rng.uniform(0.5, 2.0, 81).astype(np.float32),
+             anim_input_mean=(rng.normal(size=pose_in) * 0.1).astype(np.float32),
+             anim_input_std=rng.uniform(0.5, 5.0, pose_in).astype(np.float32),
+             anim_output_mean=(rng.normal(size=pose_out) * 0.1).astype(np.float32),
+             anim_output_std=rng.uniform(0.05, 0.5, pose_out).astype(np.float32))
+
+    v1 = json.loads((ROOT / "configs" / "configs_v1.json").read_text())
+    opts = Options.from_options_dict(v1).net
+    torch.manual_seed(SEED)
+    nets = {
+        "speech_encoder": SpeechEncoder(81, opts.speech_encoder.nhidden,
+                                        opts.speech_encoder.speech_encoding_size),
+        "style_encoder": StyleEncoder(pose_in, opts.style_encoder.nhidden,
+                                      opts.style_encoder.style_encoding_size, use_vae=True),
+        "decoder": Decoder(pose_in, pose_out, opts.speech_encoder.speech_encoding_size,
+                           opts.style_encoder.style_encoding_size, opts.decoder.nhidden,
+                           opts.decoder.num_rnn_layers, opts.decoder.rnn_cond),
+    }
+    for name, module in nets.items():
+        checkpoint.save(models / f"{name}.npz", weights.to_jax(module))
+
+    v1["paths"] = {"base_path": str(WORK), "path_processed_data": "processed",
+                   "output_dir": str(WORK), "models_dir": str(models)}
+    (WORK / "options.json").write_text(json.dumps(v1, indent=2))
+
+    bvh.save(WORK / "style.bvh", motion(rng, names, parents, 300))
+    with open(WORK / "requests.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["base_path", "audio", "style", "file_name", "temperature", "seed",
+                    "use_gpu", "frames", "first_pose", "generate"])
+        for i, (clip, seconds) in enumerate(CLIPS.items()):
+            wav.write_wavefile(WORK / f"{clip}.wav", speech_like(rng, seconds), 16000)
+            w.writerow([str(WORK), f"{clip}.wav", "style.bvh", clip, "1.0", str(SEED + i),
+                        "TRUE", "", "", "TRUE"])
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def event_ms(torch, fn, reps):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rollout_inputs(torch, pipe, dtype, seconds_clip):
+    """The kernel's inputs for one request at the main path's shapes, and
+    its packed weights."""
+    from zeggs_tpu_torch.models import decoder as D
+    from zeggs_tpu_torch.models import pose as P
+    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+
+    feats, n = pipe.audio_to_features(WORK / f"{seconds_clip}.wav")
+    speech = pipe.encode_speech(feats)
+    vec, f0 = pipe.style_example_from_bvh(WORK / "style.bvh")
+    style = pipe.encode_style(vec, 0.0)[0][:, None].expand(-1, n, -1).contiguous()
+    gaze = f0.gaze_pos[0].expand(n, 3)[None].contiguous()
+    s = pipe.stats
+    packed = DR.pack_decoder(pipe.networks["decoder"].cell, s["anim_input_mean"],
+                             s["anim_input_std"], s["anim_output_mean"], s["anim_output_std"],
+                             dtype)
+    state0 = [getattr(f0, k)[0:1] for k in ("root_pos", "root_rot", "root_vel", "root_vrt",
+                                             "lpos", "ltxy", "lvel", "lvrt")]
+    pose0 = P.vectorize_input(*state0, gaze[:, 0], s["anim_input_mean"], s["anim_input_std"])
+    dec = pipe.networks["decoder"]
+    h = D.cell_state_encoder(dec.cell_state_encoder, pose0, style[:, 0])[:, 0].contiguous()
+    cond_l0, cond_g0 = DR.conditioning(packed, speech, style)
+    p0 = torch.cat([x.reshape(-1) for x in state0[2:]]).contiguous()
+    root0 = torch.cat([state0[0][0], state0[1][0]]).contiguous()
+    return (packed, cond_l0, cond_g0, gaze[0, 1:].contiguous(), p0, h, root0, pipe.dt)
+
+
+def check_kernels(torch, card):
+    """Phase 1: the decoder kernel against its plain version at v1 width."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda")
+    report = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = rollout_inputs(torch, pipe, dtype, "clip_10s")
+        T1 = args[1].shape[0]
+        # one step from the same state
+        step = (args[0], args[1][:1], args[2][:1], args[3][:1]) + args[4:]
+        err_step = (DR.rollout_b1(*step) - DR.rollout_b1_plain(*step)).abs().max().item()
+        # the whole rollout
+        rows, plain = DR.rollout_b1(*args), DR.rollout_b1_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(rows).all():
+            fail(f"{name}: kernel rollout is not finite")
+        diff = (rows - plain).abs()
+        mae, err_max = diff.mean().item(), diff.max().item()
+        print(f"decoder_rollout[{name}] grid {DR.grid_blocks(args[0])} blocks: one step max|err| "
+              f"{err_step:.3e} (tol {STEP_TOL[name]:g}); {T1}-step rollout MAE {mae:.3e} "
+              f"(tol {ROLLOUT_MAE:g}), max|err| {err_max:.3e}")
+        if err_step > STEP_TOL[name]:
+            fail(f"{name}: one-step kernel/plain error {err_step} > {STEP_TOL[name]}")
+        if mae >= ROLLOUT_MAE:
+            fail(f"{name}: rollout kernel/plain MAE {mae} >= {ROLLOUT_MAE}")
+        # times: plain, kernel, kernel, plain after a warm-up of each
+        DR.rollout_b1(*args)
+        DR.rollout_b1_plain(*args)
+        p1 = event_ms(torch, lambda: DR.rollout_b1_plain(*args), 2)
+        k1 = event_ms(torch, lambda: DR.rollout_b1(*args), 10)
+        k2 = event_ms(torch, lambda: DR.rollout_b1(*args), 10)
+        p2 = event_ms(torch, lambda: DR.rollout_b1_plain(*args), 2)
+        report[name] = dict(err_step=err_step, mae=mae, err_max=err_max,
+                            ms=min(k1, k2), plain_ms=min(p1, p2), T1=T1)
+        print(f"time decoder_rollout[{name}] {T1} steps: kernel {k1:.3f} / {k2:.3f} ms, "
+              f"plain {p1:.3f} / {p2:.3f} ms, {card}")
+    del pipe
+    return report
+
+
+def run_main_path(torch, results):
+    """Phase 2: the generate CLI over the three clips on the card."""
+    from zeggs_tpu_torch.cli import generate as cli
+    from zeggs_tpu_torch.io import bvh
+    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+
+    argv = ["-o", str(WORK / "options.json"), "-c", str(WORK / "requests.csv"),
+            "-p", str(results), "--device", "cuda"]
+    DR.launches = 0
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = DR.launches
+    if launches != len(CLIPS):
+        fail(f"decoder_rollout launched {launches} times for {len(CLIPS)} requests")
+    for clip, seconds in CLIPS.items():
+        anim = bvh.load(results / f"{clip}.bvh")
+        frames = anim["rotations"].shape[0]
+        ok = (frames == round(60 * seconds) and abs(anim["frametime"] - DT) < 1e-6
+              and np.isfinite(anim["rotations"]).all() and np.isfinite(anim["positions"]).all())
+        print(f"main path {clip}: {frames} frames, frametime {anim['frametime']:.6f}, "
+              f"finite {bool(np.isfinite(anim['rotations']).all())}")
+        if not ok:
+            fail(f"{clip}: bad BVH ({frames} frames, expected {round(60 * seconds)})")
+    print(f"main path: {len(CLIPS)} requests, decoder_rollout launches {launches}, "
+          f"CLI wall {wall:.3f} s (pipeline load included)")
+    return launches
+
+
+def time_requests(torch, card, results):
+    """Per-request wall time on a loaded pipeline, and peak device memory."""
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(2):
+        for clip, seconds in CLIPS.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate_gesture(WORK / f"{clip}.wav", [(WORK / "style.bvh", None)], None, None,
+                             results / "timed", file_name=clip, seed=SEED, pipeline=pipe)
+            torch.cuda.synchronize()
+            if rep == 1:
+                print(f"time request {clip} ({seconds:g} s audio, bf16 kernel): "
+                      f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall, {card}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"peak device memory over the requests: {peak:.1f} MiB, {card}")
+
+
+def card_vs_cpu(torch):
+    """Phase 3: one request on the card and on the CPU at temperature 0."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+
+    def trajectories(pipe):
+        with torch.inference_mode():
+            feats, n = pipe.audio_to_features(WORK / "clip_04s.wav")
+            speech = pipe.encode_speech(feats)
+            vec, f0 = pipe.style_example_from_bvh(WORK / "style.bvh")
+            style = pipe.encode_style(vec, 0.0)[0][:, None].expand(-1, n, -1).contiguous()
+            out = pipe.rollout(f0, f0.gaze_pos[0].expand(n, 3)[None], speech, style)
+        return [o.float().cpu() for o in out]
+
+    cpu = trajectories(GesturePipeline(WORK / "models", WORK / "processed", device="cpu"))
+    maes = {}
+    for weights in ("float32", "bfloat16"):
+        card = trajectories(GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                                            rollout_weights=weights))
+        maes[weights] = max((a - b).abs().mean().item() for a, b in zip(card, cpu))
+        print(f"card ({weights} rollout weights) vs CPU, 4 s request: trajectory MAE "
+              f"{maes[weights]:.3e}")
+    if not maes["float32"] < CARD_VS_CPU_MAE:
+        fail(f"card vs CPU MAE {maes['float32']} >= {CARD_VS_CPU_MAE}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device available")
+    from zeggs_tpu_torch.device import require_device
+    from zeggs_tpu_torch.ops.kernels import build
+
+    require_device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"device: {name}")
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib = build.build("decoder_rollout")
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    print(lib.with_suffix(".log").read_text().strip())
+
+    results = write_fixture(torch)
+    with torch.inference_mode():
+        report = check_kernels(torch, card)
+    launches = run_main_path(torch, results)
+    time_requests(torch, card, results)
+    card_vs_cpu(torch)
+    if "jax" in sys.modules:
+        fail("jax was imported")
+
+    bf16 = report["bfloat16"]
+    print(json.dumps({"kernels": [{
+        "name": "decoder_rollout",
+        "route": "cuda",
+        "source": "zeggs_tpu_torch/csrc/decoder_rollout.cu",
+        "replaces": "zeggs_tpu/ops/pallas/decoder_kernel.py:568",
+        "launches": launches,
+        "max_abs_err": bf16["err_step"],
+        "ms": bf16["ms"],
+        "plain_ms": bf16["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

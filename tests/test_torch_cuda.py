@@ -1,0 +1,113 @@
+"""The decoder-rollout CUDA kernel against its plain PyTorch version, on the
+card. Imports no jax; run on a machine with a card as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Elsewhere every test skips (inside the fixture, so that every worker
+collects the same tests).
+
+Tolerances: one step from the same state 1e-4 (fp32 weights) and 1e-3
+(bf16 weights), because both versions round the same inputs the same way
+and differ only in the order of float32 sums; a whole rollout, pose MAE
+< 1e-3, the budget of docs/DESIGN.md section 5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from zeggs_tpu_torch.models import decoder as D
+from zeggs_tpu_torch.models import pose as P
+from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+
+pytestmark = pytest.mark.cuda
+
+DT = 1.0 / 60.0
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(device, njoints, hidden, T, seed=0):
+    """A decoder of PyTorch-default initialisation and a random B=1
+    conditioning, made from a seed."""
+    pose_in, pose_out = 6 + njoints * 15 + 3, 6 + njoints * 15
+    torch.manual_seed(seed)
+    dec = D.Decoder(pose_in, pose_out, 64, 64, hidden).to(device).eval()
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    stats = (t(rng.normal(size=pose_in) * 0.1), t(rng.uniform(0.5, 2.0, pose_in)),
+             t(rng.normal(size=pose_out) * 0.1), t(rng.uniform(0.05, 0.5, pose_out)))
+    q = rng.normal(size=(1, 4))
+    state0 = (t(rng.normal(size=(1, 3))), t(q / np.linalg.norm(q)),
+              t(rng.normal(size=(1, 3)) * 0.1), t(rng.normal(size=(1, 3)) * 0.1),
+              t(rng.normal(size=(1, njoints, 3))), t(rng.normal(size=(1, njoints, 2, 3))),
+              t(rng.normal(size=(1, njoints, 3)) * 0.1), t(rng.normal(size=(1, njoints, 3)) * 0.1))
+    cond = (t(rng.normal(size=(1, T, 3)) * 100), t(rng.normal(size=(1, T, 64))),
+            t(rng.normal(size=(1, T, 64))))
+    return dec, stats, state0, cond
+
+
+def _kernel_and_plain(dec, stats, state0, cond, dtype):
+    packed = DR.pack_decoder(dec.cell, *stats, weights_dtype=dtype)
+    pose0 = P.vectorize_input(*state0, cond[0][:, 0], stats[0], stats[1])
+    h = D.cell_state_encoder(dec.cell_state_encoder, pose0, cond[2][:, 0])[:, 0].contiguous()
+    cond_l0, cond_g0 = DR.conditioning(packed, cond[1], cond[2])
+    p0 = torch.cat([x.reshape(-1) for x in state0[2:]])
+    root0 = torch.cat([state0[0][0], state0[1][0]])
+    args = (packed, cond_l0, cond_g0, cond[0][0, 1:].contiguous(), p0, h, root0, DT)
+    before = DR.launches
+    rows = DR.rollout_b1(*args)
+    torch.cuda.synchronize()
+    assert DR.launches == before + 1
+    return rows, DR.rollout_b1_plain(*args)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("njoints,hidden", [(75, 1024), (8, 128)])
+@torch.no_grad()
+def test_one_step_matches_plain(device, njoints, hidden, dtype, tol):
+    dec, stats, state0, cond = _case(device, njoints, hidden, T=2)
+    rows, plain = _kernel_and_plain(dec, stats, state0, cond, dtype)
+    assert rows.shape == plain.shape == (1, 6 + njoints * 15 + 7)
+    assert (rows - plain).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@torch.no_grad()
+def test_rollout_matches_plain(device, dtype):
+    dec, stats, state0, cond = _case(device, 75, 1024, T=120, seed=1)
+    rows, plain = _kernel_and_plain(dec, stats, state0, cond, dtype)
+    assert torch.isfinite(rows).all()
+    assert (rows - plain).abs().mean().item() < 1e-3
+
+
+@torch.no_grad()
+def test_pipeline_rollout_counts_one_launch(device):
+    dec, stats, state0, cond = _case(device, 8, 128, T=30, seed=2)
+    fn = D.make_fused_b1_fn(dec, *stats, DT, weights_dtype=torch.bfloat16)
+    before = DR.launches
+    out = fn(state0, *cond)
+    torch.cuda.synchronize()
+    assert DR.launches == before + 1
+    assert [tuple(o.shape[:2]) for o in out] == [(1, 30)] * 8
+
+
+@torch.no_grad()
+def test_wrapper_rejects_mixed_devices(device):
+    dec, stats, _, _ = _case(device, 8, 128, T=2)
+    packed = DR.pack_decoder(dec.cell, *stats, weights_dtype=torch.float32)
+    H, PO = packed.hidden, packed.pose_out
+    args = [torch.zeros(3, H), torch.zeros(3, 3 * H), torch.zeros(3, 3), torch.zeros(PO),
+            torch.zeros(2, H), torch.zeros(7)]
+    with pytest.raises(ValueError):
+        DR.rollout_b1(packed, *args, DT)
