@@ -3,17 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/, writes a full-width v1 fixture made from
-a seed (75-joint skeleton, random PyTorch-default weights, statistics, a
-style BVH and three WAVs) under build/chip_smoke/, then:
+Builds the CUDA kernels from csrc/ (one nvcc per source, all at once),
+writes a full-width v1 fixture made from a seed (75-joint skeleton, random
+PyTorch-default weights, statistics, a style BVH and three WAVs of 4, 10
+and 12 s) under build/chip_smoke/, then:
 
   1. checks each kernel against its plain PyTorch version at the main
-     path's shapes (one step and a 600-frame rollout, fp32 and bf16 weights);
-  2. drives the main path: the generate CLI in CSV mode over three clips on
-     the card, with every kernel's launch count reset just before;
-  3. compares a request on the card (fp32 rollout weights) with the same
+     paths' shapes: the decoder rollout (one step and a 600-frame rollout,
+     fp32, bf16 and int8 weights; int8 also against the fp32 kernel) and
+     the GRU cell (B=64, B=2 at 1024/1024 and the JAX tests' shapes);
+  2. drives each path through the generate CLI over the three clips on the
+     card, every launch count reset just before and read just after: CSV
+     mode (3 bf16 decoder launches), `-b` (buckets of 512 frames: one B=1
+     decoder launch and a B=2 chunk of 1023 GRU-cell launches, then
+     batched against single requests at fp32 weights) and `--int8` (3 int8
+     decoder launches);
+  3. times single requests and a batch of 64 copies of the 10 s clip;
+  4. compares a request on the card (fp32 rollout weights) with the same
      request on the CPU;
-  4. prints times, each beside the card's name and power limit, one JSON
+  5. prints times, each beside the card's name and power limit, one JSON
      line of kernel results and, last, {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
@@ -28,6 +36,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -41,9 +50,17 @@ DT = 1.0 / 60.0
 # kernel against plain: one step shares rounded inputs and differs only in
 # the order of float32 sums; a whole rollout is held to the pose MAE budget
 # of docs/DESIGN.md section 5
-STEP_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+STEP_TOL = {"float32": 1e-4, "bfloat16": 1e-3, "int8": 1e-3}
 ROLLOUT_MAE = 1e-3
 CARD_VS_CPU_MAE = 1e-3
+# int8 against fp32 weights: the bound of the JAX package's int8 tests,
+# max error / max(1, max|fp32|)
+INT8_VS_FP32 = 3e-2
+# the GRU cell against its plain version (tests/test_pallas_kernels.py)
+GRU_TOL = 2e-5
+GRU_SHAPES = [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256), (16, 2304, 512)]
+BATCH_COPIES = 64
+KERNELS = ("decoder_rollout", "gru_cell")
 
 
 def fail(msg):
@@ -206,8 +223,9 @@ def check_kernels(torch, card):
     from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
 
     pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda")
-    report = {}
-    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    report, fp32_rows = {}, None
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                        ("int8", torch.int8)):
         args = rollout_inputs(torch, pipe, dtype, "clip_10s")
         T1 = args[1].shape[0]
         # one step from the same state
@@ -227,6 +245,16 @@ def check_kernels(torch, card):
             fail(f"{name}: one-step kernel/plain error {err_step} > {STEP_TOL[name]}")
         if mae >= ROLLOUT_MAE:
             fail(f"{name}: rollout kernel/plain MAE {mae} >= {ROLLOUT_MAE}")
+        if name == "float32":
+            fp32_rows = rows
+        elif name == "int8":
+            d = (rows - fp32_rows).abs()
+            rel = d.max().item() / max(1.0, fp32_rows.abs().max().item())
+            print(f"decoder_rollout[int8] against the fp32 kernel, {T1} steps: trajectory MAE "
+                  f"{d.mean().item():.3e}, max err / max(1, max|fp32|) {rel:.3e} "
+                  f"(bound {INT8_VS_FP32:g})")
+            if not rel < INT8_VS_FP32:
+                fail(f"int8 against fp32 weights: {rel} >= {INT8_VS_FP32}")
         # times: plain, kernel, kernel, plain after a warm-up of each
         DR.rollout_b1(*args)
         DR.rollout_b1_plain(*args)
@@ -242,34 +270,148 @@ def check_kernels(torch, card):
     return report
 
 
-def run_main_path(torch, results):
-    """Phase 2: the generate CLI over the three clips on the card."""
-    from zeggs_tpu_torch.cli import generate as cli
-    from zeggs_tpu_torch.io import bvh
+def check_gru_cell(torch, card):
+    """Phase 1b: the GRU-cell kernel against its plain version."""
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+
+    report = {"err": 0.0}
+    for B, in_dim, H in GRU_SHAPES:
+        torch.manual_seed(SEED + B)
+        p = GC.pack_gru(torch.nn.GRUCell(in_dim, H, device="cuda"))
+        rng = np.random.default_rng(SEED + B)
+        x = torch.as_tensor(rng.normal(size=(B, in_dim)).astype(np.float32), device="cuda")
+        h = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32), device="cuda")
+        out = GC.fused_gru_cell(p, x, h)
+        torch.cuda.synchronize()
+        err = (out - GC.gru_cell_plain(p, x, h)).abs().max().item()
+        print(f"gru_cell B={B} in={in_dim} H={H}: max|err| {err:.3e} (tol {GRU_TOL:g})")
+        if not (torch.isfinite(out).all() and err <= GRU_TOL):
+            fail(f"gru_cell at {(B, in_dim, H)}: kernel/plain error {err} > {GRU_TOL}")
+        report["err"] = max(report["err"], err)
+        if in_dim == H == 1024:
+            def kernel():
+                return GC.fused_gru_cell(p, x, h)
+
+            def plain():
+                return GC.gru_cell_plain(p, x, h)
+
+            kernel(), plain()
+            p1, k1, k2, p2 = (event_ms(torch, f, 200) for f in (plain, kernel, kernel, plain))
+            print(f"time gru_cell B={B} one step: kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, "
+                  f"plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, {card}")
+            report[B] = dict(ms=min(k1, k2), plain_ms=min(p1, p2))
+    return report
+
+
+def reset_counts():
     from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+
+    DR.launches = GC.launches = 0
+
+
+def read_counts():
+    """Launches since `reset_counts`. Each path runs one weight dtype, so
+    the decoder count is that dtype's."""
+    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+
+    return {"decoder_rollout": DR.launches, "gru_cell": GC.launches}
+
+
+def check_bvhs(results, label):
+    from zeggs_tpu_torch.io import bvh
+
+    for clip, seconds in CLIPS.items():
+        anim = bvh.load(results / f"{clip}.bvh")
+        frames = anim["rotations"].shape[0]
+        finite = bool(np.isfinite(anim["rotations"]).all() and np.isfinite(anim["positions"]).all())
+        print(f"{label} {clip}: {frames} frames, frametime {anim['frametime']:.6f}, "
+              f"finite {finite}")
+        if not (frames == round(60 * seconds) and abs(anim["frametime"] - DT) < 1e-6 and finite):
+            fail(f"{label} {clip}: bad BVH ({frames} frames, expected {round(60 * seconds)})")
+
+
+def run_cli_path(torch, results, label, flags, expected):
+    """Phase 2: the generate CLI over the three clips on the card, every
+    launch count reset just before and read just after."""
+    from zeggs_tpu_torch.cli import generate as cli
 
     argv = ["-o", str(WORK / "options.json"), "-c", str(WORK / "requests.csv"),
-            "-p", str(results), "--device", "cuda"]
-    DR.launches = 0
+            "-p", str(results), "--device", "cuda", *flags]
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = DR.launches
-    if launches != len(CLIPS):
-        fail(f"decoder_rollout launched {launches} times for {len(CLIPS)} requests")
-    for clip, seconds in CLIPS.items():
-        anim = bvh.load(results / f"{clip}.bvh")
-        frames = anim["rotations"].shape[0]
-        ok = (frames == round(60 * seconds) and abs(anim["frametime"] - DT) < 1e-6
-              and np.isfinite(anim["rotations"]).all() and np.isfinite(anim["positions"]).all())
-        print(f"main path {clip}: {frames} frames, frametime {anim['frametime']:.6f}, "
-              f"finite {bool(np.isfinite(anim['rotations']).all())}")
-        if not ok:
-            fail(f"{clip}: bad BVH ({frames} frames, expected {round(60 * seconds)})")
-    print(f"main path: {len(CLIPS)} requests, decoder_rollout launches {launches}, "
-          f"CLI wall {wall:.3f} s (pipeline load included)")
-    return launches
+    counts = read_counts()
+    print(f"{label}: {len(CLIPS)} requests, launches {counts}, CLI wall {wall:.3f} s "
+          "(pipeline load included)")
+    for name, n in counts.items():
+        if n != expected.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected {expected.get(name, 0)}")
+    check_bvhs(results, label)
+    return counts
+
+
+def bvh_mae(torch, a_path, b_path):
+    from zeggs_tpu_torch.io import bvh
+
+    a, b = bvh.load(a_path), bvh.load(b_path)
+    if a["rotations"].shape != b["rotations"].shape:
+        fail(f"{a_path.name}: {a['rotations'].shape} frames against {b['rotations'].shape}")
+    return max(np.abs(a["positions"] - b["positions"]).mean(),
+               np.abs(a["rotations"] - b["rotations"]).mean())
+
+
+def batched_vs_single(torch, results):
+    """The `-b` requests through generate_batch against single requests,
+    both at fp32 rollout weights and the same seeds."""
+    from zeggs_tpu_torch.cli import generate as cli
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+    from zeggs_tpu_torch.infer.batch import generate_batch
+
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                           rollout_weights="float32")
+    with open(WORK / "requests.csv", newline="") as f:
+        reqs = cli._requests(list(csv.DictReader(f)), "example")
+    generate_batch(pipe, reqs, results / "batch_fp32")
+    worst = 0.0
+    for r in reqs:
+        generate_gesture(r.audio, r.styles, None, None, results / "single_fp32",
+                         file_name=r.file_name, temperature=r.temperature, seed=r.seed,
+                         pipeline=pipe)
+        mae = bvh_mae(torch, results / "batch_fp32" / f"{r.file_name}.bvh",
+                      results / "single_fp32" / f"{r.file_name}.bvh")
+        print(f"batched against single (fp32 weights) {r.file_name}: BVH MAE {mae:.3e} "
+              f"(tol {ROLLOUT_MAE:g})")
+        worst = max(worst, mae)
+    if not worst < ROLLOUT_MAE:
+        fail(f"batched against single requests: BVH MAE {worst} >= {ROLLOUT_MAE}")
+
+
+def time_batch(torch, card, results):
+    """64 copies of the 10 s clip through generate_batch: one chunk of B=64
+    at T_pad 1024, bf16 pipeline; the second of two runs."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda")
+    reqs = [Request(audio=WORK / "clip_10s.wav", styles=[(WORK / "style.bvh", None)],
+                    file_name=f"copy_{i}", seed=SEED + i) for i in range(BATCH_COPIES)]
+    frames = BATCH_COPIES * round(60 * CLIPS["clip_10s"])
+    for rep in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = generate_batch(pipe, reqs, results / "batch64")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    if len(written) != BATCH_COPIES or counts["gru_cell"] != 1023:
+        fail(f"batch of {BATCH_COPIES}: wrote {len(written)}, launches {counts}")
+    print(f"time batch of {BATCH_COPIES} x 10 s clips (one B=64 chunk, T_pad 1024, "
+          f"{frames} frames): {wall:.3f} s wall, {frames / wall:.1f} frames/s, {card}")
 
 
 def time_requests(torch, card, results):
@@ -332,30 +474,45 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = build.build("decoder_rollout")
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    print(lib.with_suffix(".log").read_text().strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(build.build, KERNELS))
+    print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        print(lib.with_suffix(".log").read_text().strip())
 
     results = write_fixture(torch)
     with torch.inference_mode():
         report = check_kernels(torch, card)
-    launches = run_main_path(torch, results)
+        gru = check_gru_cell(torch, card)
+    csv_counts = run_cli_path(torch, results, "main path (CSV, bf16)", [],
+                              {"decoder_rollout": len(CLIPS)})
+    batch_counts = run_cli_path(torch, results / "batched", "batched path (-b, bf16)", ["-b"],
+                                {"decoder_rollout": 1, "gru_cell": 1023})
+    batched_vs_single(torch, results)
+    int8_counts = run_cli_path(torch, results / "int8", "int8 path (--int8)", ["--int8"],
+                               {"decoder_rollout": len(CLIPS)})
     time_requests(torch, card, results)
+    time_batch(torch, card, results)
     card_vs_cpu(torch)
     if "jax" in sys.modules:
         fail("jax was imported")
 
-    bf16 = report["bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "decoder_rollout",
-        "route": "cuda",
-        "source": "zeggs_tpu_torch/csrc/decoder_rollout.cu",
-        "replaces": "zeggs_tpu/ops/pallas/decoder_kernel.py:568",
-        "launches": launches,
-        "max_abs_err": bf16["err_step"],
-        "ms": bf16["ms"],
-        "plain_ms": bf16["plain_ms"],
-    }]}))
+    def decoder_entry(weights, launches):
+        r = report[weights]
+        return {"name": f"decoder_rollout[{weights}]", "route": "cuda",
+                "source": "zeggs_tpu_torch/csrc/decoder_rollout.cu",
+                "replaces": "zeggs_tpu/ops/pallas/decoder_kernel.py:568",
+                "launches": launches, "max_abs_err": r["err_step"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"]}
+
+    print(json.dumps({"kernels": [
+        decoder_entry("bfloat16", csv_counts["decoder_rollout"]),
+        decoder_entry("int8", int8_counts["decoder_rollout"]),
+        {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
+         "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
+         "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"],
+         "ms": gru[64]["ms"], "plain_ms": gru[64]["plain_ms"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

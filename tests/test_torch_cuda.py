@@ -1,5 +1,5 @@
-"""The decoder-rollout CUDA kernel against its plain PyTorch version, on the
-card. Imports no jax; run on a machine with a card as
+"""The CUDA kernels (decoder rollout, GRU cell) against their plain PyTorch
+versions, on the card. Imports no jax; run on a machine with a card as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -7,9 +7,11 @@ Elsewhere every test skips (inside the fixture, so that every worker
 collects the same tests).
 
 Tolerances: one step from the same state 1e-4 (fp32 weights) and 1e-3
-(bf16 weights), because both versions round the same inputs the same way
-and differ only in the order of float32 sums; a whole rollout, pose MAE
-< 1e-3, the budget of docs/DESIGN.md section 5.
+(bf16 and int8 weights), because both versions round or quantize the same
+inputs the same way and differ only in the order of float32 sums (int8
+sums are exact in both); a whole rollout, pose MAE < 1e-3, the budget of
+docs/DESIGN.md section 5. The GRU cell: 2e-5, the budget of
+tests/test_pallas_kernels.py.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.models import pose as P
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+from zeggs_tpu_torch.ops.kernels import gru_cell as GC
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +75,8 @@ def _kernel_and_plain(dec, stats, state0, cond, dtype):
     return rows, DR.rollout_b1_plain(*args)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-3),
+                                       (torch.int8, 1e-3)])
 @pytest.mark.parametrize("njoints,hidden", [(75, 1024), (8, 128)])
 @torch.no_grad()
 def test_one_step_matches_plain(device, njoints, hidden, dtype, tol):
@@ -82,7 +86,7 @@ def test_one_step_matches_plain(device, njoints, hidden, dtype, tol):
     assert (rows - plain).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @torch.no_grad()
 def test_rollout_matches_plain(device, dtype):
     dec, stats, state0, cond = _case(device, 75, 1024, T=120, seed=1)
@@ -91,10 +95,11 @@ def test_rollout_matches_plain(device, dtype):
     assert (rows - plain).abs().mean().item() < 1e-3
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 @torch.no_grad()
-def test_pipeline_rollout_counts_one_launch(device):
+def test_pipeline_rollout_counts_one_launch(device, dtype):
     dec, stats, state0, cond = _case(device, 8, 128, T=30, seed=2)
-    fn = D.make_fused_b1_fn(dec, *stats, DT, weights_dtype=torch.bfloat16)
+    fn = D.make_fused_b1_fn(dec, *stats, DT, weights_dtype=getattr(torch, dtype))
     before = DR.launches
     out = fn(state0, *cond)
     torch.cuda.synchronize()
@@ -111,3 +116,48 @@ def test_wrapper_rejects_mixed_devices(device):
             torch.zeros(2, H), torch.zeros(7)]
     with pytest.raises(ValueError):
         DR.rollout_b1(packed, *args, DT)
+
+
+@pytest.mark.parametrize("B,in_dim,H", [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256),
+                                        (16, 2304, 512), (11, 1024, 1024)])
+@torch.no_grad()
+def test_gru_cell_matches_plain(device, B, in_dim, H):
+    torch.manual_seed(B + in_dim + H)
+    cell = torch.nn.GRUCell(in_dim, H, device=device)
+    rng = np.random.default_rng(B)
+    x = torch.as_tensor(rng.normal(size=(B, in_dim)).astype(np.float32), device=device)
+    h = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32), device=device)
+    p = GC.pack_gru(cell)
+    before = GC.launches
+    out = GC.fused_gru_cell(p, x, h)
+    torch.cuda.synchronize()
+    assert GC.launches == before + 1
+    assert out.shape == (B, H) and out.device.type == "cuda"
+    assert (out - GC.gru_cell_plain(p, x, h)).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape"])
+@torch.no_grad()
+def test_cuda_tensors_raise_instead_of_falling_back(device, fault):
+    cell = torch.nn.GRUCell(64, 64, device=device)
+    x, h = torch.zeros(4, 64, device=device), torch.zeros(4, 64, device=device)
+    if fault == "dtype":
+        x, err = x.half(), TypeError
+    else:
+        h, err = torch.zeros(4, 32, device=device), ValueError
+    before = GC.launches
+    with pytest.raises(err):
+        GC.fused_gru_cell(GC.pack_gru(cell), x, h)
+    dec, stats, _, _ = _case(device, 8, 128, T=2)
+    packed = DR.pack_decoder(dec.cell, *stats, weights_dtype=torch.int8)
+    H, PO = packed.hidden, packed.pose_out
+    args = [torch.zeros(3, H, device=device), torch.zeros(3, 3 * H, device=device),
+            torch.zeros(3, 3, device=device), torch.zeros(PO, device=device),
+            torch.zeros(2, H, device=device), torch.zeros(7, device=device)]
+    if fault == "dtype":
+        args[0] = args[0].double()
+    else:
+        args[1] = torch.zeros(3, 2 * H, device=device)
+    with pytest.raises(err):
+        DR.rollout_b1(packed, *args, DT)
+    assert GC.launches == before

@@ -4,6 +4,7 @@
 Usage:
   python -m zeggs_tpu_torch.cli.generate -o options.json -s style.bvh -a audio.wav
   python -m zeggs_tpu_torch.cli.generate -o options.json -c evaluation.csv
+  python -m zeggs_tpu_torch.cli.generate -o options.json -c evaluation.csv -b --int8
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from pathlib import Path
 
 from ..config import Options
 from ..infer import GesturePipeline, generate_gesture
+from ..infer.batch import Request, generate_batch
 
 
 def build_parser():
@@ -33,8 +35,10 @@ def build_parser():
     p.add_argument("-f", "--frames", type=int, nargs=2, required=False)
     p.add_argument("-c", "--csv", type=str, required=False)
     p.add_argument("-b", "--batch", action="store_true",
-                   help="CSV mode in batched rollouts (not ported yet)")
-    p.add_argument("--int8", action="store_true", help="int8 rollouts (not ported yet)")
+                   help="CSV mode: bucket the clips by length into batched rollouts")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 decoder weights in B=1 rollouts, and int8 products in batched "
+                   "rollouts of 256 clips or more")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -43,13 +47,37 @@ def _rel(base, name):
     return base / name.replace("\\", "/")
 
 
+def _requests(rows, style_encoding_type):
+    """CSV rows -> `Request`s, as zeggs_tpu's CLI builds them."""
+    reqs = []
+    for row in rows:
+        if str(row.get("generate", "TRUE")).upper() not in ("TRUE", "1", "YES"):
+            continue
+        rb = Path(row["base_path"].replace("\\", "/"))
+        frames = (
+            tuple(int(x) for x in str(row["frames"]).split(" "))
+            if row.get("frames") and str(row["frames"]).strip()
+            else None
+        )
+        styles = (
+            [(_rel(rb, row["style"]), frames)]
+            if style_encoding_type == "example"
+            else [row["style"]]
+        )
+        reqs.append(Request(
+            audio=_rel(rb, row["audio"]),
+            styles=styles,
+            file_name=row.get("file_name") or Path(row["audio"]).stem,
+            temperature=float(row.get("temperature", 1.0)),
+            seed=int(row.get("seed", 1234)),
+            first_pose=_rel(rb, row["first_pose"]) if row.get("first_pose") else None,
+        ))
+    return reqs
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.batch:
-        parser.error("-b/--batch (batched rollouts) is not ported to zeggs_tpu_torch yet")
-    if args.int8:
-        parser.error("--int8 (int8 rollouts) is not ported to zeggs_tpu_torch yet")
     with open(args.options) as f:
         options_dict = json.load(f)
     opts = Options.from_options_dict(options_dict)
@@ -61,13 +89,20 @@ def main(argv=None):
     results_path = Path(args.results_path) if args.results_path else output_path / "results"
 
     pipeline = GesturePipeline(network_path, data_path, options=opts,
-                               style_encoding_type=args.style_encoding_type, device=args.device)
+                               style_encoding_type=args.style_encoding_type, device=args.device,
+                               rollout_weights="int8" if args.int8 else None)
     common = dict(network_path=network_path, data_path=data_path, results_path=results_path,
                   style_encoding_type=args.style_encoding_type, pipeline=pipeline)
 
     if args.csv is not None:
         with open(args.csv, newline="") as f:
             rows = list(csv.DictReader(f))
+        if args.batch:
+            written = generate_batch(pipeline, _requests(rows, args.style_encoding_type),
+                                     results_path)
+            print(f"batched mode: wrote {len(written)} clips")
+            print(f"results written to {results_path}")
+            return
         for i, row in enumerate(rows):
             if str(row.get("generate", "TRUE")).upper() not in ("TRUE", "1", "YES"):
                 continue

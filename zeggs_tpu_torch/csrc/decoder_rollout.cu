@@ -29,6 +29,17 @@
 // memory and registers of the persistent grid, TMA, wgmma and clusters are
 // later work.
 //
+// Three instantiations: float32, bf16 and int8 weights. With int8 weights
+// (the quantized branch of the Pallas kernel) a step streams 18.4 MB, half
+// of bf16. Each packed row carries one float32 scale; each of the six
+// activation vectors of a step (the normalised input, hidden, h0 before and
+// after the step, h1 before and after) is quantized once with one symmetric
+// scale s = max(max|x|, 1e-8) / 127, q = clip(rint(x / s), -127, 127); a
+// row's product is an int32 sum of __dp4a over 16-byte loads, dequantized
+// as acc * (s_act * s_row). Every activation a phase quantizes is complete
+// after the barrier before that phase and a max is exact in any order, so
+// every block computes the same scale itself and no barrier is added.
+//
 // Step t (rows are written for frames 1..T-1; frame 0 is the input state):
 //   phase 1  x = round((pose_prev | gaze in root frame) - mean) * rstd)
 //            s1 = [W_l0 x | W_g0x x | W_g0hh round(h0) | W_g1hh round(h1)]
@@ -51,6 +62,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -58,10 +71,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocksPerSm = 2;
+// floats of the block-reduction scratch; a multiple of 4, so that the int8
+// arrays after it stay 16-byte aligned (KX and H are multiples of 16 there)
+constexpr int kRedFloats = kWarps;
+static_assert(kRedFloats % 4 == 0, "int8 activations must stay 16-byte aligned");
 
 struct Args {
   const void* wx;        // (4H, KX) weight dtype
   const void* wh;        // (12H + PO, H) weight dtype
+  const float* sx;       // (4H) row scales of wx (int8 weights only)
+  const float* sh;       // (12H + PO) row scales of wh (int8 weights only)
   const float* gbias;    // (3, 3H): GRU0 b_hh, GRU1 b_ih, GRU1 b_hh
   const float* bout;     // (PO)
   const float* stats;    // (4, PI): in_mean, in_rstd, out_std, out_mean
@@ -99,6 +118,8 @@ template <> __device__ __forceinline__ float round_act<float>(float x) { return 
 template <> __device__ __forceinline__ float round_act<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// int8 weights quantize the float value instead (see quantize)
+template <> __device__ __forceinline__ float round_act<int8_t>(float x) { return x; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -134,6 +155,83 @@ __device__ __forceinline__ void warp_dots(const T* __restrict__ row0, size_t ste
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = warp_sum(acc[r]);
+}
+
+// R int8 dot products of length K (a multiple of 16) against the int8
+// activation `act`, in int32: 16 bytes a lane and four __dp4a per load.
+template <int R>
+__device__ __forceinline__ void warp_dots_i8(const int8_t* __restrict__ row0, size_t step,
+                                             const int8_t* act, int K, int (&acc)[R]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0;
+#pragma unroll 2
+  for (int k = lane * 16; k < K; k += 512) {
+    const int4 a = *reinterpret_cast<const int4*>(act + k);
+    int4 w[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) w[r] = __ldg(reinterpret_cast<const int4*>(row0 + r * step + k));
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      int s = acc[r];
+      s = __dp4a(w[r].x, a.x, s); s = __dp4a(w[r].y, a.y, s);
+      s = __dp4a(w[r].z, a.z, s); s = __dp4a(w[r].w, a.w, s);
+      acc[r] = s;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+}
+
+// An activation vector as a product phase reads it: float values (rounded
+// to the weight dtype) or int8 values with their scale.
+struct Act {
+  const float* v;
+  const int8_t* q;
+  float s;
+};
+
+// R rows row, row + rstep, ... of the (N, K) matrix `w` against `act`;
+// `scales` are the matrix's row scales (int8 weights only).
+template <typename T, int R>
+__device__ __forceinline__ void dots(const T* w, int row, int rstep, const Act& act, int K,
+                                     const float* scales, float (&d)[R]) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    // the row scales are loaded before the weights, so that their latency
+    // overlaps the dot product's instead of following it
+    float sr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sr[r] = __ldg(scales + row + r * rstep);
+    int acc[R];
+    warp_dots_i8<R>(w + (size_t)row * K, (size_t)rstep * K, act.q, K, acc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) d[r] = (float)acc[r] * (act.s * sr[r]);
+  } else {
+    warp_dots<T, R>(w + (size_t)row * K, (size_t)rstep * K, act.v, K, d);
+  }
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, red[i]);
+  __syncthreads();  // red is free again
+  return m;
+}
+
+// Quantize the n float values `v` (complete in shared memory, max|v| = m)
+// into `q`; returns the scale. The caller synchronises before `q` is read.
+__device__ __forceinline__ float quantize(const float* v, int8_t* q, int n, float m) {
+  const float s = fmaxf(m, 1e-8f) / 127.f;
+  for (int k = threadIdx.x; k < n; k += kThreads)
+    q[k] = (int8_t)fminf(fmaxf(rintf(v[k] / s), -127.f), 127.f);
+  return s;
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
@@ -181,6 +279,7 @@ __device__ __forceinline__ void quat_from_helical(const float* v, float* q) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSm)
 decoder_rollout_kernel(const Args a) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
 
@@ -191,14 +290,19 @@ decoder_rollout_kernel(const Args a) {
   float* s_act = s_h1 + H;     // [H]  phases 2-4 activation
   float* s_root = s_act + H;   // [8]  root_pos | root_rot
   float* s_gd = s_root + 8;    // [4]  gaze in the root frame
+  float* s_red = s_gd + 4;     // [kWarps] block reductions
+  // int8 weights: the same four activations quantized (16-byte aligned)
+  int8_t* q_x = reinterpret_cast<int8_t*>(s_red + kRedFloats);  // [KX]
+  int8_t* q_h0 = q_x + KX;     // [H]
+  int8_t* q_h1 = q_h0 + H;     // [H]
+  int8_t* q_act = q_h1 + H;    // [H]
 
   const T* wx = static_cast<const T*>(a.wx);
   const T* wh = static_cast<const T*>(a.wh);
-  const T* w_g0h = wh;
-  const T* w_g0hh = wh + (size_t)G * H;
-  const T* w_g1ih = wh + (size_t)2 * G * H;
-  const T* w_g1hh = wh + (size_t)3 * G * H;
-  const T* w_out = wh + (size_t)4 * G * H;
+  // row offsets in wh: GRU0 hidden part | GRU0 w_hh | GRU1 w_ih | GRU1 w_hh | out
+  const int r_g0hh = G, r_g1ih = 2 * G, r_g1hh = 3 * G, r_out = 4 * G;
+  Act act_x{s_x, q_x, 1.f}, act_h0{s_h0, q_h0, 1.f}, act_h1{s_h1, q_h1, 1.f};
+  Act act{s_act, q_act, 1.f};
 
   const float* in_mean = a.stats;
   const float* in_rstd = a.stats + PI;
@@ -234,35 +338,52 @@ decoder_rollout_kernel(const Args a) {
       quat_mul_vec(q_inv, gz, s_gd);
     }
     __syncthreads();
+    float m_x = 0.f, m_h0 = 0.f, m_h1 = 0.f;
     for (int k = threadIdx.x; k < KX; k += kThreads) {
       float v = 0.f;
       if (k < PO) v = (__ldcg(pose_c + k) - in_mean[k]) * in_rstd[k];
       else if (k < PI) v = (s_gd[k - PO] - in_mean[k]) * in_rstd[k];
       s_x[k] = round_act<T>(v);
+      m_x = fmaxf(m_x, fabsf(v));
     }
     for (int k = threadIdx.x; k < H; k += kThreads) {
-      s_h0[k] = round_act<T>(__ldcg(h0_c + k));
-      s_h1[k] = round_act<T>(__ldcg(h1_c + k));
+      const float v0 = __ldcg(h0_c + k), v1 = __ldcg(h1_c + k);
+      s_h0[k] = round_act<T>(v0);
+      s_h1[k] = round_act<T>(v1);
+      m_h0 = fmaxf(m_h0, fabsf(v0));
+      m_h1 = fmaxf(m_h1, fabsf(v1));
+    }
+    if constexpr (kInt8) {
+      m_x = block_max(m_x, s_red);
+      m_h0 = block_max(m_h0, s_red);
+      m_h1 = block_max(m_h1, s_red);
+      act_x.s = quantize(s_x, q_x, KX, m_x);
+      act_h0.s = quantize(s_h0, q_h0, H, m_h0);
+      act_h1.s = quantize(s_h1, q_h1, H, m_h1);
     }
     __syncthreads();
     for (int task = gwarp; task < 10 * H; task += nwarps) {
       float d[1];
-      if (task < 4 * H) warp_dots<T, 1>(wx + (size_t)task * KX, 0, s_x, KX, d);
-      else if (task < 7 * H) warp_dots<T, 1>(w_g0hh + (size_t)(task - 4 * H) * H, 0, s_h0, H, d);
-      else warp_dots<T, 1>(w_g1hh + (size_t)(task - 7 * H) * H, 0, s_h1, H, d);
+      if (task < 4 * H) dots<T, 1>(wx, task, 0, act_x, KX, a.sx, d);
+      else if (task < 7 * H) dots<T, 1>(wh, r_g0hh + task - 4 * H, 0, act_h0, H, a.sh, d);
+      else dots<T, 1>(wh, r_g1hh + task - 7 * H, 0, act_h1, H, a.sh, d);
       if (lane == 0) __stcg(s1 + task, d[0]);
     }
     grid.sync();  // 1: layer0 and the phase-1 products are complete
 
     // ---- phase 2: layer0 + ELU, GRU0 -------------------------------------
+    float m = 0.f;
     for (int k = threadIdx.x; k < H; k += kThreads) {
       const float pre = a.cond_l0[(size_t)t * H + k] + __ldcg(s1 + k);
-      s_act[k] = round_act<T>(pre > 0.f ? pre : expf(pre) - 1.f);
+      const float hid = pre > 0.f ? pre : expf(pre) - 1.f;
+      s_act[k] = round_act<T>(hid);
+      m = fmaxf(m, fabsf(hid));
     }
+    if constexpr (kInt8) act.s = quantize(s_act, q_act, H, block_max(m, s_red));
     __syncthreads();
     for (int j = gwarp; j < H; j += nwarps) {
       float d[3];
-      warp_dots<T, 3>(w_g0h + (size_t)j * H, (size_t)H * H, s_act, H, d);
+      dots<T, 3>(wh, j, H, act, H, a.sh, d);
       if (lane == 0) {
         const float* cg0 = a.cond_g0 + (size_t)t * G;
         const float gi_r = (cg0[j] + __ldcg(s1 + H + j)) + d[0];
@@ -277,11 +398,17 @@ decoder_rollout_kernel(const Args a) {
     grid.sync();  // 2: the new GRU0 state is complete
 
     // ---- phase 3: GRU1 ---------------------------------------------------
-    for (int k = threadIdx.x; k < H; k += kThreads) s_act[k] = round_act<T>(__ldcg(h0_n + k));
+    m = 0.f;
+    for (int k = threadIdx.x; k < H; k += kThreads) {
+      const float v = __ldcg(h0_n + k);
+      s_act[k] = round_act<T>(v);
+      m = fmaxf(m, fabsf(v));
+    }
+    if constexpr (kInt8) act.s = quantize(s_act, q_act, H, block_max(m, s_red));
     __syncthreads();
     for (int j = gwarp; j < H; j += nwarps) {
       float d[3];
-      warp_dots<T, 3>(w_g1ih + (size_t)j * H, (size_t)H * H, s_act, H, d);
+      dots<T, 3>(wh, r_g1ih + j, H, act, H, a.sh, d);
       if (lane == 0) {
         const float* b_ih = a.gbias + G;
         const float* b_hh = a.gbias + 2 * G;
@@ -295,12 +422,18 @@ decoder_rollout_kernel(const Args a) {
     grid.sync();  // 3: the new GRU1 state is complete
 
     // ---- phase 4: output projection, denormalise -------------------------
-    for (int k = threadIdx.x; k < H; k += kThreads) s_act[k] = round_act<T>(__ldcg(h1_n + k));
+    m = 0.f;
+    for (int k = threadIdx.x; k < H; k += kThreads) {
+      const float v = __ldcg(h1_n + k);
+      s_act[k] = round_act<T>(v);
+      m = fmaxf(m, fabsf(v));
+    }
+    if constexpr (kInt8) act.s = quantize(s_act, q_act, H, block_max(m, s_red));
     __syncthreads();
     float* out_row = a.out + (size_t)t * (PO + 7);
     for (int c = gwarp; c < PO; c += nwarps) {
       float d[1];
-      warp_dots<T, 1>(w_out + (size_t)c * H, 0, s_act, H, d);
+      dots<T, 1>(wh, r_out + c, 0, act, H, a.sh, d);
       if (lane == 0) {
         const float p = (d[0] + a.bout[c]) * out_std[c] + out_mean[c];
         __stcg(pose_n + c, p);
@@ -329,7 +462,11 @@ decoder_rollout_kernel(const Args a) {
   }
 }
 
-size_t smem_bytes(int H, int KX) { return (size_t)(KX + 3 * H + 12) * sizeof(float); }
+template <typename T>
+size_t smem_bytes(int H, int KX) {
+  const size_t floats = (size_t)(KX + 3 * H + 12 + kRedFloats) * sizeof(float);
+  return floats + (std::is_same<T, int8_t>::value ? (size_t)(KX + 3 * H) : 0);
+}
 
 // Blocks of one cooperative launch (all resident at once), or a negative
 // cudaError_t.
@@ -343,7 +480,7 @@ int grid_blocks(int H, int KX) {
   if (!coop) return -(int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -(int)err;
-  const size_t smem = smem_bytes(H, KX);
+  const size_t smem = smem_bytes<T>(H, KX);
   err = cudaFuncSetAttribute(decoder_rollout_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -362,7 +499,7 @@ int launch(const Args& a, cudaStream_t stream) {
   void* params[] = {const_cast<Args*>(&a)};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(decoder_rollout_kernel<T>), dim3(blocks), dim3(kThreads),
-      params, smem_bytes(a.H, a.KX), stream);
+      params, smem_bytes<T>(a.H, a.KX), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -371,14 +508,16 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
+// Weight dtypes: 0 float32, 1 bfloat16, 2 int8 (with row scales sx, sh).
 // Launch the rollout on `stream`; returns a cudaError_t (0 on success).
-int zeggs_decoder_rollout(int weights_bf16, const void* wx, const void* wh, const void* gbias,
+int zeggs_decoder_rollout(int weights, const void* wx, const void* wh, const void* sx,
+                          const void* sh, const void* gbias,
                           const void* bout, const void* stats, const void* cond_l0,
                           const void* cond_g0, const void* gaze, const void* p0,
                           const void* h_init, const void* root0, void* out, void* scratch,
                           int T1, int H, int pose_in, int pose_out, int kx, float dt,
                           void* stream) {
-  const Args a{wx, wh,
+  const Args a{wx, wh, static_cast<const float*>(sx), static_cast<const float*>(sh),
                static_cast<const float*>(gbias), static_cast<const float*>(bout),
                static_cast<const float*>(stats), static_cast<const float*>(cond_l0),
                static_cast<const float*>(cond_g0), static_cast<const float*>(gaze),
@@ -386,12 +525,22 @@ int zeggs_decoder_rollout(int weights_bf16, const void* wx, const void* wh, cons
                static_cast<const float*>(root0), static_cast<float*>(out),
                static_cast<float*>(scratch), T1, H, pose_in, pose_out, kx, dt};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return weights_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
+  switch (weights) {
+    case 0: return launch<float>(a, s);
+    case 1: return launch<__nv_bfloat16>(a, s);
+    case 2: return launch<int8_t>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Blocks per launch on the current device, or a negative cudaError_t.
-int zeggs_decoder_rollout_grid(int weights_bf16, int H, int kx) {
-  return weights_bf16 ? grid_blocks<__nv_bfloat16>(H, kx) : grid_blocks<float>(H, kx);
+int zeggs_decoder_rollout_grid(int weights, int H, int kx) {
+  switch (weights) {
+    case 0: return grid_blocks<float>(H, kx);
+    case 1: return grid_blocks<__nv_bfloat16>(H, kx);
+    case 2: return grid_blocks<int8_t>(H, kx);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 const char* zeggs_cuda_error_string(int code) {

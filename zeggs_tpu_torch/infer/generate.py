@@ -6,11 +6,14 @@ styles blend by a weighted sum ("add") or by per-frame ranges ("stitch");
 a first pose may be given; the VAE temperature and the seed control the
 style draw. `GesturePipeline` loads networks and statistics once onto one
 device and serves requests there; at B=1 on a card the decoder rollout is
-one launch of the CUDA kernel.
+one launch of the CUDA kernel. The batched entry points used by
+`infer/batch.py` (`encode_speech_batched`, `encode_styles_batch`,
+`rollout_batch`) live here too.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from shutil import copyfile
 
@@ -28,7 +31,12 @@ from ..models.style_encoder import StyleEncoder
 from ..ops import quat, xform
 from ..utils import split_by_ratio, write_bvh
 
-_ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
+#: batch size from which batched rollouts run int8 products when int8 is
+#: selected (below it the per-step quantization is not amortized)
+INT8_BATCHED_MIN = 256
+#: featurized style examples a pipeline keeps
+STYLE_CACHE = 128
 _STATE0 = ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy", "lvel", "lvrt")
 
 
@@ -37,9 +45,20 @@ class GesturePipeline:
     ``device``, which it never leaves."""
 
     def __init__(self, network_path, data_path, options=None, style_encoding_type="example",
-                 device="cuda", rollout_weights="bfloat16"):
+                 device="cuda", rollout_weights=None):
         """rollout_weights: dtype of the decoder weights in the B=1 CUDA
-        kernel, "bfloat16" (37 MB streamed per frame) or "float32"."""
+        kernel: "bfloat16" (37 MB streamed per frame; the default), "float32"
+        or "int8" (18 MB, one scale per weight row, activations quantized
+        every step). None takes "int8" when the environment sets
+        ZEGGS_FUSED_INT8, else "bfloat16".
+
+        B=1 rollouts run the kernel on a card. On the CPU they run the
+        eager rollout, except with "int8", where the kernel's plain PyTorch
+        version runs on the int8 packing: the CPU takes the plain version of
+        each kernel. With "int8", batched rollouts of at least
+        INT8_BATCHED_MIN rows run their products on int8 values."""
+        if rollout_weights is None:
+            rollout_weights = "int8" if os.environ.get("ZEGGS_FUSED_INT8") else "bfloat16"
         if rollout_weights not in _ROLLOUT_WEIGHTS:
             raise ValueError(f"rollout_weights must be one of {sorted(_ROLLOUT_WEIGHTS)}")
         self.device = require_device(device)
@@ -62,17 +81,20 @@ class GesturePipeline:
                 for k in stats.files
             }
         self.networks = self._load_networks(network_path)
+        self._style_cache = {}
 
         dec_cfg = self.opts.net.decoder
+        self.rollout_weights = rollout_weights
+        weights_dtype = _ROLLOUT_WEIGHTS[rollout_weights]
+        self._quantize_batched = rollout_weights == "int8" and dec_cfg.rnn_cond == "normal"
         self._fused_fn = None
-        if self.device.type == "cuda" and decoder.fused_b1_supported(
-            self.networks["decoder"], dec_cfg.rnn_cond, dec_cfg.num_rnn_layers
+        if (self.device.type == "cuda" or rollout_weights == "int8") and decoder.fused_b1_supported(
+            self.networks["decoder"], dec_cfg.rnn_cond, dec_cfg.num_rnn_layers, weights_dtype
         ):
             self._fused_fn = decoder.make_fused_b1_fn(
                 self.networks["decoder"], self.stats["anim_input_mean"],
                 self.stats["anim_input_std"], self.stats["anim_output_mean"],
-                self.stats["anim_output_std"], self.dt,
-                weights_dtype=_ROLLOUT_WEIGHTS[rollout_weights],
+                self.stats["anim_output_std"], self.dt, weights_dtype=weights_dtype,
             )
 
     # -- loading ----------------------------------------------------------
@@ -130,11 +152,23 @@ class GesturePipeline:
         return feats, n_frames
 
     def encode_speech(self, audio_features):
+        return self.encode_speech_batched(audio_features[None])
+
+    def encode_speech_batched(self, audio_features):
+        """(B, T, n_features) -> (B, T, S) speech encodings."""
         x = (audio_features - self.stats["audio_input_mean"]) / self.stats["audio_input_std"]
-        return self.networks["speech_encoder"](x[None])
+        return self.networks["speech_encoder"](x)
 
     def style_example_from_bvh(self, path, frames=None):
-        """BVH example -> (feature vec (L, pose_in), AnimFeatures)."""
+        """BVH example -> (feature vec (L, pose_in), AnimFeatures). Cached by
+        (path, mtime, frames), at most STYLE_CACHE entries, as the JAX
+        pipeline caches it: requests reuse a few style clips, and the FK
+        featurization is the costly part of a request. Callers must not
+        modify the returned tensors."""
+        key = (str(path), Path(path).stat().st_mtime_ns, tuple(frames) if frames else None)
+        hit = self._style_cache.get(key)
+        if hit is not None:
+            return hit
         anim = bvh.load(path)
         if frames is not None:
             anim["rotations"] = anim["rotations"][frames[0] : frames[1]]
@@ -145,7 +179,10 @@ class GesturePipeline:
         feats = F.preprocess_animation(anim, device=self.device)
         vec = pose.example_feature_vec(feats.root_vel, feats.root_vrt, feats.lpos, feats.ltxy,
                                        feats.lvel, feats.lvrt)
-        return vec, feats
+        if len(self._style_cache) >= STYLE_CACHE:
+            self._style_cache.pop(next(iter(self._style_cache)))
+        self._style_cache[key] = hit = (vec, feats)
+        return hit
 
     def encode_style(self, example_vec, temperature=1.0, generator=None):
         """Encode an (L, pose_in) example at its own length -> (embedding,
@@ -156,6 +193,44 @@ class GesturePipeline:
             x[None], temperature=temperature if stochastic else 1.0,
             generator=generator if stochastic else None,
         )
+
+    def encode_styles_batch(self, jobs):
+        """Encode many style examples, one batched call per 64-frame length
+        bucket (counterpart of the JAX pipeline's `encode_styles_batch`).
+
+        jobs: list of (vec (L, pose_in), temperature, torch.Generator).
+        Returns one (1, C) encoding per job. The encoder gives mu and logvar
+        of the length-masked batch; then, job by job in order, eps of shape
+        (1, C) is drawn from that job's generator where the temperature is
+        above 0, so a request whose styles share one generator gets the
+        draws `generate_gesture` makes for the same seed and styles."""
+        if not jobs:
+            return []
+        buckets = {}
+        for i, (vec, _, _) in enumerate(jobs):
+            buckets.setdefault(max(64, -(-vec.shape[0] // 64) * 64), []).append(i)
+        mu, logvar = [None] * len(jobs), [None] * len(jobs)
+        encoder = self.networks["style_encoder"]
+        for Lb, idxs in sorted(buckets.items()):
+            D = jobs[idxs[0]][0].shape[1]
+            padded = torch.zeros((len(idxs), Lb, D), device=self.device)
+            lengths = torch.tensor([jobs[i][0].shape[0] for i in idxs], device=self.device)
+            for j, i in enumerate(idxs):
+                padded[j, : jobs[i][0].shape[0]] = jobs[i][0]
+            x = (padded - self.stats["anim_input_mean"]) / self.stats["anim_input_std"]
+            enc, m, lv = encoder(x, lengths=lengths)
+            for j, i in enumerate(idxs):
+                mu[i] = (enc if m is None else m)[j : j + 1]
+                logvar[i] = None if lv is None else lv[j : j + 1]
+        out = []
+        for (_, temperature, generator), m, lv in zip(jobs, mu, logvar):
+            if lv is None or temperature <= 0.0:
+                out.append(m)
+                continue
+            std = torch.exp(0.5 * lv) / temperature
+            eps = torch.randn(std.shape, generator=generator, device=std.device, dtype=std.dtype)
+            out.append(m + eps * std)
+        return out
 
     def label_encoding(self, label):
         one_hot = torch.zeros((1, len(self.label_names)), device=self.device)
@@ -169,7 +244,16 @@ class GesturePipeline:
         conditioning -> (root_pos, root_rot, lpos, lrot) trajectories
         (1, T, ...), joint rotations as quaternions."""
         state0 = tuple(getattr(first_pose_feats, k)[0:1] for k in _STATE0)
-        if self._fused_fn is not None and speech_enc.shape[0] == 1:
+        return self.rollout_batch(state0, gaze_pos, speech_enc, style_enc)
+
+    def rollout_batch(self, state0, gaze_pos, speech_enc, style_enc):
+        """Rollout of B clips from their frame-0 states (8 tensors (B, ...),
+        the order of `decoder.rollout`) under (B, T, ...) conditioning ->
+        (root_pos, root_rot, lpos, lrot) trajectories (B, T, ...). B=1 takes
+        the decoder kernel where the pipeline has one; larger batches run
+        the eager rollout, with GRU1 through the GRU-cell kernel on a card."""
+        B = speech_enc.shape[0]
+        if self._fused_fn is not None and B == 1:
             out = self._fused_fn(state0, gaze_pos, speech_enc, style_enc)
             out = tuple(out[i] for i in (0, 1, 4, 5))
         else:
@@ -178,6 +262,7 @@ class GesturePipeline:
                 self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
                 s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
                 s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
+                quantize_int8=self._quantize_batched and B >= INT8_BATCHED_MIN,
             )
         lrot = quat.from_xform(xform.orthogonalize_from_xy(out[3]))
         return out[:3] + (lrot,)

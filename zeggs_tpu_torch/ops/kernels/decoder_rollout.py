@@ -8,9 +8,14 @@ input, runs layer0+ELU, GRU0, GRU1 and the output projection, denormalises,
 integrates the root and emits one row [pose_out | root_pos | root_rot].
 
 Numerics shared by the kernel and `rollout_b1_plain`:
-  * every activation is rounded to the weight dtype before its product;
-    products accumulate in float32; gates, hidden states, pose and root
-    stay float32;
+  * with float32 or bf16 weights every activation is rounded to the weight
+    dtype before its product, and products accumulate in float32;
+  * with int8 weights (one float32 scale per packed row) each of the six
+    activation vectors of a step is quantized once with one symmetric
+    scale, s = max(max|x|, 1e-8) / 127, q = clip(round(x / s), -127, 127),
+    round half to even; a product is an exact integer sum, dequantized as
+    acc * (s * s_row);
+  * gates, hidden states, pose and root stay float32;
   * the input is normalised by multiplying with 1/std;
   * ELU is exp(x) - 1;
   * the root rotation is updated as dq * rq, with the reference kernel's
@@ -38,12 +43,16 @@ from . import build
 #: tensors does not count
 launches = 0
 
+#: weight dtype -> the kernel's instantiation
+_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
 
 @dataclasses.dataclass
 class PackedDecoder:
     """The ``normal`` cell packed for the kernel, every matrix (N, K) with
     K contiguous so that one warp reads one output column with 16-byte
-    loads. K is padded with zeros to a multiple of 8 (kx) for alignment.
+    loads. K is padded with zeros to a multiple of 8 (16 for int8) (kx)
+    for alignment.
 
       wx (4H, kx):      rows [0, H) layer0 pose columns,
                         rows [H, 4H) GRU0 input-product pose columns
@@ -51,10 +60,15 @@ class PackedDecoder:
                         (3H rows each) | output projection (PO rows)
       gbias (3, 3H):    GRU0 b_hh, GRU1 b_ih, GRU1 b_hh
       stats (4, PI):    in_mean, 1/in_std, out_std, out_mean (zero padded)
+      sx (4H), sh (12H + PO): float32 row scales of int8 wx and wh
+                        (max|row| / 127, 1 for an all-zero row); ones for
+                        float weights
     """
 
     wx: torch.Tensor
     wh: torch.Tensor
+    sx: torch.Tensor
+    sh: torch.Tensor
     gbias: torch.Tensor
     bout: torch.Tensor
     stats: torch.Tensor
@@ -75,13 +89,30 @@ def _round_up(n, m):
     return (n + m - 1) // m * m
 
 
+def _quantize_rows(m):
+    """Symmetric int8 rows with one float32 scale each: the JAX packer's
+    per-output-column scale in the port's (N, K) layout."""
+    s = m.abs().amax(dim=1) / 127.0
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return torch.round(m / s[:, None]).to(torch.int8), s
+
+
+def quantize_act(x):
+    """One activation vector -> (int8 values as float32, scale): the
+    kernel's per-step quantization."""
+    s = torch.clamp(x.abs().max(), min=1e-8) / 127.0
+    return torch.clamp(torch.round(x / s), -127.0, 127.0), s
+
+
 @torch.no_grad()
 def pack_decoder(cell, anim_input_mean, anim_input_std, anim_output_mean, anim_output_std,
                  weights_dtype=torch.bfloat16):
     """Pack a `models.decoder.NormalCell` and the pose statistics once per
-    model. ``weights_dtype`` is torch.bfloat16 or torch.float32."""
-    if weights_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"weights_dtype must be bfloat16 or float32, got {weights_dtype}")
+    model. ``weights_dtype`` is torch.bfloat16, torch.float32 or torch.int8;
+    with int8 the hoisted speech/style projections stay bf16."""
+    if weights_dtype not in _KINDS:
+        raise ValueError(f"weights_dtype must be bfloat16, float32 or int8, got {weights_dtype}")
+    quantized = weights_dtype == torch.int8
     dev = cell.out.weight.device
     H = cell.gru1.weight_hh.shape[1]
     PI = anim_input_mean.shape[-1]
@@ -90,7 +121,7 @@ def pack_decoder(cell, anim_input_mean, anim_input_std, anim_output_mean, anim_o
     w0 = cell.layer0.weight.to(f32)
     wg = cell.gru0.weight_ih.to(f32)
 
-    wx = torch.zeros((4 * H, _round_up(PI, 8)), dtype=f32, device=dev)
+    wx = torch.zeros((4 * H, _round_up(PI, 16 if quantized else 8)), dtype=f32, device=dev)
     wx[:H, :PI] = w0[:, :PI]
     wx[H:, :PI] = wg[:, H : H + PI]
     wh = torch.cat([
@@ -102,15 +133,24 @@ def pack_decoder(cell, anim_input_mean, anim_input_std, anim_output_mean, anim_o
     stats[1] = 1.0 / anim_input_std.to(f32)
     stats[2, :PO] = anim_output_std.to(f32)
     stats[3, :PO] = anim_output_mean.to(f32)
+    if quantized:
+        (wx, sx), (wh, sh) = _quantize_rows(wx), _quantize_rows(wh)
+        cond_dtype = torch.bfloat16
+    else:
+        sx = torch.ones(wx.shape[0], dtype=f32, device=dev)
+        sh = torch.ones(wh.shape[0], dtype=f32, device=dev)
+        cond_dtype = weights_dtype
     return PackedDecoder(
         wx=wx.to(weights_dtype).contiguous(),
         wh=wh.to(weights_dtype).contiguous(),
+        sx=sx.contiguous(),
+        sh=sh.contiguous(),
         gbias=torch.stack([cell.gru0.bias_hh, cell.gru1.bias_ih, cell.gru1.bias_hh]).to(f32),
         bout=cell.out.bias.to(f32).contiguous(),
         stats=stats,
-        w_cond_l0=w0[:, PI:].to(weights_dtype).contiguous(),
+        w_cond_l0=w0[:, PI:].to(cond_dtype).contiguous(),
         b_l0=cell.layer0.bias.to(f32),
-        w_cond_g0=wg[:, H + PI :].to(weights_dtype).contiguous(),
+        w_cond_g0=wg[:, H + PI :].to(cond_dtype).contiguous(),
         b_g0=cell.gru0.bias_ih.to(f32),
         pose_in=PI, pose_out=PO, hidden=H,
     )
@@ -137,39 +177,51 @@ def _from_helical(v, eps=1e-5):
 @torch.no_grad()
 def rollout_b1_plain(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0, dt):
     """The kernel's function in PyTorch, step by step: the same packed
-    weights, the same activation rounding, float32 sums. Returns the
+    weights, the same activation rounding or quantization, float32 sums
+    (int8 products summed exactly, in float64). Returns the
     (T-1, pose_out + 7) rows."""
     H, PI, PO = packed.hidden, packed.pose_in, packed.pose_out
     G = 3 * H
     wdt = packed.wx.dtype
-    wx = packed.wx.float()[:, :PI]
-    wh = packed.wh.float()
-    w_l0, w_g0x = wx[:H], wx[H:]
+    if wdt == torch.int8:
+        wx, wh = packed.wx.double()[:, :PI], packed.wh.double()
+
+        def dot(w, s, v):
+            q, sa = quantize_act(v)
+            return (w @ q.double()).float() * (sa * s)
+    else:
+        wx, wh = packed.wx.float()[:, :PI], packed.wh.float()
+
+        def dot(w, s, v):
+            return w @ v.to(wdt).float()
+
+    def rows_of(lo, hi):
+        return wh[lo:hi], packed.sh[lo:hi]
+
+    w_l0, w_g0x = (wx[:H], packed.sx[:H]), (wx[H:], packed.sx[H:])
     w_g0h, w_g0hh, w_g1ih, w_g1hh, w_out = (
-        wh[:G], wh[G : 2 * G], wh[2 * G : 3 * G], wh[3 * G : 4 * G], wh[4 * G :]
+        rows_of(0, G), rows_of(G, 2 * G), rows_of(2 * G, 3 * G), rows_of(3 * G, 4 * G),
+        rows_of(4 * G, 4 * G + PO),
     )
     in_mean, in_rstd = packed.stats[0], packed.stats[1]
     out_std, out_mean = packed.stats[2, :PO], packed.stats[3, :PO]
     b_hh0, b_ih1, b_hh1 = packed.gbias
-
-    def act(v):
-        return v.to(wdt).float()
 
     pose, h0, h1 = p0, h_init[0], h_init[1]
     rp, rq = root0[:3], root0[3:7]
     rows = []
     for t in range(cond_l0.shape[0]):
         gd = quat.inv_mul_vec(rq, gaze[t] - rp)
-        x = act((torch.cat([pose, gd]) - in_mean) * in_rstd)
-        pre = cond_l0[t] + w_l0 @ x
+        x = (torch.cat([pose, gd]) - in_mean) * in_rstd
+        pre = cond_l0[t] + dot(*w_l0, x)
         hidden = torch.where(pre > 0.0, pre, torch.exp(pre) - 1.0)
-        gi = (cond_g0[t] + w_g0x @ x) + w_g0h @ act(hidden)
-        gh = w_g0hh @ act(h0) + b_hh0
+        gi = (cond_g0[t] + dot(*w_g0x, x)) + dot(*w_g0h, hidden)
+        gh = dot(*w_g0hh, h0) + b_hh0
         h0 = gru_gates(gi, gh, h0)
-        gi1 = w_g1ih @ act(h0) + b_ih1
-        gh1 = w_g1hh @ act(h1) + b_hh1
+        gi1 = dot(*w_g1ih, h0) + b_ih1
+        gh1 = dot(*w_g1hh, h1) + b_hh1
         h1 = gru_gates(gi1, gh1, h1)
-        pose = (w_out @ act(h1) + packed.bout) * out_std + out_mean
+        pose = (dot(*w_out, h1) + packed.bout) * out_std + out_mean
         rp = rp + quat.mul_vec(rq, pose[0:3] * dt)
         rq = quat.mul(_from_helical(quat.mul_vec(rq, pose[3:6] * dt)), rq)
         rows.append(torch.cat([pose, rp, rq]))
@@ -185,13 +237,17 @@ def rollout_b1_plain(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, 
 def _check(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0):
     H, PO = packed.hidden, packed.pose_out
     T1 = cond_l0.shape[0]
-    if packed.wx.dtype not in (torch.bfloat16, torch.float32) or packed.wh.dtype != packed.wx.dtype:
-        raise TypeError(f"packed weights must be bfloat16 or float32, got {packed.wx.dtype}")
-    if H % 8 or packed.kx % 8:
-        raise ValueError(f"hidden size {H} and packed width {packed.kx} must be multiples of 8")
+    if packed.wx.dtype not in _KINDS or packed.wh.dtype != packed.wx.dtype:
+        raise TypeError(f"packed weights must be float32, bfloat16 or int8, got {packed.wx.dtype}")
+    align = 16 if packed.wx.dtype == torch.int8 else 8
+    if H % align or packed.kx % align:
+        raise ValueError(f"hidden size {H} and packed width {packed.kx} must be multiples of "
+                         f"{align} for {packed.wx.dtype} weights")
     expected = {
         "wx": (packed.wx, (4 * H, packed.kx)),
         "wh": (packed.wh, (12 * H + PO, H)),
+        "sx": (packed.sx, (4 * H,)),
+        "sh": (packed.sh, (12 * H + PO,)),
         "gbias": (packed.gbias, (3, 3 * H)),
         "bout": (packed.bout, (PO,)),
         "stats": (packed.stats, (4, packed.pose_in)),
@@ -220,7 +276,7 @@ def _check(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0):
 def _library():
     lib = build.load("decoder_rollout")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.zeggs_decoder_rollout.argtypes = [i] + [p] * 13 + [i] * 5 + [ctypes.c_float, p]
+    lib.zeggs_decoder_rollout.argtypes = [i] + [p] * 15 + [i] * 5 + [ctypes.c_float, p]
     lib.zeggs_decoder_rollout.restype = i
     lib.zeggs_decoder_rollout_grid.argtypes = [i, i, i]
     lib.zeggs_decoder_rollout_grid.restype = i
@@ -240,7 +296,7 @@ def grid_blocks(packed: PackedDecoder):
     """Blocks the kernel launches on the current card (all resident at
     once); raises if it cannot be launched cooperatively."""
     lib = _library()
-    n = lib.zeggs_decoder_rollout_grid(int(packed.wx.dtype == torch.bfloat16), packed.hidden, packed.kx)
+    n = lib.zeggs_decoder_rollout_grid(_KINDS[packed.wx.dtype], packed.hidden, packed.kx)
     if n <= 0:
         raise RuntimeError(f"decoder_rollout cannot launch: {lib.zeggs_cuda_error_string(-n).decode()}")
     return n
@@ -268,8 +324,9 @@ def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0,
         scratch = torch.empty((scratch_floats(H, PO),), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zeggs_decoder_rollout(
-            int(packed.wx.dtype == torch.bfloat16),
-            packed.wx.data_ptr(), packed.wh.data_ptr(), packed.gbias.data_ptr(),
+            _KINDS[packed.wx.dtype],
+            packed.wx.data_ptr(), packed.wh.data_ptr(), packed.sx.data_ptr(),
+            packed.sh.data_ptr(), packed.gbias.data_ptr(),
             packed.bout.data_ptr(), packed.stats.data_ptr(), cond_l0.data_ptr(),
             cond_g0.data_ptr(), gaze.data_ptr(), p0.data_ptr(), h_init.data_ptr(),
             root0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
