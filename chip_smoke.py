@@ -10,18 +10,26 @@ and 12 s) under build/chip_smoke/, then:
 
   1. checks each kernel against its plain PyTorch version at the main
      paths' shapes: the decoder rollout (one step and a 600-frame rollout,
-     fp32, bf16 and int8 weights; int8 also against the fp32 kernel) and
-     the GRU cell (B=64, B=2 at 1024/1024 and the JAX tests' shapes);
+     fp32, bf16 and int8 weights; int8 also against the fp32 kernel), the
+     GRU cell (B=64, B=2 at 1024/1024 and the JAX tests' shapes) and the
+     mel spectrogram (the three clips, the streaming windows of 1 to 512
+     frames, an input shorter than n_fft and a zero window);
   2. drives each path through the generate CLI over the three clips on the
      card, every launch count reset just before and read just after: CSV
      mode (3 bf16 decoder launches), `-b` (buckets of 512 frames: one B=1
      decoder launch and a B=2 chunk of 1023 GRU-cell launches, then
      batched against single requests at fp32 weights) and `--int8` (3 int8
-     decoder launches);
+     decoder launches); each path launches the mel kernel once a request;
   3. times single requests and a batch of 64 copies of the 10 s clip;
   4. compares a request on the card (fp32 rollout weights) with the same
      request on the CPU;
-  5. prints times, each beside the card's name and power limit, one JSON
+  5. streams the 10 s clip in 0.5 s pushes (quantum 16) through a session
+     and holds its frames against the offline request (fp32 rollout
+     weights); times the first frame, the pushes and the realtime factor;
+  6. serves the pipeline on 127.0.0.1: four concurrent /synthesize
+     requests that must share a batch, a stream over HTTP against an
+     in-process session, and /healthz;
+  7. prints times, each beside the card's name and power limit, one JSON
      line of kernel results and, last, {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
@@ -30,13 +38,17 @@ It exits nonzero at once when no CUDA device is available.
 
 from __future__ import annotations
 
+import base64
 import csv
+import dataclasses
 import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -60,7 +72,15 @@ INT8_VS_FP32 = 3e-2
 GRU_TOL = 2e-5
 GRU_SHAPES = [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256), (16, 2304, 512)]
 BATCH_COPIES = 64
-KERNELS = ("decoder_rollout", "gru_cell")
+# the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
+MEL_TOL = 2e-4
+MEL_WINDOWS = (1, 2, 8, 32, 128, 512)
+# a streaming session against the offline request at fp32 rollout weights:
+# BVH positions (cm) and Euler angles (degrees), tests/test_streaming.py
+STREAM_POS_MAE, STREAM_ROT_MAE = 1e-4, 1e-3
+PUSH_SAMPLES = 8000  # 0.5 s
+# frames over HTTP against the same session run in the process
+HTTP_TOL = 1e-5
 
 
 def fail(msg):
@@ -303,11 +323,75 @@ def check_gru_cell(torch, card):
     return report
 
 
+def read_wav(name):
+    from zeggs_tpu_torch.io import wav
+
+    _, audio = wav.read_wavfile(WORK / f"{name}.wav", rescale=True, desired_fs=16000,
+                                out_type="float32")
+    return np.asarray(audio, np.float32)
+
+
+def check_mel(torch, card):
+    """Phase 1c: the mel kernel against its plain version: the three clips
+    through `mel_spectrogram_tts`, the streaming session's windows cut from
+    the 10 s clip's padded signal, an input shorter than n_fft and a zero
+    window, as `finish()` can hand it."""
+    from zeggs_tpu_torch.config import load_pipeline_conf
+    from zeggs_tpu_torch.ops import mel as M
+    from zeggs_tpu_torch.ops.kernels import mel as MK
+
+    cfg, _ = load_pipeline_conf(ROOT / "configs" / "data_pipeline_conf_v1.json")
+    consts = MK.mel_consts(cfg, torch.device("cuda"))
+    report = {"err": 0.0}
+
+    def check(label, kernel, plain):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        print(f"mel_spectrogram {label}: {tuple(out.shape)} max|err| {err:.3e} (tol {MEL_TOL:g})")
+        if not (torch.isfinite(out).all() and out.shape == ref.shape and err <= MEL_TOL):
+            fail(f"mel_spectrogram {label}: kernel/plain error {err} > {MEL_TOL}")
+        report["err"] = max(report["err"], err)
+
+    clips = {name: torch.as_tensor(read_wav(name), device="cuda") for name in CLIPS}
+    clips["short"] = clips["clip_04s"][:500]
+    for name, x in clips.items():
+        check(f"{name} ({x.shape[0]} samples)", lambda: M.mel_spectrogram_tts(x, cfg),
+              lambda: M.mel_spectrogram_tts(x, cfg, fused=False))
+    padded = torch.nn.functional.pad(clips["clip_10s"][None, None], (400, 400),
+                                     mode="reflect")[0, 0]
+    for nf in MEL_WINDOWS:
+        for label, x in (("window", padded), ("zero window", torch.zeros_like(padded))):
+            w = x[: (nf - 1) * cfg.hop_length + cfg.filter_length].contiguous()
+            check(f"{label} of {nf} frames", lambda: MK.mel_frames(w, nf, cfg),
+                  lambda: MK.mel_frames_plain(w, nf, consts))
+
+    # times: the 10 s clip's core and a 32-frame window
+    clip_frames = M.num_frames(padded.shape[0], cfg.filter_length, cfg.hop_length)
+    for label, nf in (("10 s clip", clip_frames), ("window", 32)):
+        w = padded[: (nf - 1) * cfg.hop_length + cfg.filter_length].contiguous()
+
+        def kernel():
+            return MK.mel_frames(w, nf, cfg)
+
+        def plain():
+            return MK.mel_frames_plain(w, nf, consts)
+
+        kernel(), plain()
+        p1, k1, k2, p2 = (event_ms(torch, f, 100) for f in (plain, kernel, kernel, plain))
+        print(f"time mel_spectrogram {label}, {nf} frames: kernel {k1 * 1e3:.2f} / "
+              f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, {card}")
+        report[nf] = dict(ms=min(k1, k2), plain_ms=min(p1, p2))
+    report["clip_frames"] = clip_frames
+    return report
+
+
 def reset_counts():
     from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
     from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+    from zeggs_tpu_torch.ops.kernels import mel as MK
 
-    DR.launches = GC.launches = 0
+    DR.launches = GC.launches = MK.launches = 0
 
 
 def read_counts():
@@ -315,8 +399,10 @@ def read_counts():
     the decoder count is that dtype's."""
     from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
     from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+    from zeggs_tpu_torch.ops.kernels import mel as MK
 
-    return {"decoder_rollout": DR.launches, "gru_cell": GC.launches}
+    return {"decoder_rollout": DR.launches, "gru_cell": GC.launches,
+            "mel_spectrogram": MK.launches}
 
 
 def check_bvhs(results, label):
@@ -459,6 +545,175 @@ def card_vs_cpu(torch):
         fail(f"card vs CPU MAE {maes['float32']} >= {CARD_VS_CPU_MAE}")
 
 
+def bvh_maes(a_path, b_path):
+    """(position MAE, Euler angle MAE) between two BVHs of one length."""
+    from zeggs_tpu_torch.io import bvh
+
+    a, b = bvh.load(a_path), bvh.load(b_path)
+    if a["rotations"].shape != b["rotations"].shape:
+        fail(f"{b_path.name}: {b['rotations'].shape} frames against {a['rotations'].shape}")
+    if not (np.isfinite(b["positions"]).all() and np.isfinite(b["rotations"]).all()):
+        fail(f"{b_path.name}: not finite")
+    return (float(np.abs(a["positions"] - b["positions"]).mean()),
+            float(np.abs(a["rotations"] - b["rotations"]).mean()))
+
+
+def run_session(torch, pipe, audio):
+    """One session over the clip in 0.5 s pushes, quantum 16 -> (session,
+    times)."""
+    t_start = time.perf_counter()
+    sess = pipe.streaming_session([(WORK / "style.bvh", None)], seed=SEED, quantum=16)
+    t0 = time.perf_counter()
+    ttff, lats = None, []
+    for o in range(0, len(audio), PUSH_SAMPLES):
+        t1 = time.perf_counter()
+        new = sess.push(audio[o : o + PUSH_SAMPLES])
+        lats.append(time.perf_counter() - t1)
+        if ttff is None and new["root_pos"].shape[0]:
+            ttff = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sess.finish()
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return sess, dict(start_s=t0 - t_start, ttff_s=ttff, push_p50_s=float(np.percentile(lats, 50)),
+                      push_p99_s=float(np.percentile(lats, 99)), finish_s=end - t1,
+                      total_s=end - t_start, rtf=(len(audio) / 16000) / (end - t0))
+
+
+def streaming(torch, card, results):
+    """Phase 5: a streaming session on the card against the offline request.
+    Loudness normalisation is global and a stream takes a fixed gain, so
+    both run without it, as tests/test_streaming.py does."""
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+
+    audio = read_wav("clip_10s")
+    out = results / "stream"
+    report = {}
+    for weights in ("float32", "bfloat16"):
+        pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                               rollout_weights=weights)
+        pipe.mel_cfg = dataclasses.replace(pipe.mel_cfg, normalize_loudness=False)
+        reset_counts()
+        generate_gesture(WORK / "clip_10s.wav", [(WORK / "style.bvh", None)], None, None, out,
+                         file_name=f"offline_{weights}", seed=SEED, pipeline=pipe)
+        torch.cuda.synchronize()
+        offline_counts = read_counts()
+        reset_counts()
+        sess, times = run_session(torch, pipe, audio)
+        counts = read_counts()
+        pos, rot = bvh_maes(out / f"offline_{weights}.bvh",
+                            sess.write_bvh(out, f"stream_{weights}"))
+        print(f"streaming session ({weights} pipeline), 10 s clip in 0.5 s pushes, quantum 16: "
+              f"{sess.frames_emitted} frames, {sess.decoder_steps} decoder steps, launches "
+              f"{counts}; against offline ({weights} decoder kernel): position MAE {pos:.3e}, "
+              f"rotation MAE {rot:.3e} deg")
+        if sess.frames_emitted != round(60 * CLIPS["clip_10s"]):
+            fail(f"streaming: {sess.frames_emitted} frames")
+        if not (counts["mel_spectrogram"] > 0 and counts["gru_cell"] == sess.decoder_steps
+                and counts["decoder_rollout"] == 0):
+            fail(f"streaming launches {counts} for {sess.decoder_steps} decoder steps")
+        if weights == "bfloat16":
+            continue  # reported, not bounded: the bf16 kernel rounds every activation
+        if not (pos < STREAM_POS_MAE and rot < STREAM_ROT_MAE):
+            fail(f"streaming against offline at fp32 weights: MAE {pos}, {rot}")
+        report.update(counts=counts, offline_counts=offline_counts)
+        for label in ("cold", "warm"):
+            if label == "warm":
+                _, times = run_session(torch, pipe, audio)
+            print(f"time streaming {label} session: start {times['start_s'] * 1e3:.1f} ms, "
+                  f"time to first frame {times['ttff_s'] * 1e3:.1f} ms, push p50 "
+                  f"{times['push_p50_s'] * 1e3:.1f} ms, p99 {times['push_p99_s'] * 1e3:.1f} ms, "
+                  f"finish {times['finish_s'] * 1e3:.1f} ms, total {times['total_s']:.3f} s, "
+                  f"realtime factor {times['rtf']:.2f}, {card}")
+    return report
+
+
+def post(port, path, payload):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        fail(f"{path}: HTTP {e.code} {e.read()[:500]!r}")
+
+
+def decode_frames(f):
+    return {k: np.frombuffer(base64.b64decode(v["b64"]), np.float32).reshape(v["shape"])
+            for k, v in f["data"].items()}
+
+
+def serve(torch, card):
+    """Phase 6: the daemon on 127.0.0.1 with the default (bf16) pipeline."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.serve import GestureServer
+
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda")
+    srv = GestureServer(pipe, max_batch=8, max_wait_ms=500)
+    port = srv.start()
+    try:
+        health = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                                   timeout=60).read())
+        print(f"serve /healthz: {health}")
+        if health.get("platform") != "cuda" or health.get("device") != torch.cuda.get_device_name(0):
+            fail(f"/healthz does not report the card: {health}")
+        style = base64.b64encode((WORK / "style.bvh").read_bytes()).decode()
+        reset_counts()
+        replies = [None] * 4
+
+        def request(i):
+            clip = list(CLIPS)[i % len(CLIPS)]
+            t0 = time.perf_counter()
+            replies[i] = post(port, "/synthesize", {
+                "audio_wav_b64": base64.b64encode((WORK / f"{clip}.wav").read_bytes()).decode(),
+                "styles": [{"bvh_b64": style}], "seed": SEED + i})
+            replies[i]["client_ms"] = (time.perf_counter() - t0) * 1e3
+
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if any(r is None for r in replies):
+            fail("serve: a /synthesize request failed")
+        sizes = [r["batch_size"] for r in replies]
+        synth_counts = read_counts()
+        lat = [r["client_ms"] for r in replies]
+        print(f"serve: 4 concurrent /synthesize, batch sizes {sizes}, launches {synth_counts}; "
+              f"time request p50 {np.percentile(lat, 50):.1f} ms (client), server p50 "
+              f"{srv.stats.snapshot()['latency_ms_p50']} ms, {card}")
+        if max(sizes) < 2:
+            fail(f"serve: concurrent requests did not coalesce: {sizes}")
+
+        audio = read_wav("clip_04s")
+        parts = np.array_split(audio, 5)
+        reset_counts()
+        start = post(port, "/stream/start", {"styles": [{"bvh_b64": style}], "seed": SEED})
+        chunks = [decode_frames(start["frames"])]
+        for part in parts:
+            r = post(port, "/stream/push", {"session_id": start["session_id"],
+                                            "audio_f32_b64": base64.b64encode(
+                                                part.astype("<f4").tobytes()).decode()})
+            chunks.append(decode_frames(r["frames"]))
+        fin = post(port, "/stream/finish", {"session_id": start["session_id"]})
+        chunks.append(decode_frames(fin["frames"]))
+        stream_counts = read_counts()
+        sess = pipe.streaming_session([(WORK / "style.bvh", None)], seed=SEED, quantum=16)
+        direct = [sess._collect(0)] + [sess.push(p) for p in parts] + [sess.finish()]
+        err = max(np.abs(np.concatenate([c[k] for c in chunks])
+                         - np.concatenate([d[k] for d in direct])).max() for k in direct[0])
+        print(f"serve: stream over HTTP, {fin['total_frames']} frames, launches {stream_counts}; "
+              f"against the in-process session max|diff| {err:.3e} (tol {HTTP_TOL:g})")
+        if fin["total_frames"] != round(60 * CLIPS["clip_04s"]) or not err <= HTTP_TOL:
+            fail(f"serve stream: {fin['total_frames']} frames, max|diff| {err}")
+        for name, counts in (("/synthesize", synth_counts), ("/stream", stream_counts)):
+            if counts["mel_spectrogram"] == 0:
+                fail(f"serve {name}: the mel kernel was not launched: {counts}")
+        return {"synthesize": synth_counts, "stream": stream_counts}
+    finally:
+        srv.stop()
+
+
 def main():
     import torch
 
@@ -474,8 +729,7 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(build.build, KERNELS))
+    libs = build.build_all()
     print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
@@ -484,16 +738,20 @@ def main():
     with torch.inference_mode():
         report = check_kernels(torch, card)
         gru = check_gru_cell(torch, card)
+        mel = check_mel(torch, card)
+    n = len(CLIPS)
     csv_counts = run_cli_path(torch, results, "main path (CSV, bf16)", [],
-                              {"decoder_rollout": len(CLIPS)})
+                              {"decoder_rollout": n, "mel_spectrogram": n})
     batch_counts = run_cli_path(torch, results / "batched", "batched path (-b, bf16)", ["-b"],
-                                {"decoder_rollout": 1, "gru_cell": 1023})
+                                {"decoder_rollout": 1, "gru_cell": 1023, "mel_spectrogram": n})
     batched_vs_single(torch, results)
     int8_counts = run_cli_path(torch, results / "int8", "int8 path (--int8)", ["--int8"],
-                               {"decoder_rollout": len(CLIPS)})
+                               {"decoder_rollout": n, "mel_spectrogram": n})
     time_requests(torch, card, results)
     time_batch(torch, card, results)
     card_vs_cpu(torch)
+    stream = streaming(torch, card, results)
+    served = serve(torch, card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -502,16 +760,25 @@ def main():
         return {"name": f"decoder_rollout[{weights}]", "route": "cuda",
                 "source": "zeggs_tpu_torch/csrc/decoder_rollout.cu",
                 "replaces": "zeggs_tpu/ops/pallas/decoder_kernel.py:568",
-                "launches": launches, "max_abs_err": r["err_step"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]}
+                "launches": launches, "max_abs_err": r["err_step"], "tol": STEP_TOL[weights],
+                "ms": r["ms"], "plain_ms": r["plain_ms"]}
 
+    print(json.dumps({"launches": {"csv": csv_counts, "batched": batch_counts,
+                                   "int8": int8_counts, "streaming": stream["counts"],
+                                   "serve": served}}))
     print(json.dumps({"kernels": [
+        decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
         decoder_entry("bfloat16", csv_counts["decoder_rollout"]),
         decoder_entry("int8", int8_counts["decoder_rollout"]),
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
          "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
-         "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"],
+         "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"], "tol": GRU_TOL,
          "ms": gru[64]["ms"], "plain_ms": gru[64]["plain_ms"]},
+        {"name": "mel_spectrogram", "route": "cuda",
+         "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
+         "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
+         "launches": csv_counts["mel_spectrogram"], "max_abs_err": mel["err"], "tol": MEL_TOL,
+         "ms": mel[mel["clip_frames"]]["ms"], "plain_ms": mel[mel["clip_frames"]]["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""The CUDA kernels (decoder rollout, GRU cell) against their plain PyTorch
-versions, on the card. Imports no jax; run on a machine with a card as
+"""The CUDA kernels (decoder rollout, GRU cell, mel spectrogram) against
+their plain PyTorch versions, on the card. Imports no jax; run on a machine with a card as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -10,8 +10,8 @@ Tolerances: one step from the same state 1e-4 (fp32 weights) and 1e-3
 (bf16 and int8 weights), because both versions round or quantize the same
 inputs the same way and differ only in the order of float32 sums (int8
 sums are exact in both); a whole rollout, pose MAE < 1e-3, the budget of
-docs/DESIGN.md section 5. The GRU cell: 2e-5, the budget of
-tests/test_pallas_kernels.py.
+docs/DESIGN.md section 5. The GRU cell: 2e-5, and the mel spectrogram:
+2e-4, the budgets of tests/test_pallas_kernels.py.
 """
 
 import numpy as np
@@ -21,7 +21,10 @@ import torch
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.models import pose as P
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+from zeggs_tpu_torch.config import MelConfig
+from zeggs_tpu_torch.ops import mel as M
 from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+from zeggs_tpu_torch.ops.kernels import mel as MK
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +164,49 @@ def test_cuda_tensors_raise_instead_of_falling_back(device, fault):
     with pytest.raises(err):
         DR.rollout_b1(packed, *args, DT)
     assert GC.launches == before
+
+
+def _speech_like(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    x = np.sin(2 * np.pi * 180 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    return (0.3 * x + 0.02 * rng.normal(size=t.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seconds", [4.0, 10.0, 12.0, 0.03])
+@torch.no_grad()
+def test_mel_spectrogram_matches_plain(device, seconds):
+    cfg = MelConfig()
+    x = torch.as_tensor(_speech_like(seconds, seed=int(seconds * 10)), device=device)
+    before = MK.launches
+    out = M.mel_spectrogram_tts(x, cfg)
+    torch.cuda.synchronize()
+    assert MK.launches == before + 1
+    ref = M.mel_spectrogram_tts(x, cfg, fused=False)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("nf", [1, 2, 8, 32, 128, 512])
+@pytest.mark.parametrize("zeros", [False, True])
+@torch.no_grad()
+def test_mel_streaming_windows_match_plain(device, nf, zeros):
+    cfg = MelConfig()
+    n = (nf - 1) * cfg.hop_length + cfg.filter_length
+    x = torch.zeros(n, device=device) if zeros else torch.as_tensor(
+        _speech_like(n / 16000, seed=nf)[:n], device=device)
+    out = MK.mel_frames(x, nf, cfg)
+    ref = MK.mel_frames_plain(x, nf, MK.mel_consts(cfg, x.device))
+    torch.cuda.synchronize()
+    assert out.shape == (nf, 80) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
+@torch.no_grad()
+def test_mel_cuda_tensors_raise_instead_of_falling_back(device):
+    before = MK.launches
+    with pytest.raises(TypeError):
+        MK.mel_frames(torch.zeros(1000, device=device, dtype=torch.float64), 2, MelConfig())
+    with pytest.raises(ValueError):
+        MK.mel_frames(torch.zeros(999, device=device), 2, MelConfig())
+    assert MK.launches == before

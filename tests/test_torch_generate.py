@@ -234,7 +234,9 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import zeggs_tpu_torch.cli.generate, zeggs_tpu_torch.infer, "
         "zeggs_tpu_torch.infer.batch, zeggs_tpu_torch.ops.kernels.decoder_rollout, "
-        "zeggs_tpu_torch.ops.kernels.gru_cell, zeggs_tpu_torch.ops.kernels.build\n"
+        "zeggs_tpu_torch.ops.kernels.gru_cell, zeggs_tpu_torch.ops.kernels.build, "
+        "zeggs_tpu_torch.infer.streaming, zeggs_tpu_torch.serve, zeggs_tpu_torch.cli.serve, "
+        "zeggs_tpu_torch.ops.kernels.mel\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
     )

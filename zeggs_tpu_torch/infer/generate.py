@@ -8,7 +8,8 @@ style draw. `GesturePipeline` loads networks and statistics once onto one
 device and serves requests there; at B=1 on a card the decoder rollout is
 one launch of the CUDA kernel. The batched entry points used by
 `infer/batch.py` (`encode_speech_batched`, `encode_styles_batch`,
-`rollout_batch`) live here too.
+`rollout_batch`) live here too, and `streaming_session` opens an
+`infer/streaming.py` session.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ from ..models.decoder import Decoder
 from ..models.speech_encoder import SpeechEncoder
 from ..models.style_encoder import StyleEncoder
 from ..ops import quat, xform
+from ..ops.kernels import build
 from ..utils import split_by_ratio, write_bvh
+from .streaming import StreamingSession
 
 _ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 #: batch size from which batched rollouts run int8 products when int8 is
@@ -62,6 +65,10 @@ class GesturePipeline:
         if rollout_weights not in _ROLLOUT_WEIGHTS:
             raise ValueError(f"rollout_weights must be one of {sorted(_ROLLOUT_WEIGHTS)}")
         self.device = require_device(device)
+        if self.device.type == "cuda":
+            # every kernel is built now, not at its first launch, which may
+            # come on a serving thread
+            build.build_all()
         network_path, data_path = Path(network_path), Path(data_path)
         self.style_encoding_type = style_encoding_type
         self.opts = options or Options()
@@ -266,6 +273,16 @@ class GesturePipeline:
             )
         lrot = quat.from_xform(xform.orthogonalize_from_xy(out[3]))
         return out[:3] + (lrot,)
+
+    def streaming_session(self, styles, first_pose=None, blend_ratio=(0.5, 0.5),
+                          temperature=1.0, seed=1234, gain=1.0, quantum=1):
+        """Open a `StreamingSession`: push audio chunks, pull gesture frames
+        as they become computable (see infer/streaming.py); it emits the
+        offline frames."""
+        return StreamingSession(
+            self, styles, first_pose=first_pose, blend_ratio=blend_ratio,
+            temperature=temperature, seed=seed, gain=gain, quantum=quantum,
+        )
 
     def write_result(self, results_path, file_name, rollout_out, audio_file=None):
         results_path = Path(results_path)

@@ -15,6 +15,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
@@ -23,6 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: every csrc/<name>.cu of the port
+KERNELS = ("decoder_rollout", "gru_cell", "mel_spectrogram")
+_load_lock = threading.Lock()
 
 
 def nvcc():
@@ -47,7 +52,7 @@ def build(name):
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -58,7 +63,19 @@ def build(name):
     return path
 
 
+def build_all():
+    """Build every kernel, one nvcc each, all at once; returns the paths."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return list(pool.map(build, KERNELS))
+
+
 @functools.cache
-def load(name):
-    """Build (if needed) and load csrc/<name>.cu as a ctypes library."""
+def _load(name):
     return ctypes.CDLL(str(build(name)))
+
+
+def load(name):
+    """Build (if needed) and load csrc/<name>.cu as a ctypes library. Safe
+    to call from several threads: the first call builds, the others wait."""
+    with _load_lock:
+        return _load(name)

@@ -4,18 +4,19 @@ Chain (v1 config): symmetric-Hann STFT magnitude / n_fft -> Slaney mel
 filterbank -> clip at min_amplitude/n_fft -> dB -> dynamic range mapped
 to [0, 1] -> 10**(x/20) then ln -> linear resample to the 60 fps animation
 grid, plus an energy channel. The filterbank and window are built with
-numpy once, as in the reference; the rFFT is `torch.fft.rfft`.
+numpy once, as in the reference. The STFT-to-dB part is one launch of the
+mel kernel on a card (`ops/kernels/mel.py`); CPU tensors take its plain
+version, `torch.fft.rfft` and a matmul.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import MelConfig
+from .kernels import mel as K
 
 
 def _hz_to_mel(frequencies):
@@ -76,52 +77,33 @@ def preemphasis(x, coeff=0.97):
     return torch.cat([x[:1], x[1:] - coeff * x[:-1]])
 
 
-def stft_magnitude(x, window, n_fft, step_size, real_amplitude=True, centered=True):
-    """|STFT| of a 1-D signal as (T, n_fft//2+1), with the reference's frame
-    count: one frame fewer than a plain sliding window when the padded
+def num_frames(n_padded, n_fft, step_size):
+    """Frames of a padded signal of ``n_padded`` samples, the reference's
+    convention: one frame fewer than a plain sliding window when the padded
     length is a multiple of the hop."""
-    if x.shape[0] < n_fft:
-        x = F.pad(x, (0, n_fft - x.shape[0]))
-    if centered:
-        pad = n_fft // 2
-        x = F.pad(x[None, None], (pad, pad), mode="reflect")[0, 0]
-    n = x.shape[0]
-    frames = (n - n_fft) // step_size
-    if n % step_size != 0:
-        frames += 1
-    windowed = x.unfold(0, n_fft, step_size)[:frames] * window[None, :]
-    amp = torch.abs(torch.fft.rfft(windowed, dim=-1))
-    if real_amplitude:
-        amp = amp / n_fft
-    return amp
+    frames = (n_padded - n_fft) // step_size
+    return frames if n_padded % step_size == 0 else frames + 1
 
 
-def mel_spectrogram_tts(x, cfg: MelConfig, mel_basis=None, window=None):
-    """Normalised-dB mel spectrogram, (T, n_mels)."""
+def mel_spectrogram_tts(x, cfg: MelConfig, fused=None):
+    """Normalised-dB mel spectrogram, (T, n_mels): the reference's padding
+    (to n_fft, then n_fft/2 reflected on each side when centered), then the
+    mel core of `ops/kernels/mel.py` on the padded signal. ``fused``: None
+    or True run `mel_frames`, the kernel on a CUDA tensor and its plain
+    version on a CPU tensor; False runs the plain version on any device."""
     if cfg.pre_emphasis:
         x = preemphasis(x, cfg.pre_emph_coeff)
-    if window is None:
-        window = torch.as_tensor(hann_symmetric(cfg.filter_length), device=x.device)
-    if mel_basis is None:
-        mel_basis = torch.as_tensor(
-            mel_filterbank(
-                cfg.filter_length, cfg.sampling_rate, cfg.n_mel_channels,
-                cfg.mel_fmin, cfg.mel_fmax, cfg.normalize_mel_bins,
-            ),
-            device=x.device,
-        )
-    amp = stft_magnitude(
-        x, window, cfg.filter_length, cfg.hop_length, cfg.real_amplitude, cfg.centered
-    )
-    mel = amp @ mel_basis.T
-    n_fft_div = cfg.filter_length if cfg.real_amplitude else 1
-    min_amplitude = cfg.min_clipping / n_fft_div
-    mel = torch.clamp(torch.abs(mel), min=min_amplitude)
-    mel = 20.0 * torch.log10(mel)
-    if cfg.normalize_range:
-        dynamic_range = -20.0 * math.log10(min_amplitude)
-        mel = (mel + dynamic_range) / dynamic_range
-    return mel
+    n_fft = cfg.filter_length
+    if x.shape[0] < n_fft:
+        x = F.pad(x, (0, n_fft - x.shape[0]))
+    if cfg.centered:
+        pad = n_fft // 2
+        x = F.pad(x[None, None], (pad, pad), mode="reflect")[0, 0]
+    x = x.contiguous()
+    T = num_frames(x.shape[0], n_fft, cfg.hop_length)
+    if fused is False:
+        return K.mel_frames_plain(x, T, K.mel_consts(cfg, x.device))
+    return K.mel_frames(x, T, cfg)
 
 
 def linear_resample(y, t_new, extrapolate=False):
@@ -136,11 +118,12 @@ def linear_resample(y, t_new, extrapolate=False):
 
 
 def audio_features(audio, anim_fs, anim_length, cfg: MelConfig,
-                   feature_type=("mel_spec", "energy"), mel_basis=None, window=None):
+                   feature_type=("mel_spec", "energy"), fused=None):
     """Per-clip audio features -> (anim_length, n_features): log-mel and
     energy resampled to the animation grid. ``audio`` is a 1-D float32
-    tensor; the result lies on its device."""
-    mel_norm_db = mel_spectrogram_tts(audio, cfg, mel_basis, window)
+    tensor; the result lies on its device. ``fused``: see
+    `mel_spectrogram_tts`; the default takes the kernel on a card."""
+    mel_norm_db = mel_spectrogram_tts(audio, cfg, fused)
     mel = 10.0 ** (mel_norm_db / 20.0)
     log_mel = torch.log(mel)
     step = (cfg.sampling_rate / cfg.hop_length) / anim_fs
