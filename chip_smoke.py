@@ -10,10 +10,16 @@ and 12 s) under build/chip_smoke/, then:
 
   1. checks each kernel against its plain PyTorch version at the main
      paths' shapes: the decoder rollout (one step and a 600-frame rollout,
-     fp32, bf16 and int8 weights; int8 also against the fp32 kernel), the
-     GRU cell (B=64, B=2 at 1024/1024 and the JAX tests' shapes) and the
-     mel spectrogram (the three clips, the streaming windows of 1 to 512
-     frames, an input shorter than n_fft and a zero window);
+     fp32, bf16 and int8 weights; int8 also against the fp32 kernel; with
+     each plan's resident share), the GRU cell (B=1, 2, 3, 64 and 65 at
+     1024/1024 and the JAX tests' shapes) and the mel spectrogram (the
+     three clips, the streaming windows of 1 to 512 frames, an input
+     shorter than n_fft and a zero window); times each against its plain
+     version and its bound (bytes over 3.35 TB/s or operations over the
+     operands' peak), the GRU cell at B=1, 2 and 64 also against
+     torch.gru_cell (CUDA graphs, TF32 off), and the decoder's barrier
+     floor: 599 x 4 grid barriers and nothing else, with the kernel's own
+     barrier and with cooperative groups' grid sync;
   2. drives each path through the generate CLI over the three clips on the
      card, every launch count reset just before and read just after: CSV
      mode (3 bf16 decoder launches), `-b` (buckets of 512 frames: one B=1
@@ -29,8 +35,9 @@ and 12 s) under build/chip_smoke/, then:
   6. serves the pipeline on 127.0.0.1: four concurrent /synthesize
      requests that must share a batch, a stream over HTTP against an
      in-process session, and /healthz;
-  7. prints times, each beside the card's name and power limit, one JSON
-     line of kernel results and, last, {"ok": true, "device": {...}}.
+  7. prints times, each beside the card's name and power limit, a JSON
+     line of launch counts, one of the barrier floor, one of kernel results
+     and, last, {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
 It exits nonzero at once when no CUDA device is available.
@@ -70,7 +77,13 @@ CARD_VS_CPU_MAE = 1e-3
 INT8_VS_FP32 = 3e-2
 # the GRU cell against its plain version (tests/test_pallas_kernels.py)
 GRU_TOL = 2e-5
-GRU_SHAPES = [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256), (16, 2304, 512)]
+GRU_SHAPES = [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256), (16, 2304, 512),
+              (1, 1024, 1024), (3, 1024, 1024), (65, 1024, 1024)]
+GRU_TIMED = (1, 2, 64)  # batch sizes timed at in = H = 1024
+# an H100 SXM's data-sheet peaks: HBM bytes/s and
+# dense operations/s by the type of the operands
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 BATCH_COPIES = 64
 # the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
 MEL_TOL = 2e-4
@@ -210,6 +223,30 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops, kind):
+    """(ms, "bytes" or "operations"): the least time an H100 could take to
+    move `nbytes` (each input read once, each output written once) and do
+    `ops` operations of `kind`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def graph_ms(torch, fn, calls=20, reps=20):
+    """Device time of one call of `fn`: `calls` calls captured in one CUDA
+    graph and replayed, so that the host's launch cost is not measured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    return event_ms(torch, graph.replay, reps) / calls
+
+
 def rollout_inputs(torch, pipe, dtype, seconds_clip):
     """The kernel's inputs for one request at the main path's shapes, and
     its packed weights."""
@@ -258,7 +295,12 @@ def check_kernels(torch, card):
             fail(f"{name}: kernel rollout is not finite")
         diff = (rows - plain).abs()
         mae, err_max = diff.mean().item(), diff.max().item()
-        print(f"decoder_rollout[{name}] grid {DR.grid_blocks(args[0])} blocks: one step max|err| "
+        plan = DR.card_plan(args[0])
+        print(f"decoder_rollout[{name}] plan: {plan.blocks} blocks of {DR.THREADS} threads, "
+              f"{plan.smem_bytes} B shared memory each, resident share {plan.resident_share:.4f}, "
+              f"{plan.streamed_bytes / 1e6:.3f} MB staged from L2 a step, staging area up to "
+              f"{plan.staging_bytes} B")
+        print(f"decoder_rollout[{name}] one step max|err| "
               f"{err_step:.3e} (tol {STEP_TOL[name]:g}); {T1}-step rollout MAE {mae:.3e} "
               f"(tol {ROLLOUT_MAE:g}), max|err| {err_max:.3e}")
         if err_step > STEP_TOL[name]:
@@ -282,12 +324,40 @@ def check_kernels(torch, card):
         k1 = event_ms(torch, lambda: DR.rollout_b1(*args), 10)
         k2 = event_ms(torch, lambda: DR.rollout_b1(*args), 10)
         p2 = event_ms(torch, lambda: DR.rollout_b1_plain(*args), 2)
-        report[name] = dict(err_step=err_step, mae=mae, err_max=err_max,
-                            ms=min(k1, k2), plain_ms=min(p1, p2), T1=T1)
-        print(f"time decoder_rollout[{name}] {T1} steps: kernel {k1:.3f} / {k2:.3f} ms, "
-              f"plain {p1:.3f} / {p2:.3f} ms, {card}")
+        packed = args[0]
+        weights = packed.wx.numel() + packed.wh.numel()
+        nbytes = (weights * packed.wx.element_size() + sum(
+            t.numel() * t.element_size() for t in args[1:7] if torch.is_tensor(t))
+            + rows.numel() * 4)
+        bound_ms, bound_by = bound(nbytes, 2 * weights * T1, name)
+        report[name] = dict(err_step=err_step, mae=mae, err_max=err_max, ms=min(k1, k2),
+                            plain_ms=min(p1, p2), T1=T1, bound_ms=bound_ms, bound_by=bound_by,
+                            resident_share=plan.resident_share)
+        print(f"time decoder_rollout[{name}] {T1} steps: kernel {k1:.3f} / {k2:.3f} ms "
+              f"({min(k1, k2) / T1 * 1e3:.2f} us a step), plain {p1:.3f} / {p2:.3f} ms, bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{2 * weights * T1 / 1e9:.2f} G{'OP' if name == 'int8' else 'FLOP'}), {card}")
     del pipe
     return report
+
+
+def barrier_floor(torch, card, steps):
+    """Phase 1a: steps x 4 grid barriers and nothing else on the rollout's
+    grid, with the kernel's barrier and with cooperative groups' grid sync;
+    in turns, after a warm-up of each."""
+    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+
+    times = {}
+    for barrier in ("grid", "cg", "grid", "cg"):
+        DR.barrier_floor(steps, barrier)
+        ms = event_ms(torch, lambda: DR.barrier_floor(steps, barrier), 5)
+        times[barrier] = min(times.get(barrier, ms), ms)
+    floor = {k: {"ms": v, "us_per_step": v / steps * 1e3, "us_per_barrier": v / (4 * steps) * 1e3}
+             for k, v in times.items()}
+    print(f"time barrier floor, {steps} steps x 4 barriers: kernel's grid barrier "
+          f"{times['grid']:.3f} ms ({floor['grid']['us_per_step']:.2f} us a step), "
+          f"cg grid sync {times['cg']:.3f} ms ({floor['cg']['us_per_step']:.2f} us a step), {card}")
+    return floor
 
 
 def check_gru_cell(torch, card):
@@ -297,7 +367,8 @@ def check_gru_cell(torch, card):
     report = {"err": 0.0}
     for B, in_dim, H in GRU_SHAPES:
         torch.manual_seed(SEED + B)
-        p = GC.pack_gru(torch.nn.GRUCell(in_dim, H, device="cuda"))
+        cell = torch.nn.GRUCell(in_dim, H, device="cuda")
+        p = GC.pack_gru(cell)
         rng = np.random.default_rng(SEED + B)
         x = torch.as_tensor(rng.normal(size=(B, in_dim)).astype(np.float32), device="cuda")
         h = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32), device="cuda")
@@ -308,18 +379,36 @@ def check_gru_cell(torch, card):
         if not (torch.isfinite(out).all() and err <= GRU_TOL):
             fail(f"gru_cell at {(B, in_dim, H)}: kernel/plain error {err} > {GRU_TOL}")
         report["err"] = max(report["err"], err)
-        if in_dim == H == 1024:
+        if in_dim == H == 1024 and B in GRU_TIMED:
             def kernel():
                 return GC.fused_gru_cell(p, x, h)
 
             def plain():
                 return GC.gru_cell_plain(p, x, h)
 
+            def library():  # the yardstick; the port never calls it
+                return torch.gru_cell(x, h, cell.weight_ih, cell.weight_hh, cell.bias_ih,
+                                      cell.bias_hh)
+
+            lib_err = (library() - out).abs().max().item()
             kernel(), plain()
-            p1, k1, k2, p2 = (event_ms(torch, f, 200) for f in (plain, kernel, kernel, plain))
-            print(f"time gru_cell B={B} one step: kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, "
-                  f"plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, {card}")
-            report[B] = dict(ms=min(k1, k2), plain_ms=min(p1, p2))
+            # device time from CUDA graphs, in turns; eager launches one after
+            # another measure the host's launch rate instead
+            p1, k1, l1, l2, k2, p2 = (graph_ms(torch, f)
+                                      for f in (plain, kernel, library, library, kernel, plain))
+            ek, el = event_ms(torch, kernel, 200), event_ms(torch, library, 200)
+            nbytes = 4 * (p.weight_ih.numel() + p.weight_hh.numel() + 4 * H + x.numel()
+                          + 2 * h.numel())
+            bound_ms, bound_by = bound(nbytes, 2 * B * 3 * H * (in_dim + H), "float32")
+            ms = min(k1, k2)
+            print(f"time gru_cell B={B} one step (device, CUDA graph): kernel {k1 * 1e3:.2f} / "
+                  f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, torch.gru_cell "
+                  f"{l1 * 1e3:.2f} / {l2 * 1e3:.2f} us (max|diff| {lib_err:.2e}), bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}), {bound_ms / ms:.1%} of the bound; eager "
+                  f"launches: kernel {ek * 1e3:.2f} us, torch.gru_cell {el * 1e3:.2f} us, {card}")
+            report[B] = dict(ms=ms, plain_ms=min(p1, p2), library_ms=min(l1, l2),
+                             bound_ms=bound_ms, bound_by=bound_by, eager_ms=ek,
+                             eager_library_ms=el)
     return report
 
 
@@ -381,7 +470,15 @@ def check_mel(torch, card):
         p1, k1, k2, p2 = (event_ms(torch, f, 100) for f in (plain, kernel, kernel, plain))
         print(f"time mel_spectrogram {label}, {nf} frames: kernel {k1 * 1e3:.2f} / "
               f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, {card}")
-        report[nf] = dict(ms=min(k1, k2), plain_ms=min(p1, p2))
+        # the least work: a real FFT of each frame (5/2 n log2 n FLOPs) and the
+        # mel product over the filters' nonzero bins; the samples read once
+        # and the (frames, n_mels) rows written once
+        n_fft = cfg.filter_length
+        flops = nf * (2.5 * n_fft * np.log2(n_fft) + 2 * int((consts.basis != 0).sum().item()))
+        bound_ms, bound_by = bound(4 * (w.numel() + nf * cfg.n_mel_channels), flops, "float32")
+        print(f"bound mel_spectrogram {label}: {bound_ms * 1e3:.3f} us ({bound_by}), {card}")
+        report[nf] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms,
+                          bound_by=bound_by)
     report["clip_frames"] = clip_frames
     return report
 
@@ -737,6 +834,7 @@ def main():
     results = write_fixture(torch)
     with torch.inference_mode():
         report = check_kernels(torch, card)
+        floor = barrier_floor(torch, card, report["bfloat16"]["T1"])
         gru = check_gru_cell(torch, card)
         mel = check_mel(torch, card)
     n = len(CLIPS)
@@ -761,11 +859,14 @@ def main():
                 "source": "zeggs_tpu_torch/csrc/decoder_rollout.cu",
                 "replaces": "zeggs_tpu/ops/pallas/decoder_kernel.py:568",
                 "launches": launches, "max_abs_err": r["err_step"], "tol": STEP_TOL[weights],
-                "ms": r["ms"], "plain_ms": r["plain_ms"]}
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "resident_share": r["resident_share"], "steps": r["T1"]}
 
     print(json.dumps({"launches": {"csv": csv_counts, "batched": batch_counts,
                                    "int8": int8_counts, "streaming": stream["counts"],
                                    "serve": served}}))
+    print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
         decoder_entry("bfloat16", csv_counts["decoder_rollout"]),
@@ -773,12 +874,14 @@ def main():
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
          "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
          "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"], "tol": GRU_TOL,
-         "ms": gru[64]["ms"], "plain_ms": gru[64]["plain_ms"]},
+         **{k: gru[64][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "batch": 64, "by_batch": {str(B): gru[B] for B in GRU_TIMED}},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
          "launches": csv_counts["mel_spectrogram"], "max_abs_err": mel["err"], "tol": MEL_TOL,
-         "ms": mel[mel["clip_frames"]]["ms"], "plain_ms": mel[mel["clip_frames"]]["plain_ms"]},
+         **{k: mel[mel["clip_frames"]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

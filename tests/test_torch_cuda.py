@@ -121,8 +121,40 @@ def test_wrapper_rejects_mixed_devices(device):
         DR.rollout_b1(packed, *args, DT)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@torch.no_grad()
+def test_rollout_plan_on_the_card(device, dtype):
+    """One block per SM of the full shared memory; at v1 widths int8 is wholly
+    resident and the others partly."""
+    dec, stats, _, _ = _case(device, 75, 1024, T=2)
+    packed = DR.pack_decoder(dec.cell, *stats, weights_dtype=dtype)
+    blocks = DR.grid_blocks(packed)
+    assert blocks == torch.cuda.get_device_properties(device).multi_processor_count
+    plan = DR.card_plan(packed)
+    assert plan.blocks == blocks and plan.table.device.type == "cuda"
+    assert (plan.resident_share == 1.0) == (dtype == torch.int8)
+
+
+@torch.no_grad()
+def test_rollout_raises_when_its_plan_cannot_fit(device):
+    dec, stats, state0, cond = _case(device, 8, 2048, T=3)
+    before = DR.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        _kernel_and_plain(dec, stats, state0, cond, torch.float32)
+    assert DR.launches == before
+
+
+@pytest.mark.parametrize("barrier", ["grid", "cg"])
+def test_barrier_floor_runs(device, barrier):
+    sync = DR.barrier_floor(50, barrier)
+    torch.cuda.synchronize()
+    if barrier == "grid":  # 200 barriers flip the word's top bit back to where it began
+        assert sync.tolist() == [0]
+
+
 @pytest.mark.parametrize("B,in_dim,H", [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256),
-                                        (16, 2304, 512), (11, 1024, 1024)])
+                                        (16, 2304, 512), (11, 1024, 1024), (1, 1024, 1024),
+                                        (3, 1024, 1024), (65, 1024, 1024), (33, 200, 64)])
 @torch.no_grad()
 def test_gru_cell_matches_plain(device, B, in_dim, H):
     torch.manual_seed(B + in_dim + H)

@@ -231,13 +231,14 @@ def test_embedding_only_mode(corpus):
 
 def test_port_imports_without_jax():
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['zeggs_tpu'] = None\n"
         "import zeggs_tpu_torch.cli.generate, zeggs_tpu_torch.infer, "
         "zeggs_tpu_torch.infer.batch, zeggs_tpu_torch.ops.kernels.decoder_rollout, "
         "zeggs_tpu_torch.ops.kernels.gru_cell, zeggs_tpu_torch.ops.kernels.build, "
         "zeggs_tpu_torch.infer.streaming, zeggs_tpu_torch.serve, zeggs_tpu_torch.cli.serve, "
-        "zeggs_tpu_torch.ops.kernels.mel\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
+        "zeggs_tpu_torch.ops.kernels.mel, zeggs_tpu_torch.io, zeggs_tpu_torch.io.native, "
+        "zeggs_tpu_torch.audio.loudness, chip_smoke\n"
+        "assert not any(m.split('.')[0] in ('jax', 'zeggs_tpu') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -83,3 +83,42 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
         p, x = GC.pack_gru(cell), torch.zeros(4, 12)
     with pytest.raises(err):
         GC.fused_gru_cell(p, x, h)
+
+
+# the shapes the kernel must take: B from 1 to the daemon's max_batch (64)
+# with ragged tiles, the chip run's shapes and one row at full width
+PLAN_SHAPES = [(1, 1024, 1024), (2, 1024, 1024), (3, 1024, 1024), (11, 1024, 1024),
+               (64, 1024, 1024), (65, 1024, 1024), (8, 384, 256), (16, 2304, 512)]
+
+
+@pytest.mark.parametrize("B,in_dim,H", PLAN_SHAPES)
+def test_plan_covers_every_row_and_unit_once(B, in_dim, H):
+    """Walk the launch as csrc/gru_cell.cu does: blocks own units, passes
+    own batch tiles, and in a stage every (row, unit, column group) falls to
+    exactly one lane of one warp. The weights leave L2 once a step for
+    B <= 64."""
+    plan = GC.gru_plan(B, in_dim, H)
+    assert plan.blocks * GC.UNITS == H and B <= plan.tile * plan.passes
+    assert plan.passes == (1 if B <= 64 else -(-B // 64))
+    assert plan.smem_bytes <= 232448
+    BG, KL, RB = plan.batch_lanes, plan.column_lanes, plan.rows_per_thread
+    iters = plan.chunk // (4 * KL * GC.WARPS)
+    assert BG * 2 * KL == 32 and iters * 4 * KL * GC.WARPS == plan.chunk
+    stage = np.zeros((plan.tile, GC.UNITS, plan.chunk // 4), np.int32)
+    for warp in range(GC.WARPS):
+        for lane in range(32):
+            bgi, ugi, kl = lane % BG, (lane // BG) % 2, lane // (2 * BG)
+            for it in range(iters):
+                for i in range(RB):
+                    for q in range(4):
+                        stage[bgi + BG * i, ugi * 4 + q, kl + KL * (warp + GC.WARPS * it)] += 1
+    assert (stage == 1).all()
+    outputs = np.zeros((B, H), np.int32)
+    for block in range(plan.blocks):
+        for b0 in range(0, B, plan.tile):
+            for p in range(plan.tile * GC.UNITS):
+                row, j = b0 + p // GC.UNITS, block * GC.UNITS + p % GC.UNITS
+                if row < B:
+                    outputs[row, j] += 1
+    assert (outputs == 1).all()
+    assert plan.chunks * plan.chunk >= in_dim + H

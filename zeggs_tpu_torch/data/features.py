@@ -13,8 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from zeggs_tpu.audio.loudness import normalize_loudness as _normalize_loudness  # numpy only
-
+from ..audio.loudness import normalize_loudness as _normalize_loudness
 from ..config import MelConfig
 from ..ops import fk, mel, quat
 

@@ -41,9 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from zeggs_tpu.io import bvh as bvh_io  # numpy only
-
 from ..data import features as F
+from ..io import bvh as bvh_io
 from ..models import decoder
 from ..models import layers as L
 from ..ops import quat, xform

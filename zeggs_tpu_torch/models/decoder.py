@@ -211,6 +211,8 @@ def make_fused_b1_fn(dec: Decoder, anim_input_mean, anim_input_std, anim_output_
     the kernel's plain PyTorch version runs instead."""
     packed = DR.pack_decoder(dec.cell, anim_input_mean, anim_input_std, anim_output_mean,
                              anim_output_std, weights_dtype)
+    if packed.wx.device.type == "cuda":
+        DR.card_plan(packed)  # planned once, here: a plan that does not fit raises at load
 
     def fn(state0, gaze_pos, speech_enc, style_enc):
         pose0 = P.vectorize_input(*state0, gaze_pos[:, 0], anim_input_mean, anim_input_std)

@@ -32,7 +32,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 
+import numpy as np
 import torch
 
 from ...models.layers import gru_gates
@@ -79,6 +81,8 @@ class PackedDecoder:
     pose_in: int
     pose_out: int
     hidden: int
+    #: (blocks, shared memory budget) -> RolloutPlan on the weights' device
+    plans: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def kx(self):
@@ -154,6 +158,170 @@ def pack_decoder(cell, anim_input_mean, anim_input_std, anim_output_mean, anim_o
         b_g0=cell.gru0.bias_ih.to(f32),
         pose_in=PI, pose_out=PO, hidden=H,
     )
+
+
+# ---------------------------------------------------------------------------
+# the plan: which rows each block of the persistent grid owns, and keeps
+# ---------------------------------------------------------------------------
+
+#: threads of a block of the kernel (csrc/decoder_rollout.cu), one block per SM
+THREADS = 512
+#: shared memory a block of an H100 may use (227 KB, opt-in)
+SMEM_BUDGET = 232448
+#: ints of a block's table header
+_HDR = 12
+
+
+@dataclasses.dataclass
+class RolloutPlan:
+    """How the kernel's grid shares the packed rows, for one weight dtype.
+
+    Phases of a step and their rows (``r,z,n`` of a GRU unit are three rows
+    of one block, next to each other):
+      0: GRU0 input-product pose rows (wx H + gH + j) of the block's GRU0
+         units, then layer0 rows (wx k);
+      1: GRU0 hidden-part rows (wh gH + j);
+      2: GRU1 w_ih rows (wh 2G + gH + j) of its GRU1 units, then GRU0 w_hh
+         rows (wh G + gH + j) of its GRU0 units, for the next step;
+      3: GRU1 w_hh rows (wh 3G + gH + j) of its GRU1 units, for the next
+         step, then output rows (wh 4G + c).
+    ``table[b]``: n_rows[4], n_streamed[4], n_gru0, n_gru1, end of the
+    resident rows, staging bytes; then per phase the rows' packed index
+    [mr], their shared-memory byte offset [mr] and the indices of the
+    streamed rows [mr]. A resident row is copied once, at t = 0; a streamed
+    row is copied from L2 into the staging area before the barrier that
+    precedes its phase, every step.
+    """
+
+    blocks: int
+    mr: int  # row slots of a phase in a block
+    base: int  # bytes of shared memory before the weights
+    smem_bytes: int  # the launch's dynamic shared memory
+    table: torch.Tensor  # (blocks, _HDR + 12 mr) int32
+    weight_bytes: int
+    resident_bytes: int  # over all blocks
+    streamed_bytes: int  # a step, over all blocks
+    staging_bytes: int  # the largest staging area of a block
+
+    @property
+    def resident_share(self):
+        return self.resident_bytes / self.weight_bytes
+
+
+def fixed_smem_bytes(kx, hidden, mr):
+    """Shared memory before the weights (csrc/decoder_rollout.cu `layout`):
+    the activation as floats and as int8, the row products and row scales
+    [4][mr], the epilogues' constants and state [9][mr], the block's table,
+    and the root, gaze and block reductions."""
+    n = _round_up(max(kx, hidden), 16)
+    return _round_up(5 * n + 32 * mr + 36 * mr + 4 * (_HDR + 12 * mr) + 4 * 32, 128)
+
+
+def _even_split(n, parts, reverse=False):
+    q, r = divmod(n, parts)
+    sizes = [q + (1 if i < r else 0) for i in range(parts)]
+    return sizes[::-1] if reverse else sizes
+
+
+def _spread(rows, loads, dest):
+    """Give each row to the block with the fewest rows so far."""
+    heap = [(loads[b], b) for b in range(len(loads))]
+    heapq.heapify(heap)
+    for r in rows:
+        n, b = heapq.heappop(heap)
+        dest[b].append(r)
+        heapq.heappush(heap, (n + 1, b))
+
+
+def plan_rollout(hidden, kx, pose_out, weights_dtype, blocks=132, smem_budget=SMEM_BUDGET):
+    """Assign every packed row to one block, evenly per phase, and keep as
+    many as fit resident in each block's shared memory; the rest are
+    staged a phase at a time. Raises ValueError when a phase's rows cannot
+    be staged within the budget."""
+    H, G = hidden, 3 * hidden
+    if max(kx, H) > 3 * THREADS:
+        raise ValueError(f"decoder plan does not fit: widths {kx} and {H} exceed the kernel's "
+                         f"{3 * THREADS} (three values a thread)")
+    es = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[weights_dtype]
+    n0s, n1s = _even_split(H, blocks), _even_split(H, blocks, reverse=True)
+    phases = [[[] for _ in range(blocks)] for _ in range(4)]
+    j0 = j1 = 0
+    for b in range(blocks):
+        u0, u1 = range(j0, j0 + n0s[b]), range(j1, j1 + n1s[b])
+        j0, j1 = j0 + n0s[b], j1 + n1s[b]
+        phases[0][b] = [H + g * H + j for j in u0 for g in range(3)]
+        phases[1][b] = [g * H + j for j in u0 for g in range(3)]
+        phases[2][b] = ([2 * G + g * H + j for j in u1 for g in range(3)]
+                        + [G + g * H + j for j in u0 for g in range(3)])
+        phases[3][b] = [3 * G + g * H + j for j in u1 for g in range(3)]
+    _spread(range(H), [len(r) for r in phases[0]], phases[0])
+    _spread([4 * G + c for c in range(pose_out)], [len(r) for r in phases[3]], phases[3])
+
+    rb = [kx * es, H * es, H * es, H * es]
+    if any(r % 16 for r in rb):
+        raise ValueError(f"rows of {rb} bytes: 16-byte copies need multiples of 16")
+    mr = max(len(r) for ph in phases for r in ph)
+    base = fixed_smem_bytes(kx, H, mr)
+    avail = smem_budget - base
+    table = np.zeros((blocks, _HDR + 12 * mr), dtype=np.int32)
+    resident = streamed = staging_max = 0
+    for b in range(blocks):
+        n = [len(phases[p][b]) for p in range(4)]
+        total = sum(n[p] * rb[p] for p in range(4))
+        cap = 0  # staging bytes: the smallest that leaves the rest resident
+        while total - (avail - cap) > sum(min(n[p], cap // rb[p]) * rb[p] for p in range(4)):
+            cap += min(rb)
+            if cap > avail:
+                raise ValueError(
+                    f"decoder plan does not fit: block {b} holds {total} bytes of "
+                    f"{weights_dtype} rows, phases of {[n[p] * rb[p] for p in range(4)]} bytes, "
+                    f"in {avail} bytes of shared memory")
+        need = max(0, total - (avail - cap))
+        ns = [0] * 4
+        while sum(ns[p] * rb[p] for p in range(4)) < need:
+            p = min((q for q in range(4) if ns[q] < n[q] and (ns[q] + 1) * rb[q] <= cap),
+                    key=lambda q: ns[q] * rb[q])
+            ns[p] += 1
+        res_end = base
+        hdr = n + ns + [n0s[b], n1s[b], 0, 0]
+        for p in range(4):
+            row = _HDR + 3 * mr * p
+            for i, g in enumerate(phases[p][b]):
+                table[b, row + i] = g
+                if i < n[p] - ns[p]:
+                    table[b, row + mr + i] = res_end
+                    res_end += rb[p]
+            table[b, row + 2 * mr : row + 2 * mr + ns[p]] = range(n[p] - ns[p], n[p])
+        stage_end = res_end
+        for p in range(4):
+            row = _HDR + 3 * mr * p
+            for k in range(ns[p]):
+                table[b, row + mr + n[p] - ns[p] + k] = res_end + k * rb[p]
+            stage_end = max(stage_end, res_end + ns[p] * rb[p])
+        assert stage_end <= smem_budget
+        hdr[10], hdr[11] = res_end, stage_end - res_end
+        table[b, :_HDR] = hdr
+        resident += res_end - base
+        streamed += sum(ns[p] * rb[p] for p in range(4))
+        staging_max = max(staging_max, stage_end - res_end)
+    weight_bytes = (4 * H * kx + (12 * H + pose_out) * H) * es
+    assert resident + streamed == weight_bytes
+    return RolloutPlan(blocks=blocks, mr=mr, base=base, smem_bytes=smem_budget,
+                       table=torch.from_numpy(table),
+                       weight_bytes=weight_bytes, resident_bytes=resident,
+                       streamed_bytes=streamed, staging_bytes=staging_max)
+
+
+def rollout_plan(packed: PackedDecoder, blocks=132, smem_budget=SMEM_BUDGET):
+    """`plan_rollout` for ``packed``, cached on it, its table on the
+    weights' device."""
+    key = (blocks, smem_budget)
+    if key not in packed.plans:
+        plan = plan_rollout(packed.hidden, packed.kx, packed.pose_out, packed.wx.dtype, blocks,
+                            smem_budget)
+        plan.table = plan.table.to(packed.wx.device)
+        packed.plans[key] = plan
+    return packed.plans[key]
 
 
 # ---------------------------------------------------------------------------
@@ -276,37 +444,63 @@ def _check(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0):
 def _library():
     lib = build.load("decoder_rollout")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.zeggs_decoder_rollout.argtypes = [i] + [p] * 15 + [i] * 5 + [ctypes.c_float, p]
+    lib.zeggs_decoder_rollout.argtypes = [i] + [p] * 16 + [i] * 9 + [ctypes.c_float, p]
     lib.zeggs_decoder_rollout.restype = i
-    lib.zeggs_decoder_rollout_grid.argtypes = [i, i, i]
+    lib.zeggs_decoder_rollout_grid.argtypes = [i, i]
     lib.zeggs_decoder_rollout_grid.restype = i
+    lib.zeggs_decoder_smem_optin.argtypes = []
+    lib.zeggs_decoder_smem_optin.restype = i
+    lib.zeggs_decoder_barrier_floor.argtypes = [i, p, i, i, p]
+    lib.zeggs_decoder_barrier_floor.restype = i
     lib.zeggs_cuda_error_string.argtypes = [i]
     lib.zeggs_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_for(err, what):
+    if err != 0:
+        msg = _library().zeggs_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
 def scratch_floats(hidden, pose_out):
     """Device scratch of one launch: pose[2][PO], h0[2][H], h1[2][H] (the
-    carried state, double-buffered by step parity) and the 10H
-    phase-1 products."""
-    return 2 * pose_out + 14 * hidden
+    carried state, double-buffered by step parity), the H layer0 products,
+    and the grid barrier's word (zeroed)."""
+    return 2 * pose_out + 5 * hidden + 1
+
+
+def card_smem_budget():
+    """Shared memory a block may use on the current card (227 KB on an
+    H100); raises if it cannot be read."""
+    n = _library().zeggs_decoder_smem_optin()
+    if n <= 0:
+        _raise_for(-n, "reading the shared memory limit")
+    return n
 
 
 def grid_blocks(packed: PackedDecoder):
-    """Blocks the kernel launches on the current card (all resident at
-    once); raises if it cannot be launched cooperatively."""
-    lib = _library()
-    n = lib.zeggs_decoder_rollout_grid(_KINDS[packed.wx.dtype], packed.hidden, packed.kx)
+    """Blocks the kernel launches on the current card: one per SM, all
+    resident at once; raises if it cannot be launched cooperatively with
+    one block of the full budget per SM."""
+    n = _library().zeggs_decoder_rollout_grid(_KINDS[packed.wx.dtype], card_smem_budget())
     if n <= 0:
-        raise RuntimeError(f"decoder_rollout cannot launch: {lib.zeggs_cuda_error_string(-n).decode()}")
+        raise RuntimeError("decoder_rollout cannot launch one resident block per SM: "
+                           f"{_library().zeggs_cuda_error_string(-n).decode()}")
     return n
+
+
+def card_plan(packed: PackedDecoder):
+    """The plan for ``packed`` on the current card; raises ValueError if its
+    rows cannot be staged within the card's shared memory."""
+    return rollout_plan(packed, grid_blocks(packed), card_smem_budget())
 
 
 def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0, dt):
     """Run the T-1 decoder steps -> (T-1, pose_out + 7) rows
     [pose_out | root_pos | root_rot]. CUDA tensors launch the kernel once;
     CPU tensors take `rollout_b1_plain`. Raises on anything the kernel does
-    not take and on any CUDA error."""
+    not take, on a plan that does not fit the card, and on any CUDA error."""
     global launches
     _check(packed, cond_l0, cond_g0, gaze, p0, h_init, root0)
     dev = packed.wx.device
@@ -320,8 +514,9 @@ def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0,
         return torch.empty((0, PO + 7), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
+        plan = card_plan(packed)
         out = torch.empty((T1, PO + 7), dtype=torch.float32, device=dev)
-        scratch = torch.empty((scratch_floats(H, PO),), dtype=torch.float32, device=dev)
+        scratch = torch.zeros((scratch_floats(H, PO),), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zeggs_decoder_rollout(
             _KINDS[packed.wx.dtype],
@@ -329,16 +524,29 @@ def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0,
             packed.sh.data_ptr(), packed.gbias.data_ptr(),
             packed.bout.data_ptr(), packed.stats.data_ptr(), cond_l0.data_ptr(),
             cond_g0.data_ptr(), gaze.data_ptr(), p0.data_ptr(), h_init.data_ptr(),
-            root0.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            T1, H, packed.pose_in, PO, packed.kx, float(dt), stream,
+            root0.data_ptr(), out.data_ptr(), scratch.data_ptr(), plan.table.data_ptr(),
+            T1, H, packed.pose_in, PO, packed.kx, plan.mr, plan.base, plan.blocks,
+            plan.smem_bytes, float(dt), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"decoder_rollout kernel failed: CUDA error {err} "
-            f"({lib.zeggs_cuda_error_string(err).decode()})"
-        )
+    _raise_for(err, "decoder_rollout kernel")
     launches += 1
     return out
+
+
+def barrier_floor(steps, barrier="grid", device="cuda"):
+    """Launch ``steps`` x 4 grid barriers and nothing else on the rollout's
+    grid (one block of the full shared-memory budget per SM): ``barrier``
+    "grid" is the kernel's own, "cg" cooperative groups' grid sync. The
+    floor of a rollout of ``steps`` steps; not a launch of the rollout."""
+    lib = _library()
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        sync = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = lib.zeggs_decoder_barrier_floor({"grid": 0, "cg": 1}[barrier], sync.data_ptr(),
+                                              steps, card_smem_budget(),
+                                              torch.cuda.current_stream(dev).cuda_stream)
+    _raise_for(err, "barrier floor kernel")
+    return sync
 
 
 def conditioning(packed: PackedDecoder, speech_encoding, style_encoding):

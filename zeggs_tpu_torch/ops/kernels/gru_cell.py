@@ -13,6 +13,9 @@ The r and z biases are folded once, when the cell is packed; b_in and b_hn
 stay apart because r multiplies only the hidden part of n. Everything is
 float32. The batched decoder rollout runs GRU1 of every step through
 `fused_gru_cell`.
+
+`gru_plan` is how the kernel covers a step: which block owns which hidden
+units, which batch tile a launch uses and how often the weights leave L2.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn as nn
@@ -59,6 +63,50 @@ def pack_gru(cell: nn.GRUCell) -> PackedGRU:
         b_in=b_ih[2 * H :].contiguous(),
         b_hn=b_hh[2 * H :].contiguous(),
     )
+
+
+#: the kernel's constants (csrc/gru_cell.cu): hidden units a block owns,
+#: threads, warps, and for each batch tile the columns a ring stage holds
+#: and the ring's depth
+UNITS, THREADS, WARPS = 8, 256, 8
+TILES = {8: (256, 6), 16: (256, 5), 32: (128, 5), 64: (64, 6)}
+
+
+@dataclasses.dataclass(frozen=True)
+class GRUPlan:
+    """One launch of the kernel for a (B, in, H) step."""
+
+    tile: int  # batch rows a block holds at once (the kernel's NB)
+    passes: int  # batch tiles each block walks: the weights leave L2 this often
+    blocks: int  # H / UNITS, each owning UNITS hidden units for every row
+    chunk: int  # columns of a ring stage
+    stages: int  # ring depth
+    chunks: int  # ring stages a pass streams: ceil(in / chunk) + ceil(H / chunk)
+    smem_bytes: int
+
+    @property
+    def batch_lanes(self):  # BG: lanes of a warp along the batch tile
+        return min(self.tile, 16)
+
+    @property
+    def column_lanes(self):  # KL: lanes of a warp along a stage's columns
+        return 16 // self.batch_lanes
+
+    @property
+    def rows_per_thread(self):  # RB
+        return self.tile // self.batch_lanes
+
+
+@functools.lru_cache(maxsize=256)
+def gru_plan(B, in_dim, H):
+    """The smallest batch tile that holds B rows (else 64, in passes), and
+    the rest of the launch as `csrc/gru_cell.cu` runs it."""
+    tile = next((t for t in TILES if B <= t), max(TILES))
+    chunk, stages = TILES[tile]
+    return GRUPlan(tile=tile, passes=max(1, math.ceil(B / tile)), blocks=H // UNITS,
+                   chunk=chunk, stages=stages,
+                   chunks=math.ceil(in_dim / chunk) + math.ceil(H / chunk),
+                   smem_bytes=stages * (3 * UNITS + tile) * (chunk + 4) * 4)
 
 
 def gru_cell_plain(p: PackedGRU, x, h):
@@ -102,10 +150,8 @@ def _check(p: PackedGRU, x, h):
 def _library():
     lib = build.load("gru_cell")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.zeggs_gru_cell.argtypes = [p] * 8 + [i] * 3 + [p]
+    lib.zeggs_gru_cell.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.zeggs_gru_cell.restype = i
-    lib.zeggs_gru_cell_max_width.argtypes = []
-    lib.zeggs_gru_cell_max_width.restype = i
     lib.zeggs_gru_cell_error_string.argtypes = [i]
     lib.zeggs_gru_cell_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,17 +171,14 @@ def fused_gru_cell(p: PackedGRU, x, h):
     lib = _library()
     B, in_dim = x.shape
     H = p.hidden
-    if p.weight_ih.data_ptr() % 16 or p.weight_hh.data_ptr() % 16:
-        raise ValueError("the weights must be 16-byte aligned (16-byte loads)")
-    if in_dim + H > lib.zeggs_gru_cell_max_width():
-        raise ValueError(f"input size {in_dim} + hidden size {H} exceed the kernel's "
-                         f"{lib.zeggs_gru_cell_max_width()}")
+    if any(t.data_ptr() % 16 for t in (x, h, p.weight_ih, p.weight_hh)):
+        raise ValueError("x, h and the weights must be 16-byte aligned (16-byte copies)")
     with torch.cuda.device(dev):
         out = torch.empty((B, H), dtype=torch.float32, device=dev)
         err = lib.zeggs_gru_cell(
             x.data_ptr(), h.data_ptr(), p.weight_ih.data_ptr(), p.weight_hh.data_ptr(),
             p.b_rz.data_ptr(), p.b_in.data_ptr(), p.b_hn.data_ptr(), out.data_ptr(),
-            B, in_dim, H, torch.cuda.current_stream(dev).cuda_stream,
+            B, in_dim, H, gru_plan(B, in_dim, H).tile, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gru_cell kernel failed: CUDA error {err} "
