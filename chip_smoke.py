@@ -12,11 +12,13 @@ and 12 s) under build/chip_smoke/, then:
      paths' shapes: the decoder rollout (one step and a 600-frame rollout,
      fp32, bf16 and int8 weights; int8 also against the fp32 kernel; with
      each plan's resident share), the GRU cell (B=1, 2, 3, 64 and 65 at
-     1024/1024 and the JAX tests' shapes) and the mel spectrogram (the
-     three clips, the streaming windows of 1 to 512 frames, an input
-     shorter than n_fft and a zero window); times each against its plain
-     version and its bound (bytes over 3.35 TB/s or operations over the
-     operands' peak), the GRU cell at B=1, 2 and 64 also against
+     1024/1024 and the JAX tests' shapes) and the mel spectrogram (at
+     n_fft 800, 1024 and 802: the three clips, the streaming windows of 1
+     to 512 frames, an input shorter than n_fft and zero windows; timed at
+     1, 32 and the 10 s clip's frames); fails on a register spill in nvcc's
+     report; times each against its plain version and its bound (bytes
+     over 3.35 TB/s or operations over the operands' peak), the mel kernel
+     at each launch shape, the GRU cell at B=1, 2 and 64 also against
      torch.gru_cell (CUDA graphs, TF32 off), and the decoder's barrier
      floor: 599 x 4 grid barriers and nothing else, with the kernel's own
      barrier and with cooperative groups' grid sync;
@@ -49,6 +51,7 @@ import base64
 import csv
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -87,7 +90,11 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 BATCH_COPIES = 64
 # the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
 MEL_TOL = 2e-4
-MEL_WINDOWS = (1, 2, 8, 32, 128, 512)
+MEL_WINDOWS = (1, 2, 3, 8, 32, 33, 128, 512)
+# n_fft of the checks: the v1 config's 800 (4 4 2 5 5), 1024 (radix 4 only)
+# and 802 (2 x 401, a generic stage); the kernels line reports 800
+MEL_N_FFTS = (800, 1024, 802)
+MEL_TIMED = (1, 32)  # frames timed besides the 10 s clip's (800 at n_fft 800)
 # a streaming session against the offline request at fp32 rollout weights:
 # BVH positions (cm) and Euler angles (degrees), tests/test_streaming.py
 STREAM_POS_MAE, STREAM_ROT_MAE = 1e-4, 1e-3
@@ -421,16 +428,16 @@ def read_wav(name):
 
 
 def check_mel(torch, card):
-    """Phase 1c: the mel kernel against its plain version: the three clips
-    through `mel_spectrogram_tts`, the streaming session's windows cut from
-    the 10 s clip's padded signal, an input shorter than n_fft and a zero
-    window, as `finish()` can hand it."""
+    """Phase 1c: the mel kernel against its plain version at n_fft 800 (the
+    v1 config), 1024 and 802 (hop n_fft / 4): the three clips through
+    `mel_spectrogram_tts`, the streaming session's windows cut from the 10 s
+    clip's padded signal, an input shorter than n_fft and zero windows, as
+    `finish()` can hand them; then its times at 1, 32 and 800 frames."""
     from zeggs_tpu_torch.config import load_pipeline_conf
     from zeggs_tpu_torch.ops import mel as M
     from zeggs_tpu_torch.ops.kernels import mel as MK
 
-    cfg, _ = load_pipeline_conf(ROOT / "configs" / "data_pipeline_conf_v1.json")
-    consts = MK.mel_consts(cfg, torch.device("cuda"))
+    v1, _ = load_pipeline_conf(ROOT / "configs" / "data_pipeline_conf_v1.json")
     report = {"err": 0.0}
 
     def check(label, kernel, plain):
@@ -444,43 +451,80 @@ def check_mel(torch, card):
 
     clips = {name: torch.as_tensor(read_wav(name), device="cuda") for name in CLIPS}
     clips["short"] = clips["clip_04s"][:500]
-    for name, x in clips.items():
-        check(f"{name} ({x.shape[0]} samples)", lambda: M.mel_spectrogram_tts(x, cfg),
-              lambda: M.mel_spectrogram_tts(x, cfg, fused=False))
-    padded = torch.nn.functional.pad(clips["clip_10s"][None, None], (400, 400),
-                                     mode="reflect")[0, 0]
-    for nf in MEL_WINDOWS:
-        for label, x in (("window", padded), ("zero window", torch.zeros_like(padded))):
-            w = x[: (nf - 1) * cfg.hop_length + cfg.filter_length].contiguous()
-            check(f"{label} of {nf} frames", lambda: MK.mel_frames(w, nf, cfg),
-                  lambda: MK.mel_frames_plain(w, nf, consts))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n_fft in MEL_N_FFTS:
+        cfg = dataclasses.replace(v1, filter_length=n_fft, hop_length=n_fft // 4)
+        consts = MK.mel_consts(cfg, torch.device("cuda"))
+        padded = torch.nn.functional.pad(clips["clip_10s"][None, None], (n_fft // 2,) * 2,
+                                         mode="reflect")[0, 0]
+        print(f"mel_spectrogram n_fft {n_fft}: stages {consts.plan.radices}, hop {cfg.hop_length}")
+        for name, x in clips.items():
+            check(f"n_fft {n_fft} {name} ({x.shape[0]} samples)",
+                  lambda: M.mel_spectrogram_tts(x, cfg),
+                  lambda: M.mel_spectrogram_tts(x, cfg, fused=False))
+        for nf in MEL_WINDOWS:
+            for label, x in (("window", padded), ("zero window", torch.zeros_like(padded))):
+                w = x[: (nf - 1) * cfg.hop_length + n_fft].contiguous()
+                check(f"n_fft {n_fft} {label} of {nf} frames", lambda: MK.mel_frames(w, nf, cfg),
+                      lambda: MK.mel_frames_plain(w, nf, consts))
 
-    # times: the 10 s clip's core and a 32-frame window
-    clip_frames = M.num_frames(padded.shape[0], cfg.filter_length, cfg.hop_length)
-    for label, nf in (("10 s clip", clip_frames), ("window", 32)):
-        w = padded[: (nf - 1) * cfg.hop_length + cfg.filter_length].contiguous()
+        # times: one frame, a 32-frame window and the 10 s clip's frames (800
+        # at n_fft 800); device times from CUDA graphs (eager launches
+        # measure the host's launch rate once the kernel is shorter); at
+        # n_fft 800 also the eager times, the bound, and each launch shape at
+        # the clip's frames
+        clip_frames = M.num_frames(padded.shape[0], n_fft, cfg.hop_length)
+        for nf in (*MEL_TIMED, clip_frames):
+            w = padded[: (nf - 1) * cfg.hop_length + n_fft].contiguous()
 
-        def kernel():
-            return MK.mel_frames(w, nf, cfg)
+            def kernel():
+                return MK.mel_frames(w, nf, cfg)
 
-        def plain():
-            return MK.mel_frames_plain(w, nf, consts)
+            def plain():
+                return MK.mel_frames_plain(w, nf, consts)
 
-        kernel(), plain()
-        p1, k1, k2, p2 = (event_ms(torch, f, 100) for f in (plain, kernel, kernel, plain))
-        print(f"time mel_spectrogram {label}, {nf} frames: kernel {k1 * 1e3:.2f} / "
-              f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, {card}")
-        # the least work: a real FFT of each frame (5/2 n log2 n FLOPs) and the
-        # mel product over the filters' nonzero bins; the samples read once
-        # and the (frames, n_mels) rows written once
-        n_fft = cfg.filter_length
-        flops = nf * (2.5 * n_fft * np.log2(n_fft) + 2 * int((consts.basis != 0).sum().item()))
-        bound_ms, bound_by = bound(4 * (w.numel() + nf * cfg.n_mel_channels), flops, "float32")
-        print(f"bound mel_spectrogram {label}: {bound_ms * 1e3:.3f} us ({bound_by}), {card}")
-        report[nf] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms,
-                          bound_by=bound_by)
-    report["clip_frames"] = clip_frames
+            kernel(), plain()
+            p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain, kernel, kernel, plain))
+            groups, blocks = MK.launch_shape(nf, sms)
+            ms = min(k1, k2)
+            line = (f"time mel_spectrogram n_fft {n_fft}, {nf} frames (device, CUDA graph; "
+                    f"{blocks} blocks of {groups} frame pairs): kernel {k1 * 1e3:.2f} / "
+                    f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us")
+            if n_fft != v1.filter_length:
+                print(f"{line}, {card}")
+                continue
+            ek, ep = event_ms(torch, kernel, 100), event_ms(torch, plain, 100)
+            # the least work: a real FFT of each frame (5/2 n log2 n FLOPs) and
+            # the mel product over the filters' nonzero bins; the samples read
+            # once and the (frames, n_mels) rows written once
+            flops = nf * (2.5 * n_fft * np.log2(n_fft) + 2 * int((consts.basis != 0).sum().item()))
+            bound_ms, bound_by = bound(4 * (w.numel() + nf * cfg.n_mel_channels), flops, "float32")
+            print(f"{line}, bound {bound_ms * 1e3:.3f} us ({bound_by}), {bound_ms / ms:.1%} of the "
+                  f"bound; eager launches: kernel {ek * 1e3:.2f} us, plain {ep * 1e3:.2f} us, {card}")
+            report[nf] = dict(ms=ms, plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                              eager_ms=ek, eager_plain_ms=ep, groups=groups, blocks=blocks)
+            if nf == clip_frames:
+                shapes = {g: min(graph_ms(torch, lambda: MK._launch(w, nf, consts, g))
+                                 for _ in range(2))
+                          for g in range(1, MK.MAX_GROUPS + 1)}
+                print(f"time mel_spectrogram n_fft {n_fft}, {nf} frames by frame pairs a block "
+                      "(device, CUDA graph): " + ", ".join(
+                          f"{g}: {t * 1e3:.2f} us" for g, t in shapes.items()) + f", {card}")
+                report["by_groups"] = {str(g): t for g, t in shapes.items()}
+                report["clip_frames"] = clip_frames
     return report
+
+
+def check_ptxas(libs):
+    """Print each kernel's registers, and fail on a spill, from nvcc's
+    -Xptxas -v report."""
+    for lib in libs:
+        log = lib.with_suffix(".log").read_text()
+        print(log.strip())
+        spills = [line.strip() for line in log.splitlines()
+                  if re.search(r"\b[1-9]\d* bytes spill (stores|loads)", line)]
+        if spills:
+            fail(f"{lib.name} spills registers: {spills}")
 
 
 def reset_counts():
@@ -828,8 +872,7 @@ def main():
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
-    for lib in libs:
-        print(lib.with_suffix(".log").read_text().strip())
+    check_ptxas(libs)
 
     results = write_fixture(torch)
     with torch.inference_mode():
@@ -881,7 +924,9 @@ def main():
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
          "launches": csv_counts["mel_spectrogram"], "max_abs_err": mel["err"], "tol": MEL_TOL,
          **{k: mel[mel["clip_frames"]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None},
+         "library_ms": None, "frames": mel["clip_frames"],
+         "by_frames": {str(nf): mel[nf] for nf in (*MEL_TIMED, mel["clip_frames"])},
+         "by_groups": mel["by_groups"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

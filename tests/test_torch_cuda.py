@@ -11,7 +11,8 @@ Tolerances: one step from the same state 1e-4 (fp32 weights) and 1e-3
 inputs the same way and differ only in the order of float32 sums (int8
 sums are exact in both); a whole rollout, pose MAE < 1e-3, the budget of
 docs/DESIGN.md section 5. The GRU cell: 2e-5, and the mel spectrogram:
-2e-4, the budgets of tests/test_pallas_kernels.py.
+2e-4 at n_fft 800, 1024 and 802, the budgets of
+tests/test_pallas_kernels.py.
 """
 
 import numpy as np
@@ -29,6 +30,7 @@ from zeggs_tpu_torch.ops.kernels import mel as MK
 pytestmark = pytest.mark.cuda
 
 DT = 1.0 / 60.0
+MEL_N_FFTS = [800, 1024, 802]
 
 
 @pytest.fixture(scope="module")
@@ -205,10 +207,17 @@ def _speech_like(seconds, seed):
     return (0.3 * x + 0.02 * rng.normal(size=t.shape)).astype(np.float32)
 
 
+def _mel_cfg(n_fft):
+    """The v1 config at another n_fft (hop n_fft // 4): 1024 runs radix-4
+    stages only, 802 = 2 x 401 a generic 401-point stage."""
+    return MelConfig(filter_length=n_fft, hop_length=n_fft // 4)
+
+
+@pytest.mark.parametrize("n_fft", MEL_N_FFTS)
 @pytest.mark.parametrize("seconds", [4.0, 10.0, 12.0, 0.03])
 @torch.no_grad()
-def test_mel_spectrogram_matches_plain(device, seconds):
-    cfg = MelConfig()
+def test_mel_spectrogram_matches_plain(device, seconds, n_fft):
+    cfg = _mel_cfg(n_fft)
     x = torch.as_tensor(_speech_like(seconds, seed=int(seconds * 10)), device=device)
     before = MK.launches
     out = M.mel_spectrogram_tts(x, cfg)
@@ -219,11 +228,12 @@ def test_mel_spectrogram_matches_plain(device, seconds):
     assert (out - ref).abs().max().item() <= 2e-4
 
 
-@pytest.mark.parametrize("nf", [1, 2, 8, 32, 128, 512])
+@pytest.mark.parametrize("n_fft", MEL_N_FFTS)
+@pytest.mark.parametrize("nf", [1, 2, 3, 8, 32, 33, 128, 512])
 @pytest.mark.parametrize("zeros", [False, True])
 @torch.no_grad()
-def test_mel_streaming_windows_match_plain(device, nf, zeros):
-    cfg = MelConfig()
+def test_mel_streaming_windows_match_plain(device, nf, zeros, n_fft):
+    cfg = _mel_cfg(n_fft)
     n = (nf - 1) * cfg.hop_length + cfg.filter_length
     x = torch.zeros(n, device=device) if zeros else torch.as_tensor(
         _speech_like(n / 16000, seed=nf)[:n], device=device)
@@ -241,4 +251,23 @@ def test_mel_cuda_tensors_raise_instead_of_falling_back(device):
         MK.mel_frames(torch.zeros(1000, device=device, dtype=torch.float64), 2, MelConfig())
     with pytest.raises(ValueError):
         MK.mel_frames(torch.zeros(999, device=device), 2, MelConfig())
+    assert MK.launches == before
+
+
+@torch.no_grad()
+def test_mel_launch_fits_shared_memory_or_raises(device):
+    """n_fft 5000 fits one frame pair a block, not the two `launch_shape`
+    asks for at 600 frames; n_fft 16000 fits none and raises."""
+    cfg = _mel_cfg(5000)
+    nf = 600
+    assert MK.launch_shape(nf, torch.cuda.get_device_properties(device).multi_processor_count)[0] == 2
+    n = (nf - 1) * cfg.hop_length + cfg.filter_length
+    x = torch.as_tensor(_speech_like(n / 16000, seed=5)[:n], device=device)
+    out = MK.mel_frames(x, nf, cfg)
+    ref = MK.mel_frames_plain(x, nf, MK.mel_consts(cfg, x.device))
+    torch.cuda.synchronize()
+    assert out.shape == (nf, 80) and (out - ref).abs().max().item() <= 2e-4
+    before = MK.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        MK.mel_frames(torch.zeros(16000, device=device), 1, _mel_cfg(16000))
     assert MK.launches == before

@@ -55,7 +55,7 @@ def test_preprocess_audio_with_loudness_matches_jax():
     jcfg, tcfg = _cfgs(normalize_loudness=True)
     x = make_audio(2.0, seed=4)
     ref = JF.preprocess_audio(x, 60, 120, jcfg)
-    ours = TF.preprocess_audio(x, 60, 120, tcfg).numpy()
+    ours = TF.preprocess_audio(x, 60, 120, tcfg, device="cpu").numpy()
     np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
 
 
@@ -69,7 +69,7 @@ def test_filterbank_and_window_are_the_reference_ones():
 def test_preprocess_animation_matches_jax(nframes):
     anim = make_motion(nframes, seed=5)
     ref = JF.preprocess_animation(anim)
-    ours = TF.preprocess_animation(anim)
+    ours = TF.preprocess_animation(anim, device="cpu")
     for f in dataclasses.fields(ref):
         a = np.asarray(getattr(ref, f.name))
         b = getattr(ours, f.name).numpy()
@@ -84,3 +84,19 @@ def test_gaze_median_averages_the_middle_pair():
     x = torch.tensor([[1.0], [4.0], [2.0], [3.0]])
     assert TF._median_time(x).item() == 2.5
     assert TF._median_time(x[:3]).item() == 2.0
+
+
+@pytest.mark.parametrize("featurizer", ["audio", "animation", "anim_features"])
+def test_featurizers_default_to_the_card(monkeypatch, featurizer):
+    """Without ``device`` the featurizers run on the card, and raise where
+    there is none instead of moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    anim = make_motion(8, seed=5)
+    calls = {
+        "audio": lambda: TF.preprocess_audio(make_audio(0.1, seed=4), 60, 6, TC.MelConfig()),
+        "animation": lambda: TF.preprocess_animation(anim),
+        "anim_features": lambda: TF.extract_anim_features(
+            anim["rotations"], anim["positions"], list(anim["parents"]), list(anim["names"]), DT),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[featurizer]()

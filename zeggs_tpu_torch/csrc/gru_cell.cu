@@ -38,6 +38,8 @@
 
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -238,14 +240,10 @@ size_t smem_bytes() {
 // a: x, h, w_ih, w_hh, b_rz, b_in, b_hn
 template <int NB>
 int launch(const float* const* a, float* out, int B, int IN, int H, cudaStream_t stream) {
-  static bool smem_set = false;  // the opt-in above 48 KB, once per instantiation
+  static SmemOptIn opt_in;  // one per instantiation, opted in once per device
   const size_t smem = smem_bytes<NB>();
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(gru_cell_kernel<NB>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  cudaError_t err = opt_in.ensure(reinterpret_cast<const void*>(gru_cell_kernel<NB>), smem);
+  if (err != cudaSuccess) return (int)err;
   gru_cell_kernel<NB><<<H / kUnits, kThreads, smem, stream>>>(a[0], a[1], a[2], a[3], a[4], a[5],
                                                              a[6], out, B, IN, H);
   return (int)cudaGetLastError();

@@ -15,6 +15,7 @@ import torch
 
 from ..audio.loudness import normalize_loudness as _normalize_loudness
 from ..config import MelConfig
+from ..device import require_device
 from ..ops import fk, mel, quat
 
 
@@ -63,9 +64,11 @@ def _median_time(x):
 
 
 def extract_anim_features(rotations_deg, positions, parents, names, dt, order="zyx",
-                          gaze_distance=100.0, device="cpu"):
+                          gaze_distance=100.0, device="cuda"):
     """Animation featurizer from the BVH fields: rotations in degrees
-    (T, J, 3), positions (T, J, 3). Runs on ``device``."""
+    (T, J, 3), positions (T, J, 3). Runs on ``device``: the card unless
+    the caller asks for the CPU; raises if the device is missing."""
+    device = require_device(device)
     i_spine2, i_hips, i_head = names.index("Spine2"), names.index("Hips"), names.index("Head")
     f32 = torch.float32
     rot = torch.as_tensor(np.asarray(rotations_deg, np.float32), device=device)
@@ -111,7 +114,7 @@ def extract_anim_features(rotations_deg, positions, parents, names, dt, order="z
                         cpos, crot, ctxy, cvel, cvrt, gaze_pos, gaze_dir)
 
 
-def preprocess_animation(anim_data, gaze_distance=100.0, device="cpu"):
+def preprocess_animation(anim_data, gaze_distance=100.0, device="cuda"):
     """Featurize a BVH dict as returned by `io.bvh.load`."""
     return extract_anim_features(
         anim_data["rotations"], anim_data["positions"],
@@ -123,9 +126,12 @@ def preprocess_animation(anim_data, gaze_distance=100.0, device="cpu"):
 
 def preprocess_audio(audio_data, anim_fs, anim_length, cfg: MelConfig,
                      feature_type=("mel_spec", "energy"), normalize_loudness=None,
-                     device="cpu"):
-    """Audio featurizer -> (anim_length, n_features) float32 on ``device``.
-    Loudness normalisation (BS.1770, to -20 LUFS) runs on the host."""
+                     device="cuda"):
+    """Audio featurizer -> (anim_length, n_features) float32 on ``device``,
+    the card unless the caller asks for the CPU; raises if the device is
+    missing. Loudness normalisation (BS.1770, to -20 LUFS) runs on the
+    host."""
+    device = require_device(device)
     do_norm = cfg.normalize_loudness if normalize_loudness is None else normalize_loudness
     audio = np.asarray(audio_data, np.float32)
     if do_norm:

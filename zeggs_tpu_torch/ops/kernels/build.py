@@ -2,8 +2,9 @@
 
 Each kernel is one `csrc/<name>.cu` with a plain C interface, compiled for
 Hopper at first use into ``build/zeggs_tpu_torch/`` at the root of the
-checkout. The library's file name carries a hash of its source and flags,
-so a stale build is never loaded. PyTorch's headers are not included: a
+checkout; the `*.cuh` headers in csrc/ are shared. The library's file name
+carries a hash of its source, the headers and the flags, so a stale build
+is never loaded. PyTorch's headers are not included: a
 file with a plain C interface builds in seconds.
 """
 
@@ -39,8 +40,11 @@ def nvcc():
 
 
 def library_path(name):
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the headers in
+    csrc/ and the flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    data = b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
