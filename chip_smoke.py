@@ -13,9 +13,10 @@ and 12 s) under build/chip_smoke/, then:
      fp32, bf16 and int8 weights; int8 also against the fp32 kernel; with
      each plan's resident share), the GRU cell (B=1, 2, 3, 64 and 65 at
      1024/1024 and the JAX tests' shapes) and the mel spectrogram (at
-     n_fft 800, 1024 and 802: the three clips, the streaming windows of 1
-     to 512 frames, an input shorter than n_fft and zero windows; timed at
-     1, 32 and the 10 s clip's frames); fails on a register spill in nvcc's
+     n_fft 800, 1024, 802 and 8192, the last through the global-workspace
+     variant: the three clips, the streaming windows of 1 to 512 frames, an
+     input shorter than n_fft and zero windows; timed at 1, 32 and the 10 s
+     clip's frames, and the variant forced at n_fft 800); fails on a register spill in nvcc's
      report; times each against its plain version and its bound (bytes
      over 3.35 TB/s or operations over the operands' peak), the mel kernel
      at each launch shape, the GRU cell at B=1, 2 and 64 also against
@@ -37,9 +38,19 @@ and 12 s) under build/chip_smoke/, then:
   6. serves the pipeline on 127.0.0.1: four concurrent /synthesize
      requests that must share a batch, a stream over HTTP against an
      in-process session, and /healthz;
-  7. prints times, each beside the card's name and power limit, a JSON
-     line of launch counts, one of the barrier floor, one of kernel results
-     and, last, {"ok": true, "device": {...}}.
+  7. trains: one small-width step's gradients on the card against the CPU
+     (TF32 off); then a raw corpus of 4 clips of 20 s (75 joints, the last
+     one validation) through `python -m zeggs_tpu_torch.cli.pipeline` (one
+     mel launch a clip and stretch), `cli.train` at full v1 width for 6
+     steps (a checkpoint and sample synthesis at iteration 0: one GRU-cell
+     launch a decoder step; no kernel launch in a train step; every
+     parameter a finite nonzero gradient in the first step) and a resume
+     for one more step that must restore the whole training state; prints
+     the step's time, launches and peak memory and the pipeline's seconds a
+     clip;
+  8. prints times, each beside the card's name and power limit, a JSON
+     line of launch counts, one of training results, one of the barrier
+     floor, one of kernel results and, last, {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
 It exits nonzero at once when no CUDA device is available.
@@ -91,9 +102,11 @@ BATCH_COPIES = 64
 # the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
 MEL_TOL = 2e-4
 MEL_WINDOWS = (1, 2, 3, 8, 32, 33, 128, 512)
-# n_fft of the checks: the v1 config's 800 (4 4 2 5 5), 1024 (radix 4 only)
-# and 802 (2 x 401, a generic stage); the kernels line reports 800
-MEL_N_FFTS = (800, 1024, 802)
+# n_fft of the checks: the v1 config's 800 (4 4 2 5 5), 1024 (radix 4 only),
+# 802 (2 x 401, a generic stage) and 8192, whose frame pair does not fit a
+# block's shared memory (the global-workspace variant); the kernels line
+# reports 800
+MEL_N_FFTS = (800, 1024, 802, 8192)
 MEL_TIMED = (1, 32)  # frames timed besides the 10 s clip's (800 at n_fft 800)
 # a streaming session against the offline request at fp32 rollout weights:
 # BVH positions (cm) and Euler angles (degrees), tests/test_streaming.py
@@ -101,6 +114,12 @@ STREAM_POS_MAE, STREAM_ROT_MAE = 1e-4, 1e-3
 PUSH_SAMPLES = 8000  # 0.5 s
 # frames over HTTP against the same session run in the process
 HTTP_TOL = 1e-5
+# training: a raw corpus of 4 clips of 20 s (the last one validation),
+# the v1 widths, a handful of steps and one more after the resume
+TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_STEPS = 4, 20.0, 6
+# gradients of one small-width step on the card against the CPU, per leaf,
+# relative to max(1, max|g|) (TF32 off on the card)
+GRAD_TOL = 1e-4
 
 
 def fail(msg):
@@ -463,6 +482,8 @@ def check_mel(torch, card):
                   lambda: M.mel_spectrogram_tts(x, cfg),
                   lambda: M.mel_spectrogram_tts(x, cfg, fused=False))
         for nf in MEL_WINDOWS:
+            if (nf - 1) * cfg.hop_length + n_fft > padded.shape[0]:
+                continue  # longer than the clip at this hop
             for label, x in (("window", padded), ("zero window", torch.zeros_like(padded))):
                 w = x[: (nf - 1) * cfg.hop_length + n_fft].contiguous()
                 check(f"n_fft {n_fft} {label} of {nf} frames", lambda: MK.mel_frames(w, nf, cfg),
@@ -487,11 +508,15 @@ def check_mel(torch, card):
             p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain, kernel, kernel, plain))
             groups, blocks = MK.launch_shape(nf, sms)
             ms = min(k1, k2)
+            variant = ("global-workspace variant" if MK._workspace_bytes(
+                0, nf, consts.twiddles.shape[0], consts.filters.shape[1], n_fft,
+                consts.n_mels, False) else f"{blocks} blocks of {groups} frame pairs")
             line = (f"time mel_spectrogram n_fft {n_fft}, {nf} frames (device, CUDA graph; "
-                    f"{blocks} blocks of {groups} frame pairs): kernel {k1 * 1e3:.2f} / "
-                    f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us")
+                    f"{variant}): kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, plain "
+                    f"{p1 * 1e3:.2f} / {p2 * 1e3:.2f} us")
             if n_fft != v1.filter_length:
                 print(f"{line}, {card}")
+                report[f"n_fft_{n_fft}_{nf}"] = dict(ms=ms, plain_ms=min(p1, p2), variant=variant)
                 continue
             ek, ep = event_ms(torch, kernel, 100), event_ms(torch, plain, 100)
             # the least work: a real FFT of each frame (5/2 n log2 n FLOPs) and
@@ -512,6 +537,15 @@ def check_mel(torch, card):
                           f"{g}: {t * 1e3:.2f} us" for g, t in shapes.items()) + f", {card}")
                 report["by_groups"] = {str(g): t for g, t in shapes.items()}
                 report["clip_frames"] = clip_frames
+                # the global-workspace variant, forced, on the same frames
+                check(f"n_fft {n_fft} {nf} frames, global-workspace variant forced",
+                      lambda: MK._launch(w, nf, consts, 1, force_global=True), plain)
+                g = min(graph_ms(torch, lambda: MK._launch(w, nf, consts, 1, force_global=True))
+                        for _ in range(2))
+                print(f"time mel_spectrogram n_fft {n_fft}, {nf} frames, global-workspace "
+                      f"variant forced (device, CUDA graph): {g * 1e3:.2f} us against "
+                      f"{ms * 1e3:.2f} us in shared memory, {card}")
+                report["global_variant_ms"] = g
     return report
 
 
@@ -855,6 +889,323 @@ def serve(torch, card):
         srv.stop()
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def write_train_corpus():
+    """A raw corpus as the pipeline reads it (original/ BVH + WAV + speaker
+    timing CSV, info.csv with clap-sync timecodes that trim 0.5 s at each
+    end), the v1 pipeline and options files pointing at it, under
+    build/chip_smoke/train."""
+    from zeggs_tpu_torch.io import bvh, wav
+
+    root = WORK / "train"
+    orig = root / "original"
+    orig.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 7)
+    names, parents = skeleton(rng)
+    rows = []
+    for i in range(TRAIN_CLIPS):
+        name = f"{i:03d}_Clip_{i}"
+        bvh.save(orig / f"{name}.bvh", motion(rng, names, parents, int(TRAIN_SECONDS * 60)))
+        wav.write_wavefile(orig / f"{name}.wav", speech_like(rng, TRAIN_SECONDS), 16000)
+        with open(orig / f"{name}.csv", "w", newline="") as f:
+            csv.writer(f).writerows([["#", "Start", "End"], ["R1", "0:0.0", f"0:{TRAIN_SECONDS:.1f}"]])
+        rows.append(dict(audio_filename=f"{name}.wav", audio_start_time="00:00:00:00",
+                         anim_start_time="00:00:00:00", acting_start_time="00:00:00:30",
+                         acting_end_time=f"00:00:{int(TRAIN_SECONDS) - 1:02d}:30",
+                         style=["Neutral", "Happy", "Sad"][i % 3], anim_bvh=f"{name}.bvh",
+                         validation="TRUE" if i == TRAIN_CLIPS - 1 else "FALSE"))
+    with open(root / "info.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    conf = json.loads((ROOT / "configs" / "data_pipeline_conf_v1.json").read_text())
+    conf.update(base_path=str(root), processed_data_path="processed", save_trimmed_audio=False,
+                save_trimmed_animation=False)
+    (root / "pipeline.json").write_text(json.dumps(conf, indent=2))
+    v1 = json.loads((ROOT / "configs" / "configs_v1.json").read_text())
+    v1["paths"] = {"base_path": str(root), "path_processed_data": "processed",
+                   "output_dir": str(root / "run"), "models_dir": None}
+    # one checkpoint and one sample synthesis: at iteration 0
+    v1["train_opt"].update(generate_samples_step=1000, use_tensorboard=False)
+    (root / "options.json").write_text(json.dumps(v1, indent=2))
+    return root
+
+
+def instrumented_trainer(torch, base):
+    """The CLI's Trainer with each train step timed and its launches counted,
+    the first step's gradients checked, and the launches of sample synthesis
+    counted."""
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+
+    class SmokeTrainer(base):
+        steps, synthesis, grads = [], [], None
+
+        def train_step(self, batch):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = super().train_step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            losses = {k: v.item() for k, v in metrics.items()}
+            bad = [k for k, v in losses.items() if not np.isfinite(v)]
+            if bad:
+                fail(f"train step {self.iteration}: losses not finite: {bad}")
+            SmokeTrainer.steps.append(dict(ms=ms, launches=read_counts(),
+                                           loss=losses["total_loss"]))
+            if SmokeTrainer.grads is None:
+                SmokeTrainer.grads = {
+                    name: (p.grad is not None and bool(torch.isfinite(p.grad).all())
+                           and p.grad.abs().max().item() > 0)
+                    for name, p in self.optimizer.params.items()}
+            return metrics
+
+        def generate_samples(self, n=3, length_s=30):
+            g0 = GC.launches
+            t0 = time.perf_counter()
+            steps = super().generate_samples(n, length_s)
+            torch.cuda.synchronize()
+            SmokeTrainer.synthesis.append(dict(steps=steps, gru_cell=GC.launches - g0,
+                                               s=time.perf_counter() - t0))
+            return steps
+
+    return SmokeTrainer
+
+
+def train_phase(torch, card):
+    """Phase 7: raw corpus -> `python -m zeggs_tpu_torch.cli.pipeline` ->
+    `cli.train` at full v1 width for TRAIN_STEPS steps (a checkpoint and
+    sample synthesis at iteration 0, a checkpoint at the end) -> a resume
+    for one more step. Both CLIs run in this process, so that the launch
+    counters see them. The pipeline's mel inputs are recorded as it runs and
+    held, afterwards, against the plain chain."""
+    from zeggs_tpu_torch.cli import pipeline as cli_pipeline
+    from zeggs_tpu_torch.cli import train as cli_train
+    from zeggs_tpu_torch.io import bvh, checkpoint, weights
+    from zeggs_tpu_torch.ops import mel as M
+
+    root = write_train_corpus()
+    tts, mel_inputs = M.mel_spectrogram_tts, []
+
+    def recorded_tts(x, cfg, fused=None):
+        mel_inputs.append((x, cfg))
+        return tts(x, cfg, fused)
+
+    M.mel_spectrogram_tts = recorded_tts
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli_pipeline.main(["-c", str(root / "pipeline.json"), "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        M.mel_spectrogram_tts = tts
+    pipe_s = time.perf_counter() - t0
+    pipe_counts = read_counts()
+    n_aug = TRAIN_CLIPS * 2  # len_ratios 0.9 and 1.0
+    print(f"pipeline: {TRAIN_CLIPS} clips of {TRAIN_SECONDS:g} s x 2 stretches, launches "
+          f"{pipe_counts}; time {pipe_s:.3f} s wall, {pipe_s / TRAIN_CLIPS:.3f} s a clip "
+          f"(on the card: features; on the host: BVH/WAV reading, the cubic time-stretch), {card}")
+    if pipe_counts != {"decoder_rollout": 0, "gru_cell": 0, "mel_spectrogram": n_aug}:
+        fail(f"pipeline launches {pipe_counts}, expected {n_aug} mel launches")
+    # the mel kernel against its plain chain on each input the pipeline gave it
+    mel_err, frames = 0.0, []
+    with torch.inference_mode():
+        for x, cfg in mel_inputs:
+            out, ref = tts(x, cfg), tts(x, cfg, fused=False)
+            err = (out - ref).abs().max().item()
+            if not (torch.isfinite(out).all() and out.shape == ref.shape and err <= MEL_TOL):
+                fail(f"mel_spectrogram on a pipeline input of {x.shape[0]} samples: "
+                     f"kernel/plain error {err} > {MEL_TOL}")
+            mel_err, frames = max(mel_err, err), frames + [out.shape[0]]
+    if len(mel_inputs) != n_aug:
+        fail(f"the pipeline computed {len(mel_inputs)} mel spectrograms, expected {n_aug}")
+    print(f"mel_spectrogram on the pipeline's {len(mel_inputs)} inputs ({min(frames)}-"
+          f"{max(frames)} frames, n_fft {mel_inputs[0][1].filter_length}): max|err| "
+          f"{mel_err:.3e} (tol {MEL_TOL:g})")
+
+    base = cli_train.Trainer
+    Smoke = cli_train.Trainer = instrumented_trainer(torch, base)
+    argv = ["-o", str(root / "options.json"), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    first = cli_train.main(argv + ["--max-iterations", str(TRAIN_STEPS)])
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps, synth = list(Smoke.steps), list(Smoke.synthesis)
+    missing = [k for k, ok in (Smoke.grads or {}).items() if not ok]
+    n_params = len(first.optimizer.params)
+    if Smoke.grads is None or missing:
+        fail(f"parameters without a finite nonzero gradient in the first step: {missing}")
+    nets_cfg = first.opts.net
+    print(f"train: v1 widths (H={nets_cfg.decoder.nhidden}, {nets_cfg.style_encoder.type} "
+          f"{nets_cfg.style_encoder.nhidden}/{nets_cfg.style_encoder.style_encoding_size} + VAE, "
+          f"batch {first.opts.train.batchsize}, window {first.opts.train.window}), "
+          f"{len(first.ds)} windows; every one of {n_params} parameters got a finite nonzero "
+          f"gradient in the first step; losses {[round(s['loss'], 4) for s in steps]}")
+    if any(sum(s["launches"].values()) for s in steps):
+        fail(f"a train step launched a kernel: {[s['launches'] for s in steps]}")
+    if len(synth) != 1 or synth[0]["gru_cell"] != synth[0]["steps"] or not synth[0]["steps"]:
+        fail(f"sample synthesis: {synth}")
+    samples = sorted((root / "run" / "logs" / "samples").glob("*.bvh"))
+    for path in samples:
+        anim = bvh.load(path)
+        if not (np.isfinite(anim["positions"]).all() and np.isfinite(anim["rotations"]).all()):
+            fail(f"sample {path.name} is not finite")
+    ms = [s["ms"] for s in steps]
+    print(f"time train step (v1 width, eager, wall with a cuda.synchronize): first "
+          f"{ms[0]:.1f} ms, median of the next {len(ms) - 1} {np.median(ms[1:]):.1f} ms "
+          f"({', '.join(f'{m:.1f}' for m in ms[1:])}); launches a step {steps[1]['launches']}; "
+          f"peak device memory {peak:.1f} MiB, {card}")
+    print(f"time sample synthesis: {len(samples)} BVHs, {synth[0]['steps']} decoder steps, "
+          f"{synth[0]['gru_cell']} GRU-cell launches (one a decoder step), "
+          f"{synth[0]['s']:.3f} s, {card}")
+
+    # resume for one more step: every piece of the loop state comes back
+    options = json.loads((root / "options.json").read_text())
+    options["train_opt"]["resume"] = True
+    (root / "options_resume.json").write_text(json.dumps(options, indent=2))
+    Smoke.steps.clear()
+    second = cli_train.main(["-o", str(root / "options_resume.json"), "--device", "cuda",
+                             "--max-iterations", str(TRAIN_STEPS + 1)])
+    nets, _, meta = checkpoint.load_train_state(root / "run" / "saved_models" / str(TRAIN_STEPS))
+    restored = (
+        meta["step"] == TRAIN_STEPS and second.iteration == TRAIN_STEPS + 1
+        and second.epoch >= first.epoch and second.optimizer.step_count == TRAIN_STEPS + 1
+        and len(Smoke.steps) == 1 and np.isfinite(Smoke.steps[0]["loss"])
+        and meta["np_rng_state"] == first.rng.bit_generator.state
+        and meta["torch_generator_state"] == first.generator.get_state().tolist()
+    )
+    first_params = {k: p.detach().cpu().numpy() for k, p in first.optimizer.params.items()}
+    saved = {f"{n}.{k}": v.numpy() for n, tree in nets.items()
+             for k, v in weights.from_jax(tree).items()}
+    restored = restored and set(saved) == set(first_params) and all(
+        np.array_equal(saved[k], v) for k, v in first_params.items())
+    print(f"resume: checkpoint at iteration {meta['step']} restored (parameters, RAdam state, "
+          f"epoch, data-order RNG, dropout generator): {restored}; one more step, loss "
+          f"{Smoke.steps[0]['loss'] if Smoke.steps else None}")
+    if not restored:
+        fail("the resumed checkpoint did not restore the training state")
+    cli_train.Trainer = base
+    breakdown = step_breakdown(torch, second, card)
+    return dict(breakdown=breakdown, pipeline_mel=pipe_counts["mel_spectrogram"],
+                pipeline_mel_err=mel_err, pipeline_s_per_clip=pipe_s / TRAIN_CLIPS,
+                step_ms=float(np.median(ms[1:])), first_step_ms=ms[0],
+                launches_per_step=steps[1]["launches"], peak_mib=peak,
+                synthesis_gru=synth[0]["gru_cell"], synthesis_steps=synth[0]["steps"])
+
+
+def step_breakdown(torch, trainer, card):
+    """Where one v1-width train step's time goes, on a batch of the corpus:
+    the loss's forward (encoders, rollout, the 18 terms; the terms alone
+    timed apart), the backward and the RAdam update, each closed by a
+    cuda.synchronize; then one step under torch.profiler: kernel launches,
+    host-to-device copies and the card's busy share (kernel time over the
+    step's wall time)."""
+    from torch.autograd import DeviceType
+
+    from zeggs_tpu_torch.train import loop, loss as L
+
+    ds = trainer.ds
+    idx = np.random.default_rng(SEED).permutation(len(ds))[: trainer.opts.train.batchsize]
+    batch = trainer._batch(idx, ds.max_example_length)
+    loss_fn = loop.make_loss_fn(trainer.opts, ds.stats, ds.parents, ds.dt)
+    nets, opt, gen = trainer.nets, trainer.optimizer, trainer.generator
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def step():
+        for p in opt.params.values():
+            p.grad = None
+        loss, _ = loss_fn(nets, batch, trainer.iteration, gen)
+        loss.backward()
+        opt.step()
+
+    step()  # warm
+    rows = []
+    for _ in range(3):
+        for p in opt.params.values():
+            p.grad = None
+        loss, fwd = timed(lambda: loss_fn(nets, batch, trainer.iteration, gen)[0])
+        _, bwd = timed(loss.backward)
+        _, upd = timed(opt.step)
+        rows.append((fwd, bwd, upd))
+    fwd, bwd, upd = (float(np.median(c)) for c in zip(*rows))
+    # the 18 terms alone, on trajectories that need their gradient
+    out = {k: batch[k].clone().requires_grad_() for k in loop.POSE_KEYS}
+    tgt = {k: batch[k] for k in loop.POSE_KEYS}
+    parents = [int(p) for p in ds.parents]
+    terms = float(np.median([timed(lambda: L.compute_loss(out, tgt, batch["gaze_pos"], parents,
+                                                           ds.dt)[0])[1] for _ in range(3)]))
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(step)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in device if "memcpy" in e.name.lower()]
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    kernels = len(device) - len(copies)
+    report = dict(forward_ms=fwd, loss_terms_ms=terms, backward_ms=bwd, optimizer_ms=upd,
+                  profiled_step_ms=wall, kernels=kernels, copies=len(copies),
+                  device_busy_ms=busy_ms, busy_share=busy_ms / wall)
+    print(f"time train step breakdown (v1 width, B={len(idx)}, example {ds.max_example_length} "
+          f"frames; medians of 3, each phase closed by a cuda.synchronize): forward {fwd:.1f} ms "
+          f"(of which the 18 loss terms {terms:.1f} ms), backward {bwd:.1f} ms, RAdam "
+          f"{upd:.1f} ms; one profiled step {wall:.1f} ms: {kernels} kernels, {len(copies)} "
+          f"copies, card busy {busy_ms:.1f} ms ({busy_ms / wall:.1%}), {card}")
+    return report
+
+
+def grad_card_vs_cpu(torch):
+    """One deterministic small-width step's gradients on the card against
+    the same step on the CPU, per leaf within GRAD_TOL of max(1, max|g|)."""
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.train import loop
+
+    rng = np.random.default_rng(SEED + 11)
+    names, parents = skeleton(rng, 8)
+    J, B, T, L = len(names), 4, 32, 48
+    pose_in, pose_out = 6 + 15 * J + 3, 6 + 15 * J
+    opts = Options.from_options_dict({"net_opt": {
+        "decoder": {"nhidden": 64}, "speech_encoder": {"nhidden": 16, "speech_encoding_size": 16},
+        "style_encoder": {"nhidden": 24, "style_encoding_size": 8, "example_length": 24}}})
+    stats = dict(audio_input_mean=rng.normal(size=81) * 0.1, audio_input_std=np.float32(1.5),
+                 anim_input_mean=rng.normal(size=pose_in) * 0.1,
+                 anim_input_std=rng.uniform(0.5, 2.0, pose_in),
+                 anim_output_mean=rng.normal(size=pose_out) * 0.1,
+                 anim_output_std=rng.uniform(0.05, 0.5, pose_out))
+    q = rng.normal(size=(B, T, 4))
+    batch = dict(root_pos=rng.normal(size=(B, T, 3)) * 10, root_rot=q / np.linalg.norm(q, axis=-1,
+                                                                                     keepdims=True),
+                 root_vel=rng.normal(size=(B, T, 3)), root_vrt=rng.normal(size=(B, T, 3)),
+                 lpos=rng.normal(size=(B, T, J, 3)), ltxy=rng.normal(size=(B, T, J, 2, 3)),
+                 lvel=rng.normal(size=(B, T, J, 3)), lvrt=rng.normal(size=(B, T, J, 3)),
+                 audio_features=rng.normal(size=(B, T, 81)),
+                 gaze_pos=np.repeat(rng.normal(size=(B, 1, 3)) * 100, T, axis=1),
+                 example=rng.normal(size=(B, L, pose_in)))
+    dims = dict(num_audio_features=81, pose_input_size=pose_in, pose_output_size=pose_out)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        nets = loop.init_networks(opts, dims, 3, SEED, dev)
+        b = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in batch.items()}
+        b["example_lengths"] = torch.tensor([L, 40, 31, 24], device=dev)
+        loss, _ = loop.make_loss_fn(opts, stats, parents, DT, deterministic=True)(nets, b, 7500)
+        loss.backward()
+        grads[dev] = {k: p.grad.cpu() for k, p in loop.named_parameters(nets).items()}
+    worst = max(((grads["cuda"][k] - g).abs().max().item() / max(1.0, g.abs().max().item()), k)
+                for k, g in grads["cpu"].items())
+    print(f"train step gradients, card against CPU ({len(grads['cpu'])} leaves, TF32 off): worst "
+          f"max|diff| / max(1, max|g|) {worst[0]:.3e} at {worst[1]} (tol {GRAD_TOL:g})")
+    if not worst[0] <= GRAD_TOL:
+        fail(f"card against CPU gradients: {worst}")
+    return worst[0]
+
+
 def main():
     import torch
 
@@ -893,6 +1244,8 @@ def main():
     card_vs_cpu(torch)
     stream = streaming(torch, card, results)
     served = serve(torch, card)
+    grad_err = grad_card_vs_cpu(torch)
+    trained = train_phase(torch, card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -908,7 +1261,11 @@ def main():
 
     print(json.dumps({"launches": {"csv": csv_counts, "batched": batch_counts,
                                    "int8": int8_counts, "streaming": stream["counts"],
-                                   "serve": served}}))
+                                   "serve": served,
+                                   "pipeline": {"mel_spectrogram": trained["pipeline_mel"]},
+                                   "train_step": trained["launches_per_step"],
+                                   "sample_synthesis": {"gru_cell": trained["synthesis_gru"]}}}))
+    print(json.dumps({"train": {**trained, "grad_card_vs_cpu": grad_err, "card": card}}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
@@ -918,15 +1275,19 @@ def main():
          "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
          "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"], "tol": GRU_TOL,
          **{k: gru[64][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "batch": 64, "by_batch": {str(B): gru[B] for B in GRU_TIMED}},
+         "batch": 64, "by_batch": {str(B): gru[B] for B in GRU_TIMED},
+         "launches_sample_synthesis": trained["synthesis_gru"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
-         "launches": csv_counts["mel_spectrogram"], "max_abs_err": mel["err"], "tol": MEL_TOL,
+         "launches": csv_counts["mel_spectrogram"],
+         "max_abs_err": max(mel["err"], trained["pipeline_mel_err"]), "tol": MEL_TOL,
          **{k: mel[mel["clip_frames"]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, "frames": mel["clip_frames"],
          "by_frames": {str(nf): mel[nf] for nf in (*MEL_TIMED, mel["clip_frames"])},
-         "by_groups": mel["by_groups"]},
+         "by_groups": mel["by_groups"], "global_variant_ms": mel["global_variant_ms"],
+         "n_fft_8192": {k: v for k, v in mel.items() if str(k).startswith("n_fft_8192")},
+         "launches_pipeline": trained["pipeline_mel"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

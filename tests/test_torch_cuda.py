@@ -1,5 +1,6 @@
 """The CUDA kernels (decoder rollout, GRU cell, mel spectrogram) against
-their plain PyTorch versions, on the card. Imports no jax; run on a machine with a card as
+their plain PyTorch versions, and a training step's gradients against the
+CPU's, on the card. Imports no jax; run on a machine with a card as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -11,8 +12,10 @@ Tolerances: one step from the same state 1e-4 (fp32 weights) and 1e-3
 inputs the same way and differ only in the order of float32 sums (int8
 sums are exact in both); a whole rollout, pose MAE < 1e-3, the budget of
 docs/DESIGN.md section 5. The GRU cell: 2e-5, and the mel spectrogram:
-2e-4 at n_fft 800, 1024 and 802, the budgets of
-tests/test_pallas_kernels.py.
+2e-4 at n_fft 800, 1024 and 802 and, through the global-workspace variant,
+6000 and 8192: the budgets of tests/test_pallas_kernels.py. Training
+gradients: per leaf 1e-4 * max(1, max|g|) against the same step on the CPU,
+TF32 off.
 """
 
 import numpy as np
@@ -257,7 +260,8 @@ def test_mel_cuda_tensors_raise_instead_of_falling_back(device):
 @torch.no_grad()
 def test_mel_launch_fits_shared_memory_or_raises(device):
     """n_fft 5000 fits one frame pair a block, not the two `launch_shape`
-    asks for at 600 frames; n_fft 16000 fits none and raises."""
+    asks for at 600 frames; n_fft 16000 fits none and runs the
+    global-workspace variant; a workspace too small raises."""
     cfg = _mel_cfg(5000)
     nf = 600
     assert MK.launch_shape(nf, torch.cuda.get_device_properties(device).multi_processor_count)[0] == 2
@@ -267,7 +271,107 @@ def test_mel_launch_fits_shared_memory_or_raises(device):
     ref = MK.mel_frames_plain(x, nf, MK.mel_consts(cfg, x.device))
     torch.cuda.synchronize()
     assert out.shape == (nf, 80) and (out - ref).abs().max().item() <= 2e-4
+    cfg = _mel_cfg(16000)
+    x = torch.as_tensor(_speech_like(2.0, seed=6), device=device)
+    out = MK.mel_frames(x, 5, cfg)
+    ref = MK.mel_frames_plain(x, 5, MK.mel_consts(cfg, x.device))
+    assert (out - ref).abs().max().item() <= 2e-4
+    c = MK.mel_consts(cfg, x.device)
     before = MK.launches
+    err = MK._library().zeggs_mel_spectrogram(
+        x.data_ptr(), 5, c.window.data_ptr(), c.stages.data_ptr(), c.twiddles.data_ptr(),
+        c.twiddles.shape[0], c.filters.data_ptr(), c.filters.shape[1], c.support.data_ptr(),
+        out.data_ptr(), c.n_fft, c.hop, c.n_mels, c.amp_scale, c.min_amp, c.dyn_range, 1,
+        len(c.plan.radices), 1, 0, x.data_ptr(), 64, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        MK.mel_frames(torch.zeros(16000, device=device), 1, _mel_cfg(16000))
+        MK._raise_for(err)
     assert MK.launches == before
+
+
+@pytest.mark.parametrize("n_fft", [6000, 8192])
+@pytest.mark.parametrize("nf", [1, 2, 7, 64])
+@torch.no_grad()
+def test_mel_large_n_fft_variant_matches_plain(device, n_fft, nf):
+    """A frame pair of these does not fit a block: the buffers go to a
+    global workspace, with the same plan and stages."""
+    cfg = _mel_cfg(n_fft)
+    c = MK.mel_consts(cfg, device)
+    assert MK._workspace_bytes(device.index or 0, nf, c.twiddles.shape[0], c.filters.shape[1],
+                               n_fft, c.n_mels, False) > 0
+    n = (nf - 1) * cfg.hop_length + n_fft
+    x = torch.as_tensor(_speech_like(n / 16000 + 0.01, seed=nf)[:n], device=device)
+    before = MK.launches
+    out = MK.mel_frames(x, nf, cfg)
+    torch.cuda.synchronize()
+    assert MK.launches == before + 1
+    ref = MK.mel_frames_plain(x, nf, c)
+    assert out.shape == (nf, 80) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("n_fft", [800, 802])
+@torch.no_grad()
+def test_mel_global_variant_forced_matches_plain(device, n_fft):
+    cfg = _mel_cfg(n_fft)
+    n = 299 * cfg.hop_length + n_fft
+    x = torch.as_tensor(_speech_like(n / 16000 + 0.01, seed=3)[:n], device=device)
+    c = MK.mel_consts(cfg, device)
+    out = MK._launch(x, 300, c, 1, force_global=True)
+    assert (out - MK.mel_frames_plain(x, 300, c)).abs().max().item() <= 2e-4
+
+
+def test_gru_cell_raises_under_autograd_on_the_card(device):
+    cell = torch.nn.GRUCell(64, 64, device=device)
+    x, h = torch.zeros(4, 64, device=device), torch.zeros(4, 64, device=device)
+    before = GC.launches
+    with pytest.raises(RuntimeError, match="inference only"):
+        GC.pack_gru(cell)
+    with torch.no_grad():
+        packed = GC.pack_gru(cell)
+    with pytest.raises(RuntimeError, match="inference only"):
+        GC.fused_gru_cell(packed, x.requires_grad_(), h)
+    assert GC.launches == before
+
+
+@pytest.mark.parametrize("rnn_cond", ["normal", "film"])
+def test_train_step_gradients_match_the_cpu(device, rnn_cond):
+    """One deterministic small-width step on the card against the CPU, and
+    no kernel launch inside it."""
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.train import loop
+
+    rng = np.random.default_rng(7)
+    J, B, T, L = 8, 3, 24, 40
+    parents = [-1, 0, 1, 2, 3, 4, 3, 3]
+    pose_in, pose_out = 6 + 15 * J + 3, 6 + 15 * J
+    opts = Options.from_options_dict({"net_opt": {
+        "decoder": {"nhidden": 64, "rnn_cond": rnn_cond},
+        "speech_encoder": {"nhidden": 16, "speech_encoding_size": 16},
+        "style_encoder": {"nhidden": 24, "style_encoding_size": 8}}})
+    stats = dict(audio_input_mean=rng.normal(size=81) * 0.1, audio_input_std=np.float32(1.5),
+                 anim_input_mean=rng.normal(size=pose_in) * 0.1,
+                 anim_input_std=rng.uniform(0.5, 2.0, pose_in),
+                 anim_output_mean=rng.normal(size=pose_out) * 0.1,
+                 anim_output_std=rng.uniform(0.05, 0.5, pose_out))
+    q = rng.normal(size=(B, T, 4))
+    batch = dict(root_pos=rng.normal(size=(B, T, 3)) * 10,
+                 root_rot=q / np.linalg.norm(q, axis=-1, keepdims=True),
+                 root_vel=rng.normal(size=(B, T, 3)), root_vrt=rng.normal(size=(B, T, 3)),
+                 lpos=rng.normal(size=(B, T, J, 3)), ltxy=rng.normal(size=(B, T, J, 2, 3)),
+                 lvel=rng.normal(size=(B, T, J, 3)), lvrt=rng.normal(size=(B, T, J, 3)),
+                 audio_features=rng.normal(size=(B, T, 81)),
+                 gaze_pos=np.repeat(rng.normal(size=(B, 1, 3)) * 100, T, axis=1),
+                 example=rng.normal(size=(B, L, pose_in)))
+    dims = dict(num_audio_features=81, pose_input_size=pose_in, pose_output_size=pose_out)
+    grads = {}
+    for dev in ("cpu", device):
+        nets = loop.init_networks(opts, dims, 3, 5, dev)
+        b = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in batch.items()}
+        b["example_lengths"] = torch.tensor([L, 33, 20], device=dev)
+        counts = (GC.launches, MK.launches, DR.launches)
+        loss, _ = loop.make_loss_fn(opts, stats, parents, DT, deterministic=True)(nets, b, 7500)
+        loss.backward()
+        assert (GC.launches, MK.launches, DR.launches) == counts
+        grads[str(dev)] = {k: p.grad.cpu() for k, p in loop.named_parameters(nets).items()}
+    for k, g in grads["cpu"].items():
+        assert (grads["cuda"][k] - g).abs().max().item() <= 1e-4 * max(1.0, g.abs().max().item()), k

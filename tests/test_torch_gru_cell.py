@@ -57,7 +57,8 @@ def test_plain_matches_torch_gru_cell(B, in_dim, H):
 
 def test_pack_folds_biases_once():
     _, cell, _, _ = _case(2, 16, 8)
-    p = GC.pack_gru(cell)
+    with torch.no_grad():
+        p = GC.pack_gru(cell)
     H = 8
     torch.testing.assert_close(p.b_rz, cell.bias_ih[: 2 * H] + cell.bias_hh[: 2 * H],
                                rtol=0, atol=0)
@@ -68,6 +69,7 @@ def test_pack_folds_biases_once():
 @pytest.mark.parametrize("fault", ["shape", "dtype", "contiguity", "device", "width"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
     _, cell, x, h = _case(4, 16, 8)
+    cell.requires_grad_(False)  # the kernel is inference only
     p, x, h = GC.pack_gru(cell), torch.as_tensor(x), torch.as_tensor(h)
     err = ValueError
     if fault == "shape":
@@ -79,7 +81,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
     elif fault == "device":
         x = torch.zeros(4, 16, device="meta")
     else:
-        cell = torch.nn.GRUCell(12, 8)
+        cell = torch.nn.GRUCell(12, 8).requires_grad_(False)
         p, x = GC.pack_gru(cell), torch.zeros(4, 12)
     with pytest.raises(err):
         GC.fused_gru_cell(p, x, h)

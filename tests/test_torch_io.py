@@ -123,7 +123,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "import zeggs_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(zeggs_tpu_torch.__path__, "
         "'zeggs_tpu_torch.')]\n"
-        "assert len(names) > 30, names\n"
+        "assert len(names) > 40, names\n"
+        "new = {'train.loop', 'train.loss', 'train.radam', 'data.pipeline', 'data.dataset', "
+        "'data.device_dataset', 'cli.train', 'cli.pipeline', 'utils.metrics', 'utils.logs'}\n"
+        "assert {'zeggs_tpu_torch.' + n for n in new} <= set(names), names\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "

@@ -11,11 +11,16 @@ Layout:
   config.py     options.json / data_pipeline_conf.json / data_definition.json
   ops/          quaternion, rot6d, FK and mel math; ops/kernels: CUDA kernels
   csrc/         CUDA C++ sources of the kernels (built with nvcc at first use)
-  data/         per-clip animation and audio featurizers
-  models/       speech encoder, attention style encoder (VAE), decoder
+  data/         featurizers, the corpus pipeline, the windowed dataset and
+                the device-resident corpus
+  models/       speech encoder, style encoders (attn, gru; VAE), decoder
+                (normal and FiLM cells)
+  train/        the 18-term loss, RAdam and the single-card trainer
   io/           the JAX package's numpy host IO, and the weight bridge
-  infer/        GesturePipeline and generate_gesture
-  cli/          the generate entry point
+  infer/        GesturePipeline, generate_gesture, batches, streaming
+  serve/        the HTTP daemon
+  utils/        BVH writing, metric writers, console tables
+  cli/          the generate, serve, pipeline and train entry points
 """
 
 __version__ = "0.1.0"

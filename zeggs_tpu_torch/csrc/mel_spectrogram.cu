@@ -44,7 +44,14 @@
 //   * a block holds 1 or 2 groups, chosen from the frame count
 //     (launch_shape): one pair a block while the pairs do not fill the card
 //     twice over, two to share the staged tables on long clips; the launch
-//     takes fewer where they would not fit the card's shared memory.
+//     takes fewer where they would not fit the card's shared memory;
+//   * where one pair's two buffers and the tables do not fit a block's
+//     shared memory (n_fft above about 5,800 on an H100), the launch takes
+//     mel_kernel_global instead: the same stages and the same per-pair code
+//     (pair_rows), with each block's two Stockham buffers in a global
+//     workspace that the caller allocates (zeggs_mel_workspace_bytes says
+//     how large) and the tables read through L2; its blocks, two an SM,
+//     walk the frame pairs.
 // float32 FMAs, no tensor cores: the work is small and the error budget
 // (2e-4 on the normalised dB rows) is met with room to spare.
 
@@ -139,8 +146,11 @@ __device__ __forceinline__ void dft<5>(float2 (&v)[5]) {
 // One Stockham stage of radix R after stages of total size Ns: butterfly j
 // (k = j mod Ns) reads in[j + r N/R], twiddles input r by tw[(r-1) Ns + k],
 // and writes output q to out[(j - k) R + k + q Ns].
+// `in` is not __restrict__: in the global-workspace variant it is global
+// memory that the kernel rewrites, which must not be read through the
+// non-coherent read-only path.
 template <int R>
-__device__ __forceinline__ void stage(const float2* __restrict__ in, float2* __restrict__ out,
+__device__ __forceinline__ void stage(const float2* in, float2* __restrict__ out,
                                       const float2* __restrict__ tw, int N, int Ns, int tid) {
   const int M = N / R;
   for (int j = tid; j < M; j += kGroupThreads) {
@@ -215,47 +225,19 @@ size_t smem_bytes(const Args& a, int groups) {
          (size_t)groups * 2 * 8 * buffer_slots(a.n_fft);
 }
 
-__global__ void __launch_bounds__(kMaxGroups * kGroupThreads) mel_kernel(const Args a) {
-  extern __shared__ __align__(16) float2 smem[];
-  const int N = a.n_fft, n_bins = N / 2 + 1, slots = buffer_slots(N);
-  const int group = threadIdx.x / kGroupThreads, tid = threadIdx.x % kGroupThreads;
-  float2* s_tw = smem;
-  float* s_filt = reinterpret_cast<float*>(s_tw + a.n_twiddles);
-  float* s_win = s_filt + a.n_mels * a.width;
-  float2* buf0 = reinterpret_cast<float2*>(s_filt + table_floats(a)) + 2 * group * slots;
-  float2* buf1 = buf0 + slots;
-
-  // stage the tables and the group's two frames (re: frame t0, im: t0 + 1)
-  for (int i = threadIdx.x; i < a.n_twiddles; i += blockDim.x) cp_async<8>(s_tw + i, a.twiddles + i);
-  for (int i = threadIdx.x; i < a.n_mels * a.width; i += blockDim.x)
-    cp_async<4>(s_filt + i, a.filters + i);
-  for (int i = threadIdx.x; i < N; i += blockDim.x) cp_async<4>(s_win + i, a.window + i);
-  const int t0 = 2 * (blockIdx.x * (blockDim.x / kGroupThreads) + group);
-  if (t0 < a.T) {
-    const float* xa = a.x + (size_t)t0 * a.hop;
-    const bool has_b = t0 + 1 < a.T;
-    for (int n = tid; n < N; n += kGroupThreads) {
-      float* d = reinterpret_cast<float*>(buf0 + slot(n));
-      cp_async<4>(d, xa + n);
-      cp_async<4>(d + 1, has_b ? xa + a.hop + n : xa + n, has_b);
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  if (t0 >= a.T) return;  // the whole group: its named barrier is not used
-  for (int n = tid; n < N; n += kGroupThreads) {
-    const float w = s_win[n];
-    const float2 v = buf0[slot(n)];
-    buf0[slot(n)] = make_float2(v.x * w, v.y * w);
-  }
-  group_sync(group);
-
+// The planned stages, the two spectra's amplitudes and the mel rows of the
+// frame pair t0, t0 + 1 whose windowed samples are in buf0 (re: frame t0,
+// im: t0 + 1), run by one group; tw and filt are the tables, in shared or
+// global memory.
+__device__ __forceinline__ void pair_rows(const Args& a, const float2* tw_table, const float* filt,
+                          float2* buf0, float2* buf1, int t0, int group, int tid) {
+  const int N = a.n_fft, n_bins = N / 2 + 1;
   // the planned stages, ping-ponging between the group's two buffers
   float2* src = buf0;
   float2* dst = buf1;
   for (int s = 0, Ns = 1; s < a.n_stages; ++s) {
     const int2 st = __ldg(a.stages + s);
-    const float2* tw = s_tw + st.y;
+    const float2* tw = tw_table + st.y;
     switch (st.x) {
       case 2: stage<2>(src, dst, tw, N, Ns, tid); break;
       case 3: stage<3>(src, dst, tw, N, Ns, tid); break;
@@ -288,7 +270,7 @@ __global__ void __launch_bounds__(kMaxGroups * kGroupThreads) mel_kernel(const A
     const int f = o >= a.n_mels, m = o - f * a.n_mels;
     const int2 sp = __ldg(a.support + m);
     const float* ap = amp + f * n_bins + sp.x;
-    const float* wp = s_filt + m * a.width;
+    const float* wp = filt + m * a.width;
     float acc = 0.f;
 #pragma unroll 4
     for (int i = 0; i < sp.y - sp.x; ++i) acc = fmaf(ap[i], wp[i], acc);
@@ -298,20 +280,110 @@ __global__ void __launch_bounds__(kMaxGroups * kGroupThreads) mel_kernel(const A
   }
 }
 
+__global__ void __launch_bounds__(kMaxGroups * kGroupThreads) mel_kernel(const Args a) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int N = a.n_fft, slots = buffer_slots(N);
+  const int group = threadIdx.x / kGroupThreads, tid = threadIdx.x % kGroupThreads;
+  float2* s_tw = smem;
+  float* s_filt = reinterpret_cast<float*>(s_tw + a.n_twiddles);
+  float* s_win = s_filt + a.n_mels * a.width;
+  float2* buf0 = reinterpret_cast<float2*>(s_filt + table_floats(a)) + 2 * group * slots;
+
+  // stage the tables and the group's two frames (re: frame t0, im: t0 + 1)
+  for (int i = threadIdx.x; i < a.n_twiddles; i += blockDim.x) cp_async<8>(s_tw + i, a.twiddles + i);
+  for (int i = threadIdx.x; i < a.n_mels * a.width; i += blockDim.x)
+    cp_async<4>(s_filt + i, a.filters + i);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) cp_async<4>(s_win + i, a.window + i);
+  const int t0 = 2 * (blockIdx.x * (blockDim.x / kGroupThreads) + group);
+  if (t0 < a.T) {
+    const float* xa = a.x + (size_t)t0 * a.hop;
+    const bool has_b = t0 + 1 < a.T;
+    for (int n = tid; n < N; n += kGroupThreads) {
+      float* d = reinterpret_cast<float*>(buf0 + slot(n));
+      cp_async<4>(d, xa + n);
+      cp_async<4>(d + 1, has_b ? xa + a.hop + n : xa + n, has_b);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (t0 >= a.T) return;  // the whole group: its named barrier is not used
+  for (int n = tid; n < N; n += kGroupThreads) {
+    const float w = s_win[n];
+    const float2 v = buf0[slot(n)];
+    buf0[slot(n)] = make_float2(v.x * w, v.y * w);
+  }
+  group_sync(group);
+  pair_rows(a, s_tw, s_filt, buf0, buf0 + slots, t0, group, tid);
+}
+
+// One group a block; block b owns workspace[b][2][slots] and walks the frame
+// pairs b, b + gridDim.x, ...; the tables stay in global memory (L2).
+__global__ void __launch_bounds__(kGroupThreads) mel_kernel_global(const Args a,
+                                                                   float2* workspace) {
+  const int N = a.n_fft, slots = buffer_slots(N), tid = threadIdx.x;
+  float2* buf0 = workspace + (size_t)blockIdx.x * 2 * slots;
+  const int pairs = (a.T + 1) / 2;
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    const int t0 = 2 * pair;
+    const float* xa = a.x + (size_t)t0 * a.hop;
+    const bool has_b = t0 + 1 < a.T;
+    for (int n = tid; n < N; n += kGroupThreads) {
+      const float w = __ldg(a.window + n);
+      buf0[slot(n)] = make_float2(__ldg(xa + n) * w, has_b ? __ldg(xa + a.hop + n) * w : 0.f);
+    }
+    group_sync(0);
+    pair_rows(a, a.twiddles, a.filters, buf0, buf0 + slots, t0, 0, tid);
+    group_sync(0);  // the next pair overwrites both buffers
+  }
+}
+
+// Blocks of mel_kernel_global for T frames: two an SM, at most one a pair.
+int global_blocks(int T, int sms) {
+  const int pairs = (T + 1) / 2;
+  return pairs < 2 * sms ? pairs : 2 * sms;
+}
+
 }  // namespace
 
 extern "C" {
 
+// Bytes of global workspace a launch of T frames needs on the current card:
+// 0 where one frame pair fits a block's shared memory (unless
+// `force_global`), else two Stockham buffers for each block of
+// mel_kernel_global. Returns a cudaError_t.
+int zeggs_mel_workspace_bytes(int T, int n_twiddles, int width, int n_fft, int n_mels,
+                              int force_global, size_t* bytes) {
+  *bytes = 0;
+  if (T <= 0) return (int)cudaSuccess;
+  Args a{};
+  a.n_fft = n_fft;
+  a.n_mels = n_mels;
+  a.n_twiddles = n_twiddles;
+  a.width = width;
+  int dev = 0, limit = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!force_global && smem_bytes(a, 1) <= (size_t)limit) return (int)cudaSuccess;
+  *bytes = (size_t)global_blocks(T, sms) * 2 * 8 * buffer_slots(n_fft);
+  return (int)cudaSuccess;
+}
+
 // Launch on `stream` for T >= 1 frames of a padded signal x of at least
-// (T - 1) * hop + n_fft samples, a frame pair a group of kGroupWarps warps,
-// at most `groups` groups a block (launch_shape): as many as fit the
-// current card's shared memory. Returns a cudaError_t (0 on success;
-// cudaErrorInvalidValue where one group does not fit).
+// (T - 1) * hop + n_fft samples. Where one frame pair fits a block's shared
+// memory (and `force_global` is 0): a pair a group of kGroupWarps warps, at
+// most `groups` groups a block (launch_shape), as many as fit the card.
+// Else mel_kernel_global, whose workspace (zeggs_mel_workspace_bytes) the
+// caller passes. Returns a cudaError_t (0 on success; cudaErrorInvalidValue
+// for a workspace that is missing or too small).
 int zeggs_mel_spectrogram(const void* x, int T, const void* window, const void* stages,
                           const void* twiddles, int n_twiddles, const void* filters, int width,
                           const void* support, void* out, int n_fft, int hop, int n_mels,
                           float amp_scale, float min_amp, float dyn_range, int normalize,
-                          int n_stages, int groups, void* stream) {
+                          int n_stages, int groups, int force_global, void* workspace,
+                          size_t workspace_bytes, void* stream) {
   if (T <= 0) return (int)cudaSuccess;
   if (groups < 1 || groups > kMaxGroups || n_fft < 1 || n_mels < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
@@ -320,19 +392,29 @@ int zeggs_mel_spectrogram(const void* x, int T, const void* window, const void* 
                static_cast<const float*>(filters), static_cast<const int2*>(support),
                static_cast<float*>(out), T, n_fft, hop, n_mels, n_stages, n_twiddles, width,
                amp_scale, min_amp, dyn_range, normalize};
-  int dev = 0, limit = 0;
+  int dev = 0, limit = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (force_global || smem_bytes(a, 1) > (size_t)limit) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = global_blocks(T, sms);
+    if (workspace == nullptr ||
+        workspace_bytes < (size_t)blocks * 2 * 8 * buffer_slots(n_fft))
+      return (int)cudaErrorInvalidValue;
+    mel_kernel_global<<<blocks, kGroupThreads, 0, s>>>(a, static_cast<float2*>(workspace));
+    return (int)cudaGetLastError();
+  }
   while (groups > 1 && smem_bytes(a, groups) > (size_t)limit) --groups;
   const size_t smem = smem_bytes(a, groups);
-  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
   static SmemOptIn opt_in;
   err = opt_in.ensure(reinterpret_cast<const void*>(mel_kernel), smem);
   if (err != cudaSuccess) return (int)err;
   const int pairs = (T + 1) / 2, blocks = (pairs + groups - 1) / groups;
-  mel_kernel<<<blocks, groups * kGroupThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  mel_kernel<<<blocks, groups * kGroupThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,1 +1,1 @@
-"""Per-clip feature extraction."""
+"""Per-clip features, the corpus pipeline, the windowed dataset and the device corpus."""

@@ -121,7 +121,8 @@ class GesturePipeline:
             params = weights.load_jax_npz(network_path / f"{name}.npz")
             module = self._build_network(name, params)
             module.load_state_dict(weights.from_jax(params), strict=True)
-            nets[name] = module.to(self.device).eval()
+            # inference: autograd never records on a pipeline's networks
+            nets[name] = module.to(self.device).eval().requires_grad_(False)
         return nets
 
     def _build_network(self, name, params):
@@ -132,16 +133,15 @@ class GesturePipeline:
             return SpeechEncoder(n_in, hidden, params["conv1"]["w"].shape[2], device=dev)
         if name == "style_encoder":
             se_cfg = self.opts.net.style_encoder
-            if se_cfg.type != "attn":
-                raise NotImplementedError(f"style encoder {se_cfg.type!r} is not ported yet")
             _, n_in, hidden = params["body"]["conv0"]["w"].shape
             return StyleEncoder(n_in, hidden, se_cfg.style_encoding_size, se_cfg.use_vae,
-                                device=dev)
+                                encoder_type=se_cfg.type, device=dev)
         dec_cfg = self.opts.net.decoder
         cell = params["cell"]
         pose_in = self.stats["anim_input_mean"].shape[-1]
         style = params["cell_state_encoder"]["l0"]["w"].shape[0] - pose_in
-        speech = cell["layer0"]["w"].shape[0] - pose_in - style
+        # layer0 takes [pose | speech | style], or [pose | speech] in the film cell
+        speech = cell["layer0"]["w"].shape[0] - pose_in - (0 if "gammas" in cell else style)
         return Decoder(pose_in, cell["out"]["w"].shape[1], speech, style,
                        cell["gru1"]["w_hh"].shape[0], dec_cfg.num_rnn_layers, dec_cfg.rnn_cond,
                        device=dev)

@@ -330,7 +330,10 @@ class StreamingSession:
         """quantum: run no decoder chunk shorter than this mid-stream
         (finish() always flushes). At 16 or more (the serving default) the
         mel and speech stages consume in grains of 8 and 16 rows too: fewer,
-        larger launches for a few frames more lag."""
+        larger launches for a few frames more lag. Sessions run the
+        'normal' decoder cell, as the reference's do."""
+        if pipe.opts.net.decoder.rnn_cond != "normal":
+            raise NotImplementedError("streaming supports the 'normal' decoder cell")
         self.pipe = pipe
         dev = pipe.device
         self.quantum = int(quantum)

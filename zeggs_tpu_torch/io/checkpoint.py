@@ -1,7 +1,8 @@
 """Native `.npz` checkpoints (the port's own copy of the numpy half of
 `zeggs_tpu/io/checkpoint.py`): a parameter tree flattened to "/"-joined
-keys in one `.npz`, plus an optional JSON meta blob. Both packages read and
-write the same files."""
+keys in one `.npz`, plus an optional JSON meta blob; and the training state
+(one file a network, ``opt_state.npz`` and ``checkpoint.json``). Both
+packages read and write the same files."""
 
 from __future__ import annotations
 
@@ -64,3 +65,29 @@ def load(path):
     if _META_KEY in flat:
         meta = json.loads(bytes(flat.pop(_META_KEY).tobytes()).decode())
     return _unflatten(flat), meta
+
+
+def save_train_state(directory, step, networks, opt_state=None, extra=None):
+    """Write each network (JAX layout) to <name>.npz, the optimizer state to
+    opt_state.npz and the meta ({"step", **extra}) to checkpoint.json."""
+    directory = Path(directory)
+    meta = {"step": int(step), **(extra or {})}
+    for name, params in networks.items():
+        save(directory / f"{name}.npz", params, meta)
+    if opt_state is not None:
+        save(directory / "opt_state.npz", opt_state, meta)
+    (directory / "checkpoint.json").write_text(json.dumps(meta, indent=2))
+
+
+def load_train_state(directory):
+    """-> (networks {name: tree}, optimizer state tree or None, meta)."""
+    directory = Path(directory)
+    meta = json.loads((directory / "checkpoint.json").read_text())
+    networks = {}
+    for f in sorted(directory.glob("*.npz")):
+        if f.stem != "opt_state":
+            networks[f.stem], _ = load(f)
+    opt_state = None
+    if (directory / "opt_state.npz").exists():
+        opt_state, _ = load(directory / "opt_state.npz")
+    return networks, opt_state, meta

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameter pytrees -> PyTorch state dicts.
+"""Weight bridge: the JAX package's parameter pytrees <-> PyTorch state dicts,
+and the optimizer state in both layouts.
 
 `zeggs_tpu` stores a linear weight as (in, out), a conv weight as
 (K, in, out), the attention in-projection as (E, 3E) and GRU weights as
@@ -60,9 +61,11 @@ def from_jax(params_np, prefix=""):
     return out
 
 
-def to_jax(module: nn.Module):
+def to_jax(module: nn.Module, values=None):
     """The inverse of `from_jax`: a port module -> the JAX package's nested
-    parameter dict of numpy arrays, ready for `checkpoint.save`."""
+    parameter dict of numpy arrays, ready for `checkpoint.save`. With
+    ``values`` ({parameter name: tensor of the parameter's shape}, e.g. an
+    optimizer moment) those tensors take the parameters' places."""
     to_leaf = {name: (leaf, transpose) for leaf, (name, transpose) in _LEAVES.items()
                if leaf not in ("scale", "bias")}
     tree = {}
@@ -75,6 +78,28 @@ def to_jax(module: nn.Module):
                 leaf, transpose = {"weight": "scale", "bias": "bias"}[name], False
             else:
                 leaf, transpose = to_leaf[name]
+            if values is not None:
+                p = values[f"{path}.{name}" if path else name]
             arr = p.detach().cpu().numpy()
             node[leaf] = np.ascontiguousarray(arr.T if transpose else arr)
     return tree
+
+
+def opt_state_to_jax(networks, step, exp_avg, exp_avg_sq):
+    """The port's RAdam state -> the JAX package's ``RAdamState(step,
+    exp_avg, exp_avg_sq)`` as `checkpoint.save` writes it (a list of the
+    int32 step and two {network: parameter tree} trees).
+
+    networks: {name: module}; exp_avg, exp_avg_sq: {name: {parameter name:
+    tensor}}."""
+    return [np.asarray(step, np.int32),
+            {n: to_jax(m, exp_avg[n]) for n, m in networks.items()},
+            {n: to_jax(m, exp_avg_sq[n]) for n, m in networks.items()}]
+
+
+def opt_state_from_jax(state):
+    """The inverse of `opt_state_to_jax`: a loaded ``opt_state.npz`` tree ->
+    (step, exp_avg, exp_avg_sq) with {network: state dict} moments."""
+    step, exp_avg, exp_avg_sq = state
+    return (int(np.asarray(step)), {n: from_jax(t) for n, t in exp_avg.items()},
+            {n: from_jax(t) for n, t in exp_avg_sq.items()})

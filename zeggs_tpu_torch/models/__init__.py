@@ -1,1 +1,1 @@
-"""Speech encoder, attention style encoder and the autoregressive decoder."""
+"""Speech encoder, style encoders (attn, gru) and the autoregressive decoder."""

@@ -1,24 +1,34 @@
-"""Autoregressive gesture decoder, ``normal`` cell (counterpart of
-`zeggs_tpu/models/decoder.py`).
+"""Autoregressive gesture decoder (counterpart of
+`zeggs_tpu/models/decoder.py`), with its two recurrent cells.
 
 A cell-state encoder sets the two GRU layers' hidden state from (frame-0
-pose, style); then each frame runs vectorize_input -> Linear+ELU -> GRU0
--> GRU1 -> Linear -> devectorize_output and feeds the integrated pose
-back. `rollout_chunk` is an eager loop over frames with the speech/style
-part of every per-frame product hoisted out of the loop as one product
-over all frames, the plain counterpart of the reference's scan. GRU1 of
-every step is one launch of the GRU-cell CUDA kernel
-(`ops/kernels/gru_cell.py`) on a card, its plain version on the CPU;
-``quantize_int8`` runs the step's products on int8 values instead.
+pose, style); then each frame runs vectorize_input -> the cell ->
+devectorize_output and feeds the integrated pose back.
 
-At B=1 on a card `make_fused_b1_fn` runs the whole rollout as one launch
-of the CUDA kernel in `ops/kernels/decoder_rollout.py`.
+``normal``: Linear+ELU skip into GRU0 -> GRU1 -> Linear. `rollout_chunk`
+  is an eager loop over frames with the speech/style part of every
+  per-frame product hoisted out of the loop as one product over all
+  frames, the plain counterpart of the reference's scan. At inference GRU1
+  of every step is one launch of the GRU-cell CUDA kernel
+  (`ops/kernels/gru_cell.py`) on a card, its plain version on the CPU;
+  ``quantize_int8`` runs the step's products on int8 values instead. Where
+  autograd records (a training step), every step is the plain
+  differentiable math over the live parameters, with the products in
+  ``compute_dtype``.
+``film``: style enters only through per-layer (gamma, beta) modulation and
+  the GRU input is [hidden | pose | speech]; always the eager plain step,
+  at every batch size, as in the reference.
+
+At B=1 on a card `make_fused_b1_fn` runs a ``normal`` rollout as one
+launch of the CUDA kernel in `ops/kernels/decoder_rollout.py`.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import decoder_rollout as DR
 from ..ops.kernels import gru_cell as GC
@@ -46,21 +56,53 @@ class NormalCell(nn.Module):
         self.out = nn.Linear(hidden_size, pose_output_size, device=device)
 
 
+class FilmCell(nn.Module):
+    """Style-modulated cell: gammas and betas (Xavier-uniform weights, as the
+    reference's LinearNorm) scale and shift the two hidden layers. The GRU0
+    input is [hidden | pose | speech]; layer0's is [pose | speech]."""
+
+    def __init__(self, pose_input_size, speech_encoding_size, style_encoding_size, hidden_size,
+                 pose_output_size, device=None):
+        super().__init__()
+        ps_input = pose_input_size + speech_encoding_size
+        self.gammas = nn.Linear(style_encoding_size, 2 * hidden_size, device=device)
+        self.betas = nn.Linear(style_encoding_size, 2 * hidden_size, device=device)
+        nn.init.xavier_uniform_(self.gammas.weight)
+        nn.init.xavier_uniform_(self.betas.weight)
+        self.layer0 = nn.Linear(ps_input, hidden_size, device=device)
+        self.gru0 = nn.GRUCell(ps_input + hidden_size, hidden_size, device=device)
+        self.gru1 = nn.GRUCell(hidden_size, hidden_size, device=device)
+        self.layer2 = nn.Linear(hidden_size, hidden_size, device=device)
+        self.out = nn.Linear(hidden_size, pose_output_size, device=device)
+
+
 class Decoder(nn.Module):
     def __init__(self, pose_input_size, pose_output_size, speech_encoding_size,
                  style_encoding_size, hidden_size, num_rnn_layers=2, rnn_cond="normal",
                  device=None):
         super().__init__()
-        if rnn_cond != "normal" or num_rnn_layers != 2:
+        if num_rnn_layers != 2:
             raise NotImplementedError(
-                f"decoder cell {rnn_cond!r} with {num_rnn_layers} layers is not ported yet"
+                f"the decoder cells run 2 GRU layers, not {num_rnn_layers}"
             )
-        all_input = pose_input_size + speech_encoding_size + style_encoding_size
         self.num_rnn_layers = num_rnn_layers
+        self.rnn_cond = rnn_cond
         self.cell_state_encoder = CellStateEncoder(
             pose_input_size + style_encoding_size, hidden_size, num_rnn_layers, device=device
         )
-        self.cell = NormalCell(all_input, hidden_size, pose_output_size, device=device)
+        if rnn_cond == "normal":
+            all_input = pose_input_size + speech_encoding_size + style_encoding_size
+            self.cell = NormalCell(all_input, hidden_size, pose_output_size, device=device)
+        elif rnn_cond == "film":
+            self.cell = FilmCell(pose_input_size, speech_encoding_size, style_encoding_size,
+                                 hidden_size, pose_output_size, device=device)
+        else:
+            raise ValueError(f"unknown rnn_cond {rnn_cond!r}")
+
+
+def _records_grad(module: nn.Module):
+    """Whether autograd records a call on ``module``'s parameters now."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters())
 
 
 def cell_state_encoder(cse: CellStateEncoder, pose, style, num_rnn_layers=2):
@@ -105,10 +147,18 @@ def _qdot(xq_sx, wq_sw):
 
 def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding,
                   anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
-                  output_indices=None, quantize_int8=False):
-    """Advance ``speech_encoding.shape[1]`` frames from ``carry``; each
-    column of the (B, n, ...) conditioning is one step. Returns (new_carry,
-    trajectories (B, n, ...)).
+                  output_indices=None, quantize_int8=False, compute_dtype=torch.float32,
+                  remat=False):
+    """Advance ``speech_encoding.shape[1]`` frames of the ``normal`` cell
+    from ``carry``; each column of the (B, n, ...) conditioning is one step.
+    Returns (new_carry, trajectories (B, n, ...)).
+
+    Where autograd records on the decoder's parameters, or ``compute_dtype``
+    is not float32, every step is the differentiable plain math of the
+    reference's scan: products in ``compute_dtype`` over the live
+    parameters, states and pose integration in float32. ``remat``
+    recomputes each step in the backward pass instead of storing it.
+    Otherwise (inference) GRU1 runs through the GRU-cell kernel.
 
     quantize_int8 (inference): the in-step products run on symmetric int8
     weights with one scale per output row and activations quantized
@@ -119,14 +169,18 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
     njoints = carry[5].shape[1]
     pose_dim = anim_input_mean.shape[-1]
     H = cp.gru1.weight_hh.shape[1]
+    plain = _records_grad(dec) or compute_dtype != torch.float32
+    if quantize_int8 and plain:
+        raise ValueError("int8 rollouts are inference only, at float32 compute")
+    cd = compute_dtype
 
-    w0 = cp.layer0.weight
-    wg = cp.gru0.weight_ih
+    w0 = cp.layer0.weight.to(cd)
+    wg = cp.gru0.weight_ih.to(cd)
     w0_pose, wg_h, wg_pose = w0[:, :pose_dim], wg[:, :H], wg[:, H : H + pose_dim]
     # speech/style part of layer0 and of GRU0's input product, for all frames
-    cond = torch.cat([speech_encoding, style_encoding], dim=-1)
-    pre_l0 = torch.nn.functional.linear(cond, w0[:, pose_dim:], cp.layer0.bias)
-    pre_g0 = torch.nn.functional.linear(cond, wg[:, H + pose_dim :], cp.gru0.bias_ih)
+    cond = torch.cat([speech_encoding, style_encoding], dim=-1).to(cd)
+    pre_l0 = F.linear(cond, w0[:, pose_dim:], cp.layer0.bias.to(cd))
+    pre_g0 = F.linear(cond, wg[:, H + pose_dim :], cp.gru0.bias_ih.to(cd))
 
     if quantize_int8:
         q_w0_pose, q_wg_h, q_wg_pose = (_quantize_weight(w) for w in (w0_pose, wg_h, wg_pose))
@@ -134,57 +188,120 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
             _quantize_weight(w)
             for w in (cp.gru0.weight_hh, cp.gru1.weight_ih, cp.gru1.weight_hh, cp.out.weight)
         )
-    else:
-        gru1 = GC.pack_gru(cp.gru1)  # biases folded once per rollout, not per step
 
-    h, rp, rr, rv, rw, jp, jt, jv, jw = carry
-    h0, h1 = h[0], h[1].contiguous()  # the cell-state encoder's h is a transposed view
-    emitted = []
-    for t in range(speech_encoding.shape[1]):
-        pose = P.vectorize_input(rp, rr, rv, rw, jp, jt, jv, jw, gaze_pos[:, t],
-                                 anim_input_mean, anim_input_std)
-        if quantize_int8:
+        def cell(pose, l0_t, g0_t, h0, h1):
             pose_q = _quantize_act(pose)
-            hidden = L.elu(pre_l0[:, t] + _qdot(pose_q, q_w0_pose))
-            gi = pre_g0[:, t] + _qdot(_quantize_act(hidden), q_wg_h) + _qdot(pose_q, q_wg_pose)
+            hidden = L.elu(l0_t + _qdot(pose_q, q_w0_pose))
+            gi = g0_t + _qdot(_quantize_act(hidden), q_wg_h) + _qdot(pose_q, q_wg_pose)
             gh = _qdot(_quantize_act(h0), q_g0_whh) + cp.gru0.bias_hh
             h0_new = L.gru_gates(gi, gh, h0)
             gi1 = _qdot(_quantize_act(h0_new), q_g1_wih) + cp.gru1.bias_ih
             gh1 = _qdot(_quantize_act(h1), q_g1_whh) + cp.gru1.bias_hh
-            h0, h1 = h0_new, L.gru_gates(gi1, gh1, h1)
-            out = _qdot(_quantize_act(h1), q_w_out) + cp.out.bias
+            h1_new = L.gru_gates(gi1, gh1, h1)
+            return h0_new, h1_new, _qdot(_quantize_act(h1_new), q_w_out) + cp.out.bias
+    else:
+        whh0, bhh0 = cp.gru0.weight_hh.to(cd), cp.gru0.bias_hh.to(cd)
+        w_out, b_out = cp.out.weight.to(cd), cp.out.bias.to(cd)
+        if plain:
+            g1 = [t.to(cd) for t in (cp.gru1.weight_ih, cp.gru1.bias_ih, cp.gru1.weight_hh,
+                                     cp.gru1.bias_hh)]
+
+            def gru1_step(x, h):
+                return L.gru_gates(F.linear(x, g1[0], g1[1]), F.linear(h, g1[2], g1[3]), h)
         else:
-            hidden = L.elu(pre_l0[:, t] + pose @ w0_pose.T)
-            gi = pre_g0[:, t] + hidden @ wg_h.T + pose @ wg_pose.T
-            gh = torch.nn.functional.linear(h0, cp.gru0.weight_hh, cp.gru0.bias_hh)
-            h0 = L.gru_gates(gi, gh, h0)
-            h1 = GC.fused_gru_cell(gru1, h0, h1)
-            out = L.linear(h1, cp.out)
-        new = P.devectorize_output(out, rp, rr, njoints, dt, anim_output_mean, anim_output_std)
-        rp, rr, rv, rw, jp, jt, jv, jw = new
+            packed = GC.pack_gru(cp.gru1)  # biases folded once per rollout, not per step
+
+            def gru1_step(x, h):
+                return GC.fused_gru_cell(packed, x, h)
+
+        def cell(pose, l0_t, g0_t, h0, h1):
+            pose_c, h0, h1 = pose.to(cd), h0.to(cd), h1.to(cd)
+            hidden = L.elu(l0_t + pose_c @ w0_pose.T)
+            gi = g0_t + hidden @ wg_h.T + pose_c @ wg_pose.T
+            h0_new = L.gru_gates(gi, F.linear(h0, whh0, bhh0), h0)
+            h1_new = gru1_step(h0_new, h1)
+            return h0_new.float(), h1_new.float(), F.linear(h1_new, w_out, b_out).float()
+
+    def step(gaze_t, l0_t, g0_t, h0, h1, rp, rr, rv, rw, jp, jt, jv, jw):
+        pose = P.vectorize_input(rp, rr, rv, rw, jp, jt, jv, jw, gaze_t,
+                                 anim_input_mean, anim_input_std)
+        h0, h1, out = cell(pose, l0_t, g0_t, h0, h1)
+        return (h0, h1) + P.devectorize_output(out, rp, rr, njoints, dt, anim_output_mean,
+                                               anim_output_std)
+
+    h, *pose_state = carry
+    # the cell-state encoder's h is a transposed view
+    state = (h[0], h[1].contiguous(), *pose_state)
+    emitted = []
+    for t in range(speech_encoding.shape[1]):
+        args = (gaze_pos[:, t], pre_l0[:, t], pre_g0[:, t]) + state
+        state = checkpoint(step, *args, use_reentrant=False) if remat and plain else step(*args)
+        new = state[2:]
         emitted.append(new if output_indices is None else tuple(new[i] for i in output_indices))
-    new_carry = (torch.stack([h0, h1]), rp, rr, rv, rw, jp, jt, jv, jw)
-    n_out = 8 if output_indices is None else len(output_indices)
+    new_carry = (torch.stack(state[:2]),) + tuple(state[2:])
+    return new_carry, _stack_emitted(emitted, carry, output_indices)
+
+
+def _stack_emitted(emitted, carry, output_indices):
+    """Per-step output tuples -> (B, n, ...) trajectories; an empty chunk
+    gives (B, 0, ...) tensors."""
     if not emitted:
         ref = carry[1:] if output_indices is None else tuple(carry[1 + i] for i in output_indices)
-        return new_carry, tuple(x[:, None][:, :0] for x in ref)
-    return new_carry, tuple(torch.stack([e[i] for e in emitted], dim=1) for i in range(n_out))
+        return tuple(x[:, None][:, :0] for x in ref)
+    return tuple(torch.stack([e[i] for e in emitted], dim=1) for i in range(len(emitted[0])))
+
+
+def rollout_film(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding,
+                 anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
+                 output_indices=None):
+    """Advance ``speech_encoding.shape[1]`` frames of the ``film`` cell from
+    ``carry`` (`_rollout_film` of the reference, float32, every step plain).
+    Returns (new_carry, trajectories (B, n, ...))."""
+    cp = dec.cell
+    njoints = carry[5].shape[1]
+    H = cp.gru1.weight_hh.shape[1]
+    gammas = F.linear(style_encoding, cp.gammas.weight, cp.gammas.bias) + 1.0
+    betas = F.linear(style_encoding, cp.betas.weight, cp.betas.bias)
+    h, *pose_state = carry
+    h0, h1 = h[0], h[1]
+    emitted = []
+    for t in range(speech_encoding.shape[1]):
+        rp, rr = pose_state[0], pose_state[1]
+        pose = P.vectorize_input(*pose_state, gaze_pos[:, t], anim_input_mean, anim_input_std)
+        ps = torch.cat([pose, speech_encoding[:, t]], dim=-1)
+        hidden = L.elu(L.linear(ps, cp.layer0)) * gammas[:, t, :H] + betas[:, t, :H]
+        h0 = L.gru_cell(torch.cat([hidden, ps], dim=-1), h0, cp.gru0)
+        h1 = L.gru_cell(h0, h1, cp.gru1)
+        hid2 = L.elu(L.linear(h1, cp.layer2)) * gammas[:, t, H:] + betas[:, t, H:]
+        new = P.devectorize_output(L.linear(hid2, cp.out), rp, rr, njoints, dt,
+                                   anim_output_mean, anim_output_std)
+        pose_state = list(new)
+        emitted.append(new if output_indices is None else tuple(new[i] for i in output_indices))
+    new_carry = (torch.stack([h0, h1]),) + tuple(pose_state)
+    return new_carry, _stack_emitted(emitted, carry, output_indices)
 
 
 def rollout(dec: Decoder, root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lvel, lvrt,
             gaze_pos, speech_encoding, style_encoding, anim_input_mean, anim_input_std,
-            anim_output_mean, anim_output_std, dt, output_indices=None, quantize_int8=False):
+            anim_output_mean, anim_output_std, dt, output_indices=None, quantize_int8=False,
+            compute_dtype=torch.float32, remat=False):
     """Autoregressive rollout from the frame-0 state (B, ...) under per-frame
     conditioning gaze_pos (B, T, 3), speech (B, T, S), style (B, T, C).
     Returns the 8 trajectories (B, T, ...), or those in ``output_indices``,
-    with frame 0 equal to the inputs. ``quantize_int8``: see
-    `rollout_chunk`."""
+    with frame 0 equal to the inputs. ``quantize_int8``, ``compute_dtype``
+    and ``remat``: see `rollout_chunk`; the ``film`` cell takes none of them,
+    as in the reference."""
     carry0 = init_carry(dec, root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lvel, lvrt,
                         gaze_pos[:, 0], style_encoding[:, 0], anim_input_mean, anim_input_std)
-    _, ys = rollout_chunk(dec, carry0, gaze_pos[:, 1:], speech_encoding[:, 1:],
-                          style_encoding[:, 1:], anim_input_mean, anim_input_std,
-                          anim_output_mean, anim_output_std, dt, output_indices=output_indices,
-                          quantize_int8=quantize_int8)
+    args = (dec, carry0, gaze_pos[:, 1:], speech_encoding[:, 1:], style_encoding[:, 1:],
+            anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt)
+    if dec.rnn_cond == "film":
+        if quantize_int8:
+            raise ValueError("int8 rollouts run the 'normal' cell only")
+        _, ys = rollout_film(*args, output_indices=output_indices)
+    else:
+        _, ys = rollout_chunk(*args, output_indices=output_indices, quantize_int8=quantize_int8,
+                              compute_dtype=compute_dtype, remat=remat)
     firsts = (root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lvel, lvrt)
     if output_indices is not None:
         firsts = tuple(firsts[i] for i in output_indices)
@@ -198,7 +315,8 @@ def fused_b1_supported(dec: Decoder, rnn_cond="normal", num_rnn_layers=2,
     of 16 with int8 weights (16-byte rows)."""
     H = dec.cell.gru1.weight_hh.shape[1]
     align = 16 if weights_dtype == torch.int8 else 8
-    return rnn_cond == "normal" and num_rnn_layers == 2 and H % align == 0
+    return (rnn_cond == "normal" and dec.rnn_cond == "normal" and num_rnn_layers == 2
+            and H % align == 0)
 
 
 def make_fused_b1_fn(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean,

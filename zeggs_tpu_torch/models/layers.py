@@ -35,6 +35,17 @@ def elu(x):
     return F.elu(x)
 
 
+def dropout(x, rate, generator=None):
+    """Inverted dropout with torch's scaling: each element is kept with
+    probability 1 - rate, drawn from ``generator`` on x's device, and scaled
+    by 1 / (1 - rate). No generator, no dropout (inference, or a
+    deterministic training step)."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def gru_cell(x, h, cell: nn.GRUCell):
     """One GRU step with PyTorch's equations:
     r = s(W_ir x + b_ir + W_hr h + b_hr); z = s(...);

@@ -1,6 +1,7 @@
 """Speech encoder (counterpart of `zeggs_tpu/models/speech_encoder.py`):
-Conv1d(k=1) -> ELU -> Conv1d(k=31, replicate padding) -> ELU -> Linear -> ELU.
-Dropout is a no-op at inference and is left out."""
+Conv1d(k=1) -> ELU -> Dropout(0.2) -> Conv1d(k=31, replicate padding) -> ELU
+-> Dropout(0.2) -> Linear -> ELU. Dropout runs only when a training step
+passes its generator."""
 
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ class SpeechEncoder(nn.Module):
         self.conv1 = nn.Conv1d(hidden_size, output_size, 31, device=device)
         self.linear = nn.Linear(output_size, output_size, device=device)
 
-    def forward(self, x):
-        """x: (B, T, n_audio_features), already mean/std normalised."""
-        h = L.elu(L.conv1d(x, self.conv0, padding="replicate"))
-        h = L.elu(L.conv1d(h, self.conv1, padding="replicate"))
+    def forward(self, x, generator=None):
+        """x: (B, T, n_audio_features), already mean/std normalised;
+        ``generator`` draws the dropout masks of a training step."""
+        h = L.dropout(L.elu(L.conv1d(x, self.conv0, padding="replicate")), 0.2, generator)
+        h = L.dropout(L.elu(L.conv1d(h, self.conv1, padding="replicate")), 0.2, generator)
         return L.elu(L.linear(h, self.linear))

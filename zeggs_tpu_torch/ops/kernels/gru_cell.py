@@ -11,8 +11,13 @@ Replaces `zeggs_tpu/ops/pallas/gru_kernel.py::fused_gru_cell`:
 
 The r and z biases are folded once, when the cell is packed; b_in and b_hn
 stay apart because r multiplies only the hidden part of n. Everything is
-float32. The batched decoder rollout runs GRU1 of every step through
-`fused_gru_cell`.
+float32. The batched decoder rollout runs GRU1 of every inference step
+through `fused_gru_cell`.
+
+Inference only: the kernel has no backward, and the folded biases are a
+copy that autograd does not see. `pack_gru` and `fused_gru_cell` raise
+where autograd would record (grad mode on and an input or parameter that
+requires grad) rather than hand back a result without its gradient.
 
 `gru_plan` is how the kernel covers a step: which block owns which hidden
 units, which batch tile a launch uses and how often the weights leave L2.
@@ -51,18 +56,29 @@ class PackedGRU:
         return self.weight_hh.shape[1]
 
 
-@torch.no_grad()
+def _refuse_autograd(what, tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is inference only: autograd is recording and the kernel has no "
+            "backward; run the differentiable step (models.layers.gru_cell) instead, or "
+            "call under torch.no_grad() / torch.inference_mode()"
+        )
+
+
 def pack_gru(cell: nn.GRUCell) -> PackedGRU:
-    """Fold the biases of ``cell`` once; the weights are not copied."""
+    """Fold the biases of ``cell`` once; the weights are not copied. Raises
+    where autograd records on the cell's parameters."""
+    _refuse_autograd("pack_gru", list(cell.parameters()))
     H = cell.weight_hh.shape[1]
     b_ih, b_hh = cell.bias_ih, cell.bias_hh
-    return PackedGRU(
-        weight_ih=cell.weight_ih.contiguous(),
-        weight_hh=cell.weight_hh.contiguous(),
-        b_rz=(b_ih[: 2 * H] + b_hh[: 2 * H]).contiguous(),
-        b_in=b_ih[2 * H :].contiguous(),
-        b_hn=b_hh[2 * H :].contiguous(),
-    )
+    with torch.no_grad():
+        return PackedGRU(
+            weight_ih=cell.weight_ih.contiguous(),
+            weight_hh=cell.weight_hh.contiguous(),
+            b_rz=(b_ih[: 2 * H] + b_hh[: 2 * H]).contiguous(),
+            b_in=b_ih[2 * H :].contiguous(),
+            b_hn=b_hh[2 * H :].contiguous(),
+        )
 
 
 #: the kernel's constants (csrc/gru_cell.cu): hidden units a block owns,
@@ -160,8 +176,9 @@ def _library():
 def fused_gru_cell(p: PackedGRU, x, h):
     """One GRU step -> (B, H) float32. CUDA tensors launch the kernel; CPU
     tensors take `gru_cell_plain`. Raises on anything the kernel does not
-    take and on any CUDA error."""
+    take, on any CUDA error, and where autograd records."""
     global launches
+    _refuse_autograd("fused_gru_cell", [x, h] + [getattr(p, f.name) for f in dataclasses.fields(p)])
     _check(p, x, h)
     dev = x.device
     if dev.type == "cpu":

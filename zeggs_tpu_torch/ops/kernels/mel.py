@@ -12,9 +12,13 @@ streaming front end calls it on each ready window of samples.
 
 The kernel computes the rFFT of two frames at once, as one complex FFT of
 ``a + i b`` through the mixed-radix Stockham stages of `fft_plan`, a group
-of 8 warps per frame pair. Constants are made once per (config, device)
-with the numpy functions the JAX package uses; twiddles are computed in
-float64 and rounded to float32 once.
+of 8 warps per frame pair. Where one pair's buffers and the tables do not
+fit a block's shared memory (n_fft above about 5,800 on an H100), the C
+launch takes a variant with the pair's buffers in a global workspace that
+`_launch` allocates: the same plan and stage code, for any n_fft.
+Constants are made once per (config, device) with the numpy functions the
+JAX package uses; twiddles are computed in float64 and rounded to float32
+once.
 """
 
 from __future__ import annotations
@@ -167,7 +171,7 @@ def launch_shape(n_frames, sms):
     `MAX_GROUPS` (800 frames take 200 blocks), so that long clips stage the
     tables fewer times. The launch in csrc/mel_spectrogram.cu takes fewer
     groups where a block of these would not fit the card's shared memory,
-    and fails where one group does not."""
+    and its global-workspace variant where one group does not."""
     pairs = (n_frames + 1) // 2
     groups = max(1, min(MAX_GROUPS, pairs // sms))
     return groups, -(-pairs // groups)
@@ -202,8 +206,10 @@ def _library():
     lib = build.load("mel_spectrogram")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zeggs_mel_spectrogram.argtypes = ([p, i, p, p, p, i, p, i, p, p, i, i, i]
-                                          + [f, f, f, i, i, i, p])
+                                          + [f, f, f, i, i, i, i, p, ctypes.c_size_t, p])
     lib.zeggs_mel_spectrogram.restype = i
+    lib.zeggs_mel_workspace_bytes.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_size_t)]
+    lib.zeggs_mel_workspace_bytes.restype = i
     lib.zeggs_mel_error_string.argtypes = [i]
     lib.zeggs_mel_error_string.restype = ctypes.c_char_p
     return lib
@@ -236,19 +242,36 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(x, n_frames, c: MelConsts, groups):
+@functools.lru_cache(maxsize=256)
+def _workspace_bytes(index, n_frames, n_twiddles, width, n_fft, n_mels, force_global):
+    """Global workspace a launch needs on card ``index`` (0: the pair fits
+    shared memory); the layout is the C launch's own."""
+    need = ctypes.c_size_t(0)
+    with torch.cuda.device(index):
+        _raise_for(_library().zeggs_mel_workspace_bytes(
+            n_frames, n_twiddles, width, n_fft, n_mels, int(force_global), ctypes.byref(need)))
+    return need.value
+
+
+def _launch(x, n_frames, c: MelConsts, groups, force_global=False):
     """Launch the kernel on a checked CUDA tensor ``x`` with at most
-    ``groups`` frame pairs a block; `mel_frames` picks ``groups``, a timing
-    script may force it."""
+    ``groups`` frame pairs a block, or the global-workspace variant where a
+    pair does not fit shared memory; `mel_frames` picks ``groups``, a
+    timing script may force either setting."""
     global launches
-    with torch.cuda.device(x.device):
-        out = torch.empty((n_frames, c.n_mels), dtype=torch.float32, device=x.device)
+    dev = x.device
+    nbytes = _workspace_bytes(dev.index, n_frames, c.twiddles.shape[0], c.filters.shape[1],
+                              c.n_fft, c.n_mels, force_global)
+    with torch.cuda.device(dev):
+        out = torch.empty((n_frames, c.n_mels), dtype=torch.float32, device=dev)
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
         err = _library().zeggs_mel_spectrogram(
             x.data_ptr(), n_frames, c.window.data_ptr(), c.stages.data_ptr(),
             c.twiddles.data_ptr(), c.twiddles.shape[0], c.filters.data_ptr(),
             c.filters.shape[1], c.support.data_ptr(), out.data_ptr(), c.n_fft, c.hop, c.n_mels,
             c.amp_scale, c.min_amp, c.dyn_range, int(c.normalize), len(c.plan.radices),
-            groups, torch.cuda.current_stream(x.device).cuda_stream,
+            groups, int(force_global), None if ws is None else ws.data_ptr(), nbytes,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_for(err)
     launches += 1

@@ -133,6 +133,23 @@ def from_euler(e, order="zyx"):
     return mul(q[0], mul(q[1], q[2]))
 
 
+def to_xform(x):
+    """Quaternion -> 3x3 rotation matrix."""
+    qw, qx, qy, qz = x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
+    x2, y2, z2 = qx + qx, qy + qy, qz + qz
+    xx, yy, wx = qx * x2, qy * y2, qw * x2
+    xy, yz, wy = qx * y2, qy * z2, qw * y2
+    xz, zz, wz = qx * z2, qz * z2, qw * z2
+    return torch.stack(
+        [
+            torch.cat([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+            torch.cat([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+            torch.cat([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def from_xform(ts, eps=1e-10):
     """3x3 rotation matrix -> quaternion, four-branch select."""
     t = ts[..., 0, 0] + ts[..., 1, 1] + ts[..., 2, 2]

@@ -1,13 +1,14 @@
-"""BVH writing with root baking, and blend ranges (counterpart of
-`zeggs_tpu/utils/__init__.py`)."""
+"""BVH writing with root baking, blend ranges and hyperparameter flattening
+(counterpart of `zeggs_tpu/utils/__init__.py`); `metrics` holds the
+training metric writers and `logs` the console progress line and tables."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .io import bvh
-from .ops import quat
+from ..io import bvh
+from ..ops import quat
 
 
 def write_bvh(filename, root_pos, root_rot, lpos, lrot, parents, names, order="zyx",
@@ -58,3 +59,14 @@ def split_by_ratio(length, ratio):
         prev = int(end)
     splits[-1][-1] = length
     return splits
+
+
+def flatten_dict(dd, separator="_", prefix=""):
+    """Flatten nested dicts for hyperparameter logging."""
+    if not isinstance(dd, dict):
+        return {prefix: dd}
+    out = {}
+    for kk, vv in dd.items():
+        key = prefix + separator + kk if prefix else kk
+        out.update(flatten_dict(vv, separator, key))
+    return out
