@@ -38,19 +38,34 @@ and 12 s) under build/chip_smoke/, then:
   6. serves the pipeline on 127.0.0.1: four concurrent /synthesize
      requests that must share a batch, a stream over HTTP against an
      in-process session, and /healthz;
-  7. trains: one small-width step's gradients on the card against the CPU
+  7. writes the fixture's networks as the reference's whole-module .pt
+     pickles: `cli.convert` must give back the .npz trees array for array,
+     and `cli.generate` from a directory of only the .pt files must write
+     the .npz directory's BVH text (1 decoder and 1 mel launch), which
+     `cli.compare --json` must report as equal; Griffin-Lim (30
+     iterations) on the 10 s clip's mel kernel output, card against CPU
+     from one first signal, timed;
+  8. trains: one small-width step's gradients on the card against the CPU
      (TF32 off); then a raw corpus of 4 clips of 20 s (75 joints, the last
      one validation) through `python -m zeggs_tpu_torch.cli.pipeline` (one
-     mel launch a clip and stretch), `cli.train` at full v1 width for 6
+     mel launch a clip and stretch; data_info.html and two normalised BVHs
+     a clip and stretch), `cli.train` at full v1 width for 6
      steps (a checkpoint and sample synthesis at iteration 0: one GRU-cell
      launch a decoder step; no kernel launch in a train step; every
      parameter a finite nonzero gradient in the first step) and a resume
      for one more step that must restore the whole training state; prints
      the step's time, launches and peak memory and the pipeline's seconds a
      clip;
-  8. prints times, each beside the card's name and power limit, a JSON
-     line of launch counts, one of training results, one of the barrier
-     floor, one of kernel results and, last, {"ok": true, "device": {...}}.
+  9. trains over two processes sharing the card (`cli.train` with the
+     multi-process flags, gloo; this script re-run as `--ddp-worker`), v1
+     width, B=32, window 64, 3 steps, on both data paths: the parameters
+     must equal one process's; rank 0's sample synthesis launches the GRU
+     cell; then one NCCL process for one step, joined from torchrun's
+     environment variables (no flags);
+ 10. prints times, each beside the card's name and power limit, a JSON
+     line of launch counts, one of training results, one of the new phases'
+     results, one of the barrier floor, one of kernel results and, last,
+     {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
 It exits nonzero at once when no CUDA device is available.
@@ -59,11 +74,15 @@ It exits nonzero at once when no CUDA device is available.
 from __future__ import annotations
 
 import base64
+import contextlib
 import csv
 import dataclasses
+import io
 import json
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -120,6 +139,18 @@ TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_STEPS = 4, 20.0, 6
 # gradients of one small-width step on the card against the CPU, per leaf,
 # relative to max(1, max|g|) (TF32 off on the card)
 GRAD_TOL = 1e-4
+# two processes sharing the card (gloo) against one process: v1 width,
+# B=32 (16 rows a process), 3 steps, JAX's multi-host bound
+# (tests/test_multihost.py); the window is cut from 256 to 64 frames and
+# sample synthesis to 1 clip of at most 5 s a split (depth, for time)
+DDP_BATCH, DDP_STEPS, DDP_WINDOW = 32, 3, 64
+DDP_RTOL, DDP_ATOL = 2e-5, 1e-6
+DDP_SAMPLES, DDP_SAMPLE_S = 1, 5
+DDP_TIMEOUT_S = 600
+# Griffin-Lim on the card against the CPU from the same first signal: the
+# relative L2 error bound of tests/test_torch_misc.py
+GL_ITERATIONS, GL_TOL = 30, 1e-4
+NETWORKS = ("speech_encoder", "style_encoder", "decoder")
 
 
 def fail(msg):
@@ -923,7 +954,7 @@ def write_train_corpus():
         w.writerows(rows)
     conf = json.loads((ROOT / "configs" / "data_pipeline_conf_v1.json").read_text())
     conf.update(base_path=str(root), processed_data_path="processed", save_trimmed_audio=False,
-                save_trimmed_animation=False)
+                save_trimmed_animation=False, save_normalized_animations=True)
     (root / "pipeline.json").write_text(json.dumps(conf, indent=2))
     v1 = json.loads((ROOT / "configs" / "configs_v1.json").read_text())
     v1["paths"] = {"base_path": str(root), "path_processed_data": "processed",
@@ -1025,6 +1056,15 @@ def train_phase(torch, card):
     print(f"mel_spectrogram on the pipeline's {len(mel_inputs)} inputs ({min(frames)}-"
           f"{max(frames)} frames, n_fft {mel_inputs[0][1].filter_length}): max|err| "
           f"{mel_err:.3e} (tol {MEL_TOL:g})")
+    # the debug artifacts: data_info.html and two BVHs a clip and stretch
+    processed = root / "processed"
+    html = (processed / "data_info.html").read_text()
+    debug = sorted((processed / "normalized_animations").glob("*.bvh"))
+    finite = all(np.isfinite(bvh.load(f)["rotations"]).all() for f in debug)
+    print(f"pipeline debug artifacts: data_info.html {len(html)} bytes, {len(debug)} normalised "
+          f"BVHs (root-relative and root-baked), finite {finite}")
+    if "Data Info" not in html or len(debug) != 2 * n_aug or not finite:
+        fail(f"pipeline debug artifacts: {len(debug)} BVHs, html {len(html)} bytes")
 
     base = cli_train.Trainer
     Smoke = cli_train.Trainer = instrumented_trainer(torch, base)
@@ -1206,6 +1246,283 @@ def grad_card_vs_cpu(torch):
     return worst[0]
 
 
+# ---------------------------------------------------------------------------
+# reference checkpoints, multi-process training, Griffin-Lim
+# ---------------------------------------------------------------------------
+
+def trees_equal(a, b):
+    from zeggs_tpu_torch.io import checkpoint
+
+    fa, fb = checkpoint._flatten(a), checkpoint._flatten(b)
+    return fa.keys() == fb.keys() and all(
+        v.shape == fb[k].shape and np.array_equal(v, fb[k]) for k, v in fa.items())
+
+
+def reference_checkpoints(torch, card):
+    """The fixture's networks written as the reference's whole-module .pt
+    pickles; `cli.convert` on them must give the fixture's .npz trees, array
+    for array; `cli.generate` on the card from a directory of only the .pt
+    files must write the .npz directory's BVH, which `cli.compare --json`
+    must report. Launch counts of each request."""
+    from zeggs_tpu_torch.cli import compare as cli_compare
+    from zeggs_tpu_torch.cli import convert as cli_convert
+    from zeggs_tpu_torch.cli import generate as cli_generate
+    from zeggs_tpu_torch.io import checkpoint, torch_compat
+
+    trees = {n: checkpoint.load(WORK / "models" / f"{n}.npz")[0] for n in NETWORKS}
+    pt_dir, converted = WORK / "pt_models", WORK / "converted"
+    torch_compat.save_reference_networks(pt_dir, trees)
+    cli_convert.main(["--src", str(pt_dir), "--dst", str(converted)])
+    bad = [n for n, tree in trees.items()
+           if not trees_equal(checkpoint.load(converted / f"{n}.npz")[0], tree)]
+    if sorted(p.name for p in pt_dir.iterdir()) != sorted(f"{n}.pt" for n in NETWORKS) or bad:
+        fail(f"reference checkpoints: converted trees differ from the fixture's: {bad}")
+    options = json.loads((WORK / "options.json").read_text())
+    options["paths"]["models_dir"] = str(pt_dir)
+    (WORK / "options_pt.json").write_text(json.dumps(options, indent=2))
+    out, counts, wall = WORK / "results" / "reference_checkpoints", {}, {}
+    for tag, opts in (("npz", WORK / "options.json"), ("pt", WORK / "options_pt.json")):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_generate.main(["-o", str(opts), "-s", str(WORK / "style.bvh"),
+                           "-a", str(WORK / "clip_10s.wav"), "-n", tag, "-p", str(out),
+                           "-r", str(SEED), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall[tag], counts[tag] = time.perf_counter() - t0, read_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_compare.main([str(out / "npz.bvh"), str(out / "pt.bvh"), "--json", "--device", "cuda"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    same = (out / "npz.bvh").read_text() == (out / "pt.bvh").read_text()
+    print(f"reference checkpoints: {len(trees)} networks as .pt pickles, converted back equal "
+          f"array for array; 10 s request from the .pt directory: launches {counts['pt']} "
+          f"(.npz directory {counts['npz']}), CLI wall {wall['pt']:.3f} s (pipeline load "
+          f"included); BVH text identical {same}; compare --json {report}")
+    expected = {"decoder_rollout": 1, "gru_cell": 0, "mel_spectrogram": 1}
+    errors = [report.get(k) for k in ("rotation_mae_deg", "position_mae",
+                                      "joint_position_error_max")]
+    if counts["pt"] != expected or counts["npz"] != expected:
+        fail(f"reference checkpoints: launches {counts}, expected {expected} a request")
+    if not (same and report.get("comparable") and errors == [0.0, 0.0, 0.0]):
+        fail(f"reference checkpoints: the .pt request differs from the .npz one: {report}")
+    return dict(launches=counts["pt"], compare=report)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_options(train_root, name):
+    """The training phase's v1 options at the multi-process phase's batch,
+    window and output directory."""
+    v1 = json.loads((train_root / "options.json").read_text())
+    v1["train_opt"].update(batchsize=DDP_BATCH, window=DDP_WINDOW)
+    v1["paths"]["output_dir"] = str(train_root / name)
+    path = train_root / f"{name}.json"
+    path.write_text(json.dumps(v1, indent=2))
+    return path
+
+
+def ddp_trainer(torch, base):
+    """The CLI's Trainer with short sample synthesis, its GRU-cell launches
+    counted, each train step timed, and the process group's backend and an
+    all-reduce checked."""
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+    from zeggs_tpu_torch.parallel import distributed
+
+    class DdpTrainer(base):
+        record = dict(steps_ms=[], synthesis=None, backend=None, all_reduce=None)
+
+        def train_step(self, batch):
+            rec = DdpTrainer.record
+            if torch.distributed.is_initialized() and rec["backend"] is None:
+                probe = torch.ones(1, device=self.device) * (self.rank + 1)
+                torch.distributed.all_reduce(probe)
+                rec["backend"], rec["all_reduce"] = torch.distributed.get_backend(), probe.item()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = super().train_step(batch)
+            torch.cuda.synchronize()
+            rec["steps_ms"].append((time.perf_counter() - t0) * 1e3)
+            return metrics
+
+        def generate_samples(self, n=3, length_s=30):
+            g0 = GC.launches
+            steps = super().generate_samples(DDP_SAMPLES, DDP_SAMPLE_S)
+            torch.cuda.synchronize()
+            if distributed.process_index() == 0:
+                DdpTrainer.record["synthesis"] = dict(steps=steps, gru_cell=GC.launches - g0)
+            return steps
+
+    return DdpTrainer
+
+
+def ddp_worker(argv):
+    """One of the two processes of the multi-process phase:
+    `chip_smoke.py --ddp-worker address rank options host_batches`."""
+    import torch
+
+    from zeggs_tpu_torch.cli import train as cli_train
+
+    address, rank, options, host_batches = argv
+    torch.set_num_threads(2)
+    cli_train.Trainer = Trainer = ddp_trainer(torch, cli_train.Trainer)
+    trainer = cli_train.main(
+        ["-o", options, "--device", "cuda", "--max-iterations", str(DDP_STEPS),
+         "--coordinator-address", address, "--num-processes", "2", "--process-id", rank,
+         "--dist-backend", "gloo"] + (["--host-batches"] if int(host_batches) else []))
+    print("DDP_WORKER " + json.dumps({**Trainer.record, "rank": int(rank),
+                                      "device": str(trainer.device),
+                                      "iteration": trainer.iteration}), flush=True)
+
+
+def ddp_phase(torch, card, train_root):
+    """Two processes sharing the card over gloo (`cli.train` with the three
+    multi-process flags), B=32, 3 steps, on both data paths, against one
+    process at B=32; then one NCCL process for one step, joined from
+    torchrun's variables."""
+    from zeggs_tpu_torch.cli import train as cli_train
+    from zeggs_tpu_torch.io import checkpoint
+
+    base = cli_train.Trainer
+    report = {}
+    try:
+        for path in ("host_batches", "device_corpus"):
+            host = path == "host_batches"
+            multi = ddp_options(train_root, f"ddp_{path}")
+            address = f"127.0.0.1:{free_port()}"
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--ddp-worker", address, str(r),
+                 str(multi), str(int(host))], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+            try:
+                outs = [p.communicate(timeout=DDP_TIMEOUT_S)[0] for p in procs]
+            except subprocess.TimeoutExpired:
+                fail(f"ddp {path}: the processes did not finish in {DDP_TIMEOUT_S} s")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            wall = time.perf_counter() - t0
+            for r, (p, out) in enumerate(zip(procs, outs)):
+                if p.returncode != 0:
+                    fail(f"ddp {path}: process {r} exited {p.returncode}:\n{out[-3000:]}")
+            recs = [json.loads(line.split(" ", 1)[1]) for out in outs
+                    for line in out.splitlines() if line.startswith("DDP_WORKER ")]
+            rank0 = next(r for r in recs if r["rank"] == 0)
+
+            cli_train.Trainer = Single = ddp_trainer(torch, base)
+            single = ddp_options(train_root, f"single_{path}")
+            cli_train.main(["-o", str(single), "--device", "cuda", "--max-iterations",
+                            str(DDP_STEPS)] + (["--host-batches"] if host else []))
+            cli_train.Trainer = base
+            a, _, meta_a = checkpoint.load_train_state(train_root / f"ddp_{path}" / "saved_models")
+            b, _, meta_b = checkpoint.load_train_state(train_root / f"single_{path}" /
+                                                       "saved_models")
+            fa, fb = checkpoint._flatten(a), checkpoint._flatten(b)
+            worst = max(float(np.abs(v - fb[k]).max()) for k, v in fa.items())
+            close = fa.keys() == fb.keys() and all(
+                np.allclose(v, fb[k], rtol=DDP_RTOL, atol=DDP_ATOL) for k, v in fa.items())
+            state = (meta_a["np_rng_state"] == meta_b["np_rng_state"]
+                     and meta_a["torch_generator_state"] == meta_b["torch_generator_state"])
+            synth = rank0["synthesis"] or {}
+            two = float(np.median(rank0["steps_ms"][1:]))
+            one = float(np.median(Single.record["steps_ms"][1:]))
+            print(f"ddp {path}: 2 processes on one card (gloo; {[r['device'] for r in recs]}), "
+                  f"B={DDP_BATCH} ({DDP_BATCH // 2} rows a process), window {DDP_WINDOW}, "
+                  f"{DDP_STEPS} steps, against 1 process: worst |diff| {worst:.3e} (rtol "
+                  f"{DDP_RTOL:g}, atol {DDP_ATOL:g}), generator states equal {state}; rank 0's "
+                  f"sample synthesis {synth.get('steps')} decoder steps, {synth.get('gru_cell')} "
+                  f"GRU-cell launches; all-reduce of (1, 2) {rank0['all_reduce']}")
+            print(f"time ddp {path} step (v1 width, B={DDP_BATCH}, window {DDP_WINDOW}; median "
+                  f"after the first): 2 processes on one card {two:.1f} ms "
+                  f"({', '.join(f'{m:.1f}' for m in rank0['steps_ms'])}), 1 process {one:.1f} ms "
+                  f"({', '.join(f'{m:.1f}' for m in Single.record['steps_ms'])}); the pair's "
+                  f"wall {wall:.1f} s with start-up, {card}")
+            if len(recs) != 2 or any(r["iteration"] != DDP_STEPS for r in recs):
+                fail(f"ddp {path}: {recs}")
+            if not (close and state):
+                fail(f"ddp {path}: 2 processes differ from 1: worst {worst}, states {state}")
+            if rank0["all_reduce"] != 3.0 or not synth.get("steps") or (
+                    synth["gru_cell"] != synth["steps"]):
+                fail(f"ddp {path}: all-reduce {rank0['all_reduce']}, synthesis {synth}")
+            report[path] = dict(worst_abs_diff=worst, step_ms_2proc=two, step_ms_1proc=one,
+                                synthesis=synth)
+
+        # one NCCL process (the default backend on a card) for one step, joined
+        # as torchrun joins it: its variables set and none of the three flags
+        cli_train.Trainer = Nccl = ddp_trainer(torch, base)
+        nccl = ddp_options(train_root, "ddp_nccl")
+        torchrun_env = dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                            MASTER_PORT=str(free_port()), LOCAL_RANK="0")
+        saved = {k: os.environ.get(k) for k in torchrun_env}
+        os.environ.update(torchrun_env)
+        try:
+            trainer = cli_train.main(["-o", str(nccl), "--device", "cuda", "--max-iterations", "1"])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        rec = Nccl.record
+        print(f"ddp nccl: 1 process from torchrun's variables on {trainer.device}, backend "
+              f"{rec['backend']}, all-reduce {rec['all_reduce']}; time one step "
+              f"{rec['steps_ms'][0]:.1f} ms (v1 width, B={DDP_BATCH}, window {DDP_WINDOW}, the "
+              f"first step), {card}")
+        if (rec["backend"] != "nccl" or rec["all_reduce"] != 1.0 or len(rec["steps_ms"]) != 1
+                or trainer.device != torch.device("cuda", 0)):
+            fail(f"ddp nccl: {rec}, device {trainer.device}")
+        if torch.distributed.is_initialized():
+            fail("ddp nccl: the CLI left its process group")
+        report["nccl"] = dict(step_ms=rec["steps_ms"][0], backend=rec["backend"])
+    finally:
+        cli_train.Trainer = base
+    return report
+
+
+def griffin_lim_phase(torch, card):
+    """The 10 s clip's mel spectrogram from the mel kernel, undone to a
+    linear magnitude, and Griffin-Lim (30 iterations) on the card against
+    the same call on the CPU from the same first signal."""
+    from zeggs_tpu_torch.config import load_pipeline_conf
+    from zeggs_tpu_torch.ops import mel as M
+
+    cfg, _ = load_pipeline_conf(WORK / "processed" / "data_pipeline_conf.json")
+    x = torch.as_tensor(read_wav("clip_10s"), device="cuda")
+    reset_counts()
+    mel_db = M.mel_spectrogram_tts(x, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    amp = M.db_to_amplitude(M.denormalize_range(mel_db, cfg.min_clipping / cfg.filter_length))
+    mag = M.mel_to_linear(amp, cfg.sampling_rate, cfg.filter_length, cfg.mel_fmin, cfg.mel_fmax)
+    hop, n_fft = cfg.hop_length, cfg.filter_length
+    n = int(mag.shape[0] * hop + n_fft)
+    signal = np.random.default_rng(SEED).standard_normal(n).astype(np.float32)
+
+    def on_card():
+        return M.griffin_lim(mag, hop, n_fft, GL_ITERATIONS, signal=signal)
+
+    y = on_card()
+    t0 = time.perf_counter()
+    y_cpu = M.griffin_lim(mag.cpu(), hop, n_fft, GL_ITERATIONS, signal=signal)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.linalg.norm(y.cpu().numpy() - y_cpu.numpy()) / np.linalg.norm(y_cpu.numpy()))
+    ms = min(event_ms(torch, on_card, 3) for _ in range(2))
+    print(f"griffin_lim: 10 s clip, {mag.shape[0]} frames x {mag.shape[1]} bins from the mel "
+          f"kernel (launches {counts}), {GL_ITERATIONS} iterations, {n} samples: card against "
+          f"CPU relative L2 error {err:.3e} (tol {GL_TOL:g}); time {ms:.2f} ms on the card "
+          f"(CUDA events), {cpu_s * 1e3:.1f} ms on the CPU, {card}")
+    if counts["mel_spectrogram"] != 1 or not (np.isfinite(y.cpu().numpy()).all() and err < GL_TOL):
+        fail(f"griffin_lim: launches {counts}, relative error {err}")
+    return dict(ms=ms, cpu_ms=cpu_s * 1e3, rel_l2_err=err, frames=int(mag.shape[0]),
+                launches=counts)
+
+
 def main():
     import torch
 
@@ -1244,8 +1561,12 @@ def main():
     card_vs_cpu(torch)
     stream = streaming(torch, card, results)
     served = serve(torch, card)
+    reference = reference_checkpoints(torch, card)
+    with torch.inference_mode():
+        gl = griffin_lim_phase(torch, card)
     grad_err = grad_card_vs_cpu(torch)
     trained = train_phase(torch, card)
+    ddp = ddp_phase(torch, card, WORK / "train")
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -1264,19 +1585,28 @@ def main():
                                    "serve": served,
                                    "pipeline": {"mel_spectrogram": trained["pipeline_mel"]},
                                    "train_step": trained["launches_per_step"],
-                                   "sample_synthesis": {"gru_cell": trained["synthesis_gru"]}}}))
+                                   "sample_synthesis": {"gru_cell": trained["synthesis_gru"]},
+                                   "reference_checkpoints": reference["launches"],
+                                   "griffin_lim": gl["launches"],
+                                   "ddp_sample_synthesis": {
+                                       k: v["synthesis"]["gru_cell"] for k, v in ddp.items()
+                                       if "synthesis" in v}}}))
     print(json.dumps({"train": {**trained, "grad_card_vs_cpu": grad_err, "card": card}}))
+    print(json.dumps({"reference_checkpoints": reference, "griffin_lim": gl, "ddp": ddp,
+                      "card": card}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
-        decoder_entry("bfloat16", csv_counts["decoder_rollout"]),
+        {**decoder_entry("bfloat16", csv_counts["decoder_rollout"]),
+         "launches_reference_checkpoints": reference["launches"]["decoder_rollout"]},
         decoder_entry("int8", int8_counts["decoder_rollout"]),
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
          "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
          "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"], "tol": GRU_TOL,
          **{k: gru[64][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "batch": 64, "by_batch": {str(B): gru[B] for B in GRU_TIMED},
-         "launches_sample_synthesis": trained["synthesis_gru"]},
+         "launches_sample_synthesis": trained["synthesis_gru"],
+         "launches_ddp_sample_synthesis": ddp["device_corpus"]["synthesis"]["gru_cell"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
@@ -1287,11 +1617,16 @@ def main():
          "by_frames": {str(nf): mel[nf] for nf in (*MEL_TIMED, mel["clip_frames"])},
          "by_groups": mel["by_groups"], "global_variant_ms": mel["global_variant_ms"],
          "n_fft_8192": {k: v for k, v in mel.items() if str(k).startswith("n_fft_8192")},
-         "launches_pipeline": trained["pipeline_mel"]},
+         "launches_pipeline": trained["pipeline_mel"],
+         "launches_reference_checkpoints": reference["launches"]["mel_spectrogram"],
+         "launches_griffin_lim_input": gl["launches"]["mel_spectrogram"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(sys.argv[2:])
+    else:
+        main()

@@ -15,7 +15,10 @@ docs/DESIGN.md section 5. The GRU cell: 2e-5, and the mel spectrogram:
 2e-4 at n_fft 800, 1024 and 802 and, through the global-workspace variant,
 6000 and 8192: the budgets of tests/test_pallas_kernels.py. Training
 gradients: per leaf 1e-4 * max(1, max|g|) against the same step on the CPU,
-TF32 off.
+TF32 off. Generation from the reference's `.pt` pickles writes the same BVH
+text as from the `.npz` files; Griffin-Lim on the card against the CPU from
+the same first signal: relative L2 error 1e-4 (tests/test_torch_misc.py's
+bound); one NCCL process comes up on the card.
 """
 
 import numpy as np
@@ -375,3 +378,104 @@ def test_train_step_gradients_match_the_cpu(device, rnn_cond):
         grads[str(dev)] = {k: p.grad.cpu() for k, p in loop.named_parameters(nets).items()}
     for k, g in grads["cpu"].items():
         assert (grads["cuda"][k] - g).abs().max().item() <= 1e-4 * max(1.0, g.abs().max().item()), k
+
+
+@pytest.fixture(scope="module")
+def small_models(device, tmp_path_factory):
+    """A small model (8 joints, decoder H=128) as .npz and as the
+    reference's .pt pickles, its data directory, a style BVH and a WAV."""
+    import json
+    import shutil
+    from pathlib import Path
+
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.io import bvh, checkpoint, torch_compat, wav, weights
+    from zeggs_tpu_torch.models.speech_encoder import SpeechEncoder
+    from zeggs_tpu_torch.models.style_encoder import StyleEncoder
+
+    root = tmp_path_factory.mktemp("small_models")
+    names = ["Hips", "Spine", "Spine1", "Spine2", "Neck", "Head", "Arm", "Hand"]
+    J, parents = len(names), [-1, 0, 1, 2, 3, 4, 3, 6]
+    pose_in, pose_out = 6 + 15 * J + 3, 6 + 15 * J
+    rng = np.random.default_rng(11)
+    data = root / "processed"
+    data.mkdir()
+    (data / "data_definition.json").write_text(json.dumps(
+        {"dt": DT, "label_names": ["A", "B"], "parents": parents, "bone_names": names}))
+    repo = Path(__file__).resolve().parents[1]
+    shutil.copy(repo / "configs" / "data_pipeline_conf_v1.json", data / "data_pipeline_conf.json")
+    np.savez(data / "stats.npz", audio_input_mean=rng.normal(size=81).astype(np.float32),
+             audio_input_std=np.float32(1.5),
+             anim_input_mean=(rng.normal(size=pose_in) * 0.1).astype(np.float32),
+             anim_input_std=rng.uniform(0.5, 2.0, pose_in).astype(np.float32),
+             anim_output_mean=(rng.normal(size=pose_out) * 0.1).astype(np.float32),
+             anim_output_std=rng.uniform(0.05, 0.5, pose_out).astype(np.float32))
+    torch.manual_seed(11)
+    trees = {n: weights.to_jax(m) for n, m in (
+        ("speech_encoder", SpeechEncoder(81, 16, 16)),
+        ("style_encoder", StyleEncoder(pose_in, 24, 8)),
+        ("decoder", D.Decoder(pose_in, pose_out, 16, 8, 128)))}
+    for n, tree in trees.items():
+        checkpoint.save(root / "npz" / f"{n}.npz", tree)
+    torch_compat.save_reference_networks(root / "pt", trees)
+    T = 120
+    t = np.linspace(0, 2 * np.pi, T)[:, None, None]
+    offsets = rng.uniform(-10, 10, (J, 3)).astype(np.float32)
+    bvh.save(root / "style.bvh", {
+        "rotations": (20 * np.sin(t + rng.uniform(0, 6, (1, J, 3)))).astype(np.float32),
+        "positions": np.repeat(offsets[None], T, axis=0), "offsets": offsets,
+        "parents": np.asarray(parents, np.int32), "names": names,
+        "order": "zyx", "frametime": DT})
+    wav.write_wavefile(root / "audio.wav", _speech_like(2.0, 3), 16000)
+    opts = Options.from_options_dict({"net_opt": {"style_encoder": {"nhidden": 24,
+                                                                    "style_encoding_size": 8}}})
+    return dict(root=root, data=data, opts=opts)
+
+
+def test_generation_from_reference_checkpoints_on_the_card(small_models, tmp_path):
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+
+    m, texts = small_models, {}
+    for tag in ("npz", "pt"):
+        pipe = GesturePipeline(m["root"] / tag, m["data"], options=m["opts"], device="cuda")
+        before = (DR.launches, MK.launches)
+        generate_gesture(m["root"] / "audio.wav", [(m["root"] / "style.bvh", None)], None, None,
+                         tmp_path, file_name=tag, seed=3, pipeline=pipe)
+        torch.cuda.synchronize()
+        assert (DR.launches, MK.launches) == (before[0] + 1, before[1] + 1)
+        texts[tag] = (tmp_path / f"{tag}.bvh").read_text()
+    assert texts["pt"] == texts["npz"]
+
+
+def test_griffin_lim_on_the_card_matches_the_cpu(device):
+    cfg = _mel_cfg(800)
+    x = torch.as_tensor(_speech_like(2.0, 5), device=device)
+    mel_db = M.mel_spectrogram_tts(x, cfg)
+    amp = M.db_to_amplitude(M.denormalize_range(mel_db, cfg.min_clipping / cfg.filter_length))
+    mag = M.mel_to_linear(amp, cfg.sampling_rate, 800, cfg.mel_fmin, cfg.mel_fmax)
+    n = int(mag.shape[0] * cfg.hop_length + 800)
+    signal = np.random.default_rng(5).standard_normal(n).astype(np.float32)
+    y = M.griffin_lim(mag, cfg.hop_length, 800, 30, signal=signal).cpu().numpy()
+    ref = M.griffin_lim(mag.cpu(), cfg.hop_length, 800, 30, signal=signal).numpy()
+    assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-4
+
+
+def test_one_nccl_process_on_the_card(device, monkeypatch):
+    import socket
+
+    from zeggs_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(distributed, "DEFAULT_TIMEOUT_S", 120)
+    assert distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        assert distributed.process_device("cuda") == torch.device("cuda", 0)
+        probe = torch.full((3,), 2.0, device=device)
+        torch.distributed.all_reduce(probe)
+        distributed.barrier()
+        assert probe.tolist() == [2.0, 2.0, 2.0]
+    finally:
+        torch.distributed.destroy_process_group()

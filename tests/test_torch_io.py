@@ -125,7 +125,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "'zeggs_tpu_torch.')]\n"
         "assert len(names) > 40, names\n"
         "new = {'train.loop', 'train.loss', 'train.radam', 'data.pipeline', 'data.dataset', "
-        "'data.device_dataset', 'cli.train', 'cli.pipeline', 'utils.metrics', 'utils.logs'}\n"
+        "'data.device_dataset', 'cli.train', 'cli.pipeline', 'utils.metrics', 'utils.logs', "
+        "'io.torch_compat', 'cli.convert', 'cli.compare', 'cli.bvh2fbx', 'parallel', "
+        "'parallel.distributed', 'utils.profiling'}\n"
         "assert {'zeggs_tpu_torch.' + n for n in new} <= set(names), names\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"

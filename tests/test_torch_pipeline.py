@@ -2,7 +2,8 @@
 corpus (tests/synthetic.py: 3 clips of 4 s, 8 joints, the last one
 validation; len_ratios 0.9 and 1.0).
 
-Budgets: ranges, labels, data_definition.json and the summary equal;
+Budgets: ranges, labels, data_definition.json, the summary and
+data_info.html equal;
 animation features within 1e-5 (velocities as displacements, v * dt:
 finite differences amplify a one-ulp position difference by 1/dt = 60);
 audio features within 2e-4, the mel budget; statistics within 1e-4
@@ -17,12 +18,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from zeggs_tpu import config as JC
 from zeggs_tpu.data import pipeline as jpipe
 from zeggs_tpu_torch import config as TC
 from zeggs_tpu_torch.cli import pipeline as cli
 from zeggs_tpu_torch.data import pipeline as tpipe
+from zeggs_tpu_torch.io import bvh as tbvh
+from zeggs_tpu_torch.ops import xform
 from tests.synthetic import write_raw_corpus
 
 REPO = Path(__file__).resolve().parents[1]
@@ -74,6 +78,11 @@ def test_pipeline_matches_jax(corpus):
                for pkg, d, r in ((tpipe, definition, ours), (jpipe, corpus["jax_def"], ref))]
     assert summary[0] == summary[1]
     assert tpipe.format_summary_ascii(summary[0]) == jpipe.format_summary_ascii(summary[1])
+    # the same page but for the config's output directory
+    html = (root / "port" / "data_info.html").read_text()
+    assert html.count('"processed_data_path": "port"') == 1
+    assert (html.replace('"processed_data_path": "port"', '"processed_data_path": "jax"')
+            == (root / "jax" / "data_info.html").read_text())
 
 
 def test_sharded_run_merges_to_the_serial_run(corpus):
@@ -115,9 +124,33 @@ def test_cli_pipeline_on_the_cpu(corpus, tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["save_normalized_animations", "visualize_gaze",
                                   "visualize_spectrogram"])
 def test_debug_artifacts_are_refused(corpus, flag):
-    conf = dataclasses.replace(_conf(TC, corpus["root"], "debug"), **{flag: True})
-    with pytest.raises(NotImplementedError, match="debug artifacts"):
-        tpipe.data_pipeline(conf, device="cpu")
+    """Each debug flag writes its artifacts as zeggs_tpu's pipeline does
+    (the test keeps its name from when the port refused these flags): the
+    normalised BVHs equal JAX's (positions 1e-4 cm, rotations 1e-5 as
+    matrices), and the plots are PNG files."""
+    root, out = corpus["root"], f"debug_{flag}"
+    conf = dataclasses.replace(_conf(TC, root, out, save_final_data=False), len_ratios=(1.0,),
+                               **{flag: True})
+    tpipe.data_pipeline(conf, device="cpu")
+    written = sorted(p.name for p in (root / out / "normalized_animations").iterdir())
+    names = [f"{i:03d}_Synth_{i}_x_1_0" for i in range(3)]
+    if flag != "save_normalized_animations":
+        suffix = "_gaze.png" if flag == "visualize_gaze" else "_spec.png"
+        assert written == [n + suffix for n in names]
+        for n in written:
+            assert (root / out / "normalized_animations" / n).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+        return
+    assert written == sorted(n + s for n in names for s in ("_denorm.bvh", "_norm.bvh"))
+    jconf = dataclasses.replace(_conf(JC, root, "jax_" + out, save_final_data=False),
+                                len_ratios=(1.0,), save_normalized_animations=True)
+    jpipe.data_pipeline(jconf)
+    for name in written:
+        ours = tbvh.load(root / out / "normalized_animations" / name)
+        ref = tbvh.load(root / ("jax_" + out) / "normalized_animations" / name)
+        np.testing.assert_allclose(ours["positions"], ref["positions"], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(*(
+            xform.from_euler(torch.as_tensor(np.radians(a["rotations"].astype(np.float64))),
+                             a["order"]).numpy() for a in (ours, ref)), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("version", ["v1", "v2"])

@@ -145,7 +145,7 @@ def _batch(style, seed=5, frames=T):
 def _networks(jopts, topts, seed=0):
     dims = dict(num_audio_features=81, pose_input_size=POSE_IN, pose_output_size=POSE_OUT)
     params = jloop.init_networks(jax.random.PRNGKey(seed), jopts, dims, len(LABELS))
-    nets = tloop.init_networks(topts, dims, len(LABELS), seed)
+    nets = tloop.init_networks(topts, dims, len(LABELS), seed, device="cpu")
     for name, module in nets.items():
         module.load_state_dict(weights.from_jax(params[name]), strict=True)
     return params, nets

@@ -24,7 +24,7 @@ from zeggs_tpu_torch import config as TC
 from zeggs_tpu_torch.cli import train as cli
 from zeggs_tpu_torch.data.pipeline import data_pipeline
 from zeggs_tpu_torch.io import bvh, weights
-from zeggs_tpu_torch.train.loop import Trainer
+from zeggs_tpu_torch.train.loop import Trainer, init_networks
 from tests.synthetic import small_options, write_raw_corpus
 
 BATCH, WINDOW = 8, 32
@@ -189,6 +189,14 @@ def test_trainer_needs_its_device(corpus, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(_options(100), tmp_path / "m", tmp_path / "l", corpus["data"],
                 corpus["definition"])
+
+
+def test_init_networks_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    dims = dict(num_audio_features=81, pose_input_size=30, pose_output_size=27)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_networks(_options(100), dims, 3, 0)
 
 
 def test_options_dataclasses_match(corpus):

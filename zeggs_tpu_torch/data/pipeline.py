@@ -6,7 +6,7 @@ clap-timecode sync and trim, time-stretch augmentation (``len_ratios``),
 audio and animation features; then the corpus statistics (per-dim means,
 per-group scalar input stds, per-dim output stds) and the
 processed_data.npz / stats.npz / data_definition.json artifacts, with the
-per-style summary printed as a table.
+per-style summary printed as a table and written as data_info.html.
 
 Features run on ``device`` through `data/features.py`: on a card, every
 clip's audio features are one launch of the mel kernel per augmentation.
@@ -15,9 +15,11 @@ Clips are independent: ``num_workers > 1`` maps them over a spawn pool
 shard the clip list into per-shard archives that `merge_shards` assembles
 into the serial run's artifacts, bit for bit.
 
-The debug artifacts of the JAX package (``save_normalized_animations``,
-``visualize_gaze``, ``visualize_spectrogram`` and the HTML summary) are not
-ported; a config that asks for them is refused.
+Debug artifacts, each behind its config flag, go to
+``<processed>/normalized_animations``: ``save_normalized_animations``
+writes each clip's root-relative and root-baked BVHs,
+``visualize_gaze`` and ``visualize_spectrogram`` PNG plots (matplotlib,
+imported by the plot functions only).
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ _FEATURE_ORDER = (
     "root_pos", "root_rot", "root_vel", "root_vrt",
     "lpos", "ltxy", "lvel", "lvrt", "gaze_pos", "gaze_dir",
 )
-_DEBUG_FLAGS = ("save_normalized_animations", "visualize_gaze", "visualize_spectrogram")
 
 
 # ---------------------------------------------------------------------------
@@ -165,14 +166,27 @@ def _process_one(args):
         anim_data, audio_data = sync_trim(anim_data, audio_data, row, audio_sr, anim_fps)
 
     results = []
+    dbg = Path(base) / conf.processed_data_path / "normalized_animations"
     for len_ratio in conf.len_ratios:
         anim_i, audio_i = time_stretch(anim_data, audio_data, float(len_ratio))
+        clip = process_clip(anim_i, audio_i, conf, anim_fps, device)
+        name = f"{Path(row['anim_bvh']).stem}_x_{str(len_ratio).replace('.', '_')}"
+        if conf.save_normalized_animations or conf.visualize_gaze:
+            feats = F.preprocess_animation(anim_i, device=device)
+            if conf.save_normalized_animations:
+                save_normalized_animations(anim_i, feats, dbg, name)
+            if conf.visualize_gaze:
+                dbg.mkdir(parents=True, exist_ok=True)
+                visualize_gaze(feats, dbg / f"{name}_gaze.png")
+        if conf.visualize_spectrogram:
+            dbg.mkdir(parents=True, exist_ok=True)
+            visualize_spectrogram(clip["audio_features"], dbg / f"{name}_spec.png")
         results.append(dict(
-            clip=process_clip(anim_i, audio_i, conf, anim_fps, device),
+            clip=clip,
             style=row["style"],
             validation=str(row.get("validation", "FALSE")).upper() in ("TRUE", "1"),
             len_ratio=float(len_ratio),
-            name=f"{Path(row['anim_bvh']).stem}_x_{str(len_ratio).replace('.', '_')}",
+            name=name,
             anim=anim_i if conf.save_trimmed_animation else None,
             audio=audio_i if conf.save_trimmed_audio else None,
             skeleton=dict(
@@ -234,12 +248,6 @@ def data_pipeline(conf, num_workers=None, process_index=0, process_count=1, devi
     for a shard."""
     if not isinstance(conf, PipelineConfig):
         conf = PipelineConfig.from_dict(dict(conf))
-    asked = [k for k in _DEBUG_FLAGS if getattr(conf, k)]
-    if asked:
-        raise NotImplementedError(
-            f"the pipeline's debug artifacts are not ported yet: {asked}; set them false "
-            "or run zeggs_tpu's pipeline for them"
-        )
     device = str(require_device(device))
     base = Path(conf.base_path)
     out_path = base / conf.processed_data_path
@@ -380,10 +388,10 @@ def _assemble(all_clips, conf, out_path):
         np.savez(out_path / "stats.npz", **common)
         (out_path / "data_definition.json").write_text(json.dumps(data_definition, indent=4))
 
-    print(format_summary_ascii(dataset_summary(
-        label_names, ranges_train, common["ranges_train_labels"],
-        ranges_valid, common["ranges_valid_labels"],
-    )))
+    summary = dataset_summary(label_names, ranges_train, common["ranges_train_labels"],
+                              ranges_valid, common["ranges_valid_labels"])
+    print(format_summary_ascii(summary))
+    (out_path / "data_info.html").write_text(format_summary_html(summary, conf.to_dict()))
     return processed_data, data_definition
 
 
@@ -423,3 +431,83 @@ def format_summary_ascii(summary):
         f"{ascii_table(headers, rows, title='Data Info')}\nTotal length of dataset is "
         f"{summary['total_frames']:.0f} frames - {summary['total_seconds']:.1f} seconds"
     )
+
+
+def format_summary_html(summary, conf_dict=None):
+    """A self-contained data_info.html: the summary table and the config."""
+    head = "".join(f"<th>{s['style']}</th>" for s in summary["per_style"])
+    rows = []
+    for label, key in (("Train", "train"), ("Validation", "valid"), ("Total", "total")):
+        cells = "".join(f"<td>{_fmt(s[key])}</td>" for s in summary["per_style"])
+        rows.append(f"<tr><td>{label}</td>{cells}</tr>")
+    conf_html = f"<pre>{json.dumps(conf_dict, indent=2)}</pre>" if conf_dict is not None else ""
+    return (
+        "<!DOCTYPE html><html><head><meta charset='utf-8'><title>Data Info</title>"
+        "<style>table{border-collapse:collapse}td,th{border:1px solid #888;"
+        "padding:4px 8px;font-family:monospace;font-size:13px}</style></head><body>"
+        f"<h2>Data Info</h2><table><tr><th>Dataset</th>{head}</tr>{''.join(rows)}</table>"
+        f"<p>Total length of dataset is {summary['total_frames']:.0f} frames - "
+        f"{summary['total_seconds']:.1f} seconds</p>{conf_html}</body></html>"
+    )
+
+
+# ---------------------------------------------------------------------------
+# debug artifacts
+# ---------------------------------------------------------------------------
+
+def save_normalized_animations(anim_data, feats, out_dir, name):
+    """Write <name>_norm.bvh (joints relative to the root) and
+    <name>_denorm.bvh (the root baked back into joint 0), for inspection.
+    The quaternion math runs in float32 on the host."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    order = anim_data["order"]
+    lpos, lrot = feats.lpos.float().cpu(), feats.lrot.float().cpu()
+    root_pos, root_rot = feats.root_pos.float().cpu(), feats.root_rot.float().cpu()
+
+    norm = dict(anim_data)
+    norm["positions"] = lpos.numpy()
+    norm["rotations"] = np.degrees(quat.to_euler(lrot, order=order).numpy())
+    bvh.save(out_dir / f"{name}_norm.bvh", norm)
+
+    lpos_d, lrot_d = lpos.clone(), lrot.clone()
+    lpos_d[:, 0] = quat.mul_vec(root_rot, lpos[:, 0]) + root_pos
+    lrot_d[:, 0] = quat.mul(root_rot, lrot[:, 0])
+    denorm = dict(anim_data)
+    denorm["positions"] = lpos_d.numpy()
+    denorm["rotations"] = np.degrees(quat.to_euler(lrot_d, order=order).numpy())
+    bvh.save(out_dir / f"{name}_denorm.bvh", denorm)
+
+
+def visualize_gaze(feats, out_path):
+    """Top-down scatter of the root trajectory and the gaze target, as PNG."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    root_pos = feats.root_pos.float().cpu().numpy()
+    gaze_pos = feats.gaze_pos.float().cpu().numpy()
+    fig, ax = plt.subplots()
+    ax.scatter(root_pos[:, 0], root_pos[:, 2], s=0.2, marker=".", label="root")
+    ax.scatter(gaze_pos[0, 0], gaze_pos[0, 2], marker="*", s=80, label="gaze target")
+    ax.set_aspect("equal")
+    ax.legend()
+    fig.savefig(out_path, dpi=100)
+    plt.close(fig)
+
+
+def visualize_spectrogram(audio_features, out_path):
+    """Heat map of a clip's (T, features) audio feature matrix, as PNG."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(10, 4))
+    ax.imshow(np.asarray(audio_features).T, interpolation="nearest", aspect="auto",
+              origin="lower")
+    ax.set_xlabel("frame")
+    ax.set_ylabel("feature")
+    fig.savefig(out_path, dpi=100)
+    plt.close(fig)

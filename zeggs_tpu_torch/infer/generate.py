@@ -24,7 +24,7 @@ import torch
 from ..config import DataDefinition, Options, load_pipeline_conf
 from ..data import features as F
 from ..device import require_device
-from ..io import bvh, wav, weights
+from ..io import bvh, torch_compat, wav, weights
 from ..models import decoder, pose
 from ..models.decoder import Decoder
 from ..models.speech_encoder import SpeechEncoder
@@ -107,20 +107,24 @@ class GesturePipeline:
     # -- loading ----------------------------------------------------------
 
     def _load_networks(self, network_path):
+        """Native `.npz` networks first; each one missing is filled from the
+        directory's reference `.pt` checkpoints (`io/torch_compat.py`)."""
         needed = ["speech_encoder", "decoder"]
         if self.style_encoding_type == "example":
             needed.append("style_encoder")
-        missing = [n for n in needed if not (network_path / f"{n}.npz").exists()]
+        trees = {n: weights.load_jax_npz(network_path / f"{n}.npz") for n in needed
+                 if (network_path / f"{n}.npz").exists()}
+        if len(trees) < len(needed):
+            for name, tree in torch_compat.load_reference_networks(
+                    network_path, self.style_encoding_type, self.opts.net.decoder.rnn_cond).items():
+                trees.setdefault(name, tree)
+        missing = [n for n in needed if n not in trees]
         if missing:
-            raise FileNotFoundError(
-                f"missing native .npz networks in {network_path}: {missing} "
-                "(loading the reference's .pt checkpoints is not ported yet)"
-            )
+            raise FileNotFoundError(f"missing network checkpoints in {network_path}: {missing}")
         nets = {}
         for name in needed:
-            params = weights.load_jax_npz(network_path / f"{name}.npz")
-            module = self._build_network(name, params)
-            module.load_state_dict(weights.from_jax(params), strict=True)
+            module = self._build_network(name, trees[name])
+            module.load_state_dict(weights.from_jax(trees[name]), strict=True)
             # inference: autograd never records on a pipeline's networks
             nets[name] = module.to(self.device).eval().requires_grad_(False)
         return nets

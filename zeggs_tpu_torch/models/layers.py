@@ -4,6 +4,8 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,14 +37,36 @@ def elu(x):
     return F.elu(x)
 
 
+class RowShard(NamedTuple):
+    """A generator for one process's rows of a global batch: every draw is
+    made at the global batch's shape (``rows`` on the leading axis), and the
+    process keeps rows [start, start + its batch). So each process draws the
+    noise a single process would draw for those rows, and the generator
+    moves on as it would in a single process."""
+
+    generator: torch.Generator
+    rows: int
+    start: int
+
+
+def draw(fn, shape, generator, device, dtype):
+    """``fn`` (`torch.rand` or `torch.randn`) of ``shape`` from ``generator``,
+    a `torch.Generator` or a `RowShard` (``shape[0]`` this process's rows)."""
+    if isinstance(generator, RowShard):
+        full = fn((generator.rows, *shape[1:]), generator=generator.generator, device=device,
+                  dtype=dtype)
+        return full[generator.start : generator.start + shape[0]]
+    return fn(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
 def dropout(x, rate, generator=None):
     """Inverted dropout with torch's scaling: each element is kept with
-    probability 1 - rate, drawn from ``generator`` on x's device, and scaled
-    by 1 / (1 - rate). No generator, no dropout (inference, or a
-    deterministic training step)."""
+    probability 1 - rate, drawn from ``generator`` on x's device (see
+    `draw`), and scaled by 1 / (1 - rate). No generator, no dropout
+    (inference, or a deterministic training step)."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < 1.0 - rate
+    keep = draw(torch.rand, x.shape, generator, x.device, x.dtype) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

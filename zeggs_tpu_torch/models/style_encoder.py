@@ -204,5 +204,5 @@ class StyleEncoder(nn.Module):
         if generator is None:
             return mu, mu, logvar
         std = torch.exp(0.5 * logvar) / temperature
-        eps = torch.randn(std.shape, generator=generator, device=std.device, dtype=std.dtype)
+        eps = L.draw(torch.randn, std.shape, generator, std.device, std.dtype)
         return mu + eps * std, mu, logvar

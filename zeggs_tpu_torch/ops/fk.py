@@ -51,6 +51,26 @@ def fk_vel(lrot, lpos, lvrt, lvel, parents):
     )
 
 
+def ik_rot(grot, parents):
+    """Global -> local rotations."""
+    parents = [int(p) for p in parents]
+    lr = [grot[..., :1, :]]
+    for i in range(1, len(parents)):
+        p = parents[i]
+        lr.append(quat.mul(quat.inv(grot[..., p : p + 1, :]), grot[..., i : i + 1, :]))
+    return torch.cat(lr, dim=-2)
+
+
+def fk_root_position(gpos, grot, lpos, parents):
+    """Global positions from global rotations and the root's position."""
+    parents = [int(p) for p in parents]
+    gp = [gpos[..., :1, :]]
+    for i in range(1, len(parents)):
+        p = parents[i]
+        gp.append(quat.mul_vec(grot[..., p : p + 1, :], lpos[..., i : i + 1, :]) + gp[p])
+    return torch.cat(gp, dim=-2)
+
+
 def mat3_mul(a, b):
     """(..., 3, 3) @ (..., 3, 3) as a broadcast multiply and a sum, the
     reference's order of terms."""

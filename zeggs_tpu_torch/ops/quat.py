@@ -16,6 +16,12 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def eye(shape=(), dtype=torch.float32, device=None):
+    """Identity quaternion broadcast to ``shape + (4,)``."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device).expand(
+        tuple(shape) + (4,))
+
+
 def mul(x, y):
     """Hamilton product x*y."""
     x0, x1, x2, x3 = x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
@@ -42,8 +48,19 @@ def inv(x):
     return x * x.new_tensor([1.0, -1.0, -1.0, -1.0])
 
 
+def inv_mul(x, y):
+    return mul(inv(x), y)
+
+
 def inv_mul_vec(q, v):
     return mul_vec(inv(q), v)
+
+
+def diff(x, y, world=True):
+    """Rotation taking y to x, sign-aligned."""
+    d = torch.sum(x * y, dim=-1, keepdim=True)
+    flip = torch.where(d > 0.0, x, -x)
+    return mul(flip, inv(y)) if world else mul(inv(y), flip)
 
 
 def abs_(x):
@@ -76,12 +93,28 @@ def exp(x, eps=1e-5):
     return torch.where(halfangle < eps, tiny, big)
 
 
+def exp_np_style(x, eps=1e-5):
+    """The numpy reference's exp: the small-angle branch is [1, x], not
+    normalised."""
+    halfangle = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    small = halfangle < eps
+    c = torch.where(small, torch.ones_like(halfangle), torch.cos(halfangle))
+    s = torch.where(small, torch.ones_like(halfangle), torch.sinc(halfangle / math.pi))
+    return torch.cat([c, s * x], dim=-1)
+
+
 def to_helical(x, eps=1e-5):
     return 2.0 * log(x, eps)
 
 
 def from_helical(x, eps=1e-5):
     return exp(x / 2.0, eps)
+
+
+def to_angle_axis(x, eps=1e-10):
+    length = torch.sqrt(torch.sum(x[..., 1:] * x[..., 1:], dim=-1))
+    angle = 2.0 * torch.atan2(length, x[..., 0])
+    return angle, x[..., 1:] / (length[..., None] + eps)
 
 
 def from_angle_axis(angle, axis):
@@ -97,6 +130,21 @@ def between(x, y):
         + torch.sum(x * y, dim=-1)[..., None]
     )
     return torch.cat([w, _cross(x, y)], dim=-1)
+
+
+def slerp(x, y, a, eps=1e-10):
+    """Spherical interpolation from x (a = 0) to y (a = 1)."""
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    dot = torch.sum(x * y, dim=-1)
+    o = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    a0 = torch.sin((1.0 - a) * o) / (torch.sin(o) + eps)
+    a1 = torch.sin(a * o) / (torch.sin(o) + eps)
+    return a0[..., None] * x + a1[..., None] * y
+
+
+def mul_scalar(x, y):
+    """Scale a rotation by the factor y: slerp from the identity."""
+    return slerp(eye(x.shape[:-1], dtype=x.dtype, device=x.device), x, y)
 
 
 def to_euler(x, order="zyx"):
@@ -148,6 +196,12 @@ def to_xform(x):
         ],
         dim=-2,
     )
+
+
+def to_xy(x):
+    """Quaternion -> the first two columns of its rotation matrix, (..., 3, 2)
+    (the "rot6d" representation)."""
+    return to_xform(x)[..., :2]
 
 
 def from_xform(ts, eps=1e-10):

@@ -1,5 +1,5 @@
-"""Training step and the single-card training loop (counterpart of
-`zeggs_tpu/train/loop.py`).
+"""Training step and the training loop, on one card or over several
+processes (counterpart of `zeggs_tpu/train/loop.py`).
 
 RAdam with lr = base * 0.995^floor(step / 1000), the 18-term loss,
 checkpoints at ``generate_samples_step`` (the latest at the models
@@ -13,8 +13,10 @@ Randomness: the batch order and example lengths come from a numpy
 Generator seeded with ``train.seed`` (the JAX package's draws, in its
 order); dropout masks and the VAE noise from a `torch.Generator` on the
 training device. Both are saved in every checkpoint and restored on resume,
-so a resumed run equals an uninterrupted one. Multi-host training waits for
-DDP.
+so a resumed run equals an uninterrupted one.
+
+Several processes (`parallel.distributed.initialize` first) train as one:
+see `Trainer`.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from ..io import checkpoint, weights
 from ..models import decoder
 from ..models.decoder import Decoder
 from ..models.speech_encoder import SpeechEncoder
+from ..models.layers import RowShard
 from ..models.style_encoder import StyleEncoder
 from ..ops import quat, xform
+from ..parallel import distributed
 from ..utils import write_bvh
 from .loss import compute_loss
 from .radam import RAdam, exponential_step_schedule
@@ -42,12 +46,14 @@ from .radam import RAdam, exponential_step_schedule
 POSE_KEYS = ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy", "lvel", "lvrt")
 
 
-def init_networks(opts: Options, dims, nlabels, seed, device="cpu"):
-    """The three networks ({name: module}, on ``device``) at the JAX
-    package's initial distributions: PyTorch's defaults, Xavier-uniform for
-    the style encoder's ConvNorm/LinearNorm layers and the FiLM heads. The
-    values come from the CPU generator seeded with ``seed``, whatever the
-    device, and leave the global generator as it was."""
+def init_networks(opts: Options, dims, nlabels, seed, device="cuda"):
+    """The three networks ({name: module}, on ``device``: the card unless
+    the caller asks for the CPU) at the JAX package's initial
+    distributions: PyTorch's defaults, Xavier-uniform for the style
+    encoder's ConvNorm/LinearNorm layers and the FiLM heads. The values come
+    from the CPU generator seeded with ``seed``, whatever the device, and
+    leave the global generator as it was."""
+    device = require_device(device)
     net = opts.net
     label = opts.train.style_encoding_type == "label"
     style_size = nlabels if label else net.style_encoder.style_encoding_size
@@ -132,17 +138,24 @@ def make_loss_fn(opts: Options, stats, parents, dt, deterministic=False):
 def make_train_step(opts: Options, stats, parents, dt, nets, deterministic=False):
     """(optimizer, step): ``step(batch, iteration, generator)`` computes the
     loss, its gradients (left in the parameters' .grad) and one RAdam update
-    in place, and returns the metrics as 0-d tensors."""
+    in place, and returns the metrics as 0-d tensors. Over several
+    processes each holds its rows of the batch; the gradients and the
+    metrics are averaged over the processes before the update, which makes
+    them the single process's over the whole batch (every loss term is a
+    mean over rows)."""
     optimizer = make_optimizer(opts, nets)
     loss_fn = make_loss_fn(opts, stats, parents, dt, deterministic)
 
     def step(batch, iteration, generator=None):
-        for p in optimizer.params.values():
+        params = list(optimizer.params.values())
+        for p in params:
             p.grad = None
         loss, metrics = loss_fn(nets, batch, iteration, generator)
         loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        distributed.average_([p.grad for p in params] + list(metrics.values()))
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return optimizer, step
 
@@ -152,20 +165,41 @@ def _seed_of(*words):
 
 
 class Trainer:
-    """Host loop on one device: epochs, logging, checkpoints, sample
-    synthesis. ``device_corpus`` (the default) uploads the corpus once and
-    gathers each batch on the device; otherwise batches are assembled on the
-    host and copied (for corpora larger than the card)."""
+    """Host loop: epochs, logging, checkpoints, sample synthesis.
+    ``device_corpus`` (the default) uploads the corpus once and gathers each
+    batch on the device; otherwise batches are assembled on the host and
+    copied (for corpora larger than the card).
+
+    Several processes (`parallel.distributed.initialize` first): every
+    process builds the same Trainer from the same options and seed over a
+    shared filesystem, on its own card (``cuda:(local_rank %
+    device_count)``; the CPU with ``device="cpu"``), and checks that every
+    process holds rank 0's parameters and optimizer state. The batch indices
+    and example lengths come from the shared host generator, so they agree
+    on every process, and each process takes its `local_batch_slice` of the
+    batch, on either data path (each uploads the device corpus to its own
+    card). Each process draws the dropout and VAE noise of the whole batch
+    from the same generator and keeps its own rows (`RowShard`); the
+    gradients are averaged before RAdam. So N processes equal one process
+    at the same seed, and one generator state in the checkpoint resumes
+    every process. The batch size must divide by the number of processes.
+    Only rank 0 writes checkpoints, samples and metrics; the others wait at
+    a barrier before and after its section."""
 
     def __init__(self, opts: Options, models_dir, logs_dir, path_processed_data,
                  path_data_definition, writer=None, device_corpus=True, device="cuda"):
         self.opts = opts
-        self.device = require_device(device)
+        self.device = require_device(distributed.process_device(device))
+        self.rank, self.world = distributed.process_index(), distributed.process_count()
+        t = opts.train
+        if t.batchsize % self.world:
+            raise ValueError(f"batchsize {t.batchsize} must divide evenly across {self.world} "
+                             "processes")
         self.models_dir = Path(models_dir)
         self.logs_dir = Path(logs_dir)
         self.samples_dir = self.logs_dir / "samples"
-        self.samples_dir.mkdir(parents=True, exist_ok=True)
-        t = opts.train
+        if self.rank == 0:
+            self.samples_dir.mkdir(parents=True, exist_ok=True)
         self.ds = WindowedDataset(
             path_data_definition, path_processed_data, t.window,
             style_encoding_type=t.style_encoding_type,
@@ -185,6 +219,9 @@ class Trainer:
         self.writer = writer
         if t.resume and (self.models_dir / "checkpoint.json").exists():
             self._resume()
+        _, exp_avg, exp_avg_sq = self.optimizer.state()
+        distributed.make_replicated([*self.optimizer.params.values(), *exp_avg.values(),
+                                     *exp_avg_sq.values()])
 
     def _resume(self):
         nets, opt_state, meta = checkpoint.load_train_state(self.models_dir)
@@ -221,17 +258,25 @@ class Trainer:
         return self.nets
 
     def train_step(self, batch):
-        """One step on a device batch -> metrics (0-d tensors)."""
-        return self._step(batch, self.iteration, self.generator)
+        """One step on a device batch (this process's rows) -> metrics (0-d
+        tensors, over the whole batch)."""
+        generator = self.generator
+        if self.world > 1:
+            B = self.opts.train.batchsize
+            generator = RowShard(generator, B, distributed.local_batch_slice(B)[0])
+        return self._step(batch, self.iteration, generator)
 
     def _post_step(self, metrics, log_every, on_step):
-        if self.writer is not None and self.iteration % log_every == 0:
+        if self.writer is not None and self.rank == 0 and self.iteration % log_every == 0:
             self.writer.write(self.iteration, {k: float(v) for k, v in metrics.items()})
         if on_step is not None:
             on_step(self.iteration, metrics)
         if self.iteration % self.opts.train.generate_samples_step == 0:
+            # the other processes wait while rank 0 writes
+            distributed.barrier()
             self.save_checkpoint()
             self.generate_samples(3)
+            distributed.barrier()
         self.iteration += 1
 
     def _run_epochs(self, total, log_every, on_step):
@@ -245,7 +290,7 @@ class Trainer:
                     break
                 idx = order[b * t.batchsize : (b + 1) * t.batchsize]
                 ewl = None if label else ds.sample_example_length(self.rng)
-                metrics = self.train_step(self._batch(idx, ewl))
+                metrics = self.train_step(self._batch(distributed.host_shard(idx), ewl))
                 self._post_step(metrics, log_every, on_step)
             self.epoch += 1
 
@@ -269,7 +314,10 @@ class Trainer:
 
     def save_checkpoint(self):
         """The networks and RAdam state in the JAX package's layout, with
-        the loop state, at the models directory and under <iteration>/."""
+        the loop state, at the models directory and under <iteration>/;
+        rank 0 only."""
+        if self.rank != 0:
+            return
         nets = {k: weights.to_jax(m) for k, m in self.nets.items()}
         step, exp_avg, exp_avg_sq = self.optimizer.state()
 
@@ -293,7 +341,10 @@ class Trainer:
         """Ground/predict BVH pairs of ``n`` train and ``n`` validation clips
         (at most ``length_s`` seconds each), the style from an example of the
         clip (mu) or its label. Draws come from a generator of their own,
-        never the data order's. Returns the decoder steps run."""
+        never the data order's. Returns the decoder steps run; rank 0 only
+        (other processes run none)."""
+        if self.rank != 0:
+            return 0
         rng = np.random.default_rng([self.opts.train.seed, 0x5A11, self.iteration])
         ds, s, dev = self.ds, self.stats, self.device
         nets = self.nets

@@ -1,6 +1,8 @@
-"""BVH writing with root baking, blend ranges and hyperparameter flattening
-(counterpart of `zeggs_tpu/utils/__init__.py`); `metrics` holds the
-training metric writers and `logs` the console progress line and tables."""
+"""BVH writing with root baking, BVH retargeting, blend ranges and
+hyperparameter flattening (counterpart of `zeggs_tpu/utils/__init__.py`);
+`metrics` holds the training metric writers, `logs` the loggers, the
+console progress line and tables, and `profiling` the trace and timing
+helpers."""
 
 from __future__ import annotations
 
@@ -70,3 +72,58 @@ def flatten_dict(dd, separator="_", prefix=""):
         key = prefix + separator + kk if prefix else kk
         out.update(flatten_dict(vv, separator, key))
     return out
+
+
+def _host(fn, *args, **kw):
+    """``fn`` on float32 host tensors made from numpy arrays -> numpy."""
+    return fn(*(torch.as_tensor(np.asarray(a, np.float32)) for a in args), **kw).numpy()
+
+
+def change_bvh(filename, savename, order=None, fps=None, pace=1.0, center=False):
+    """Retarget a BVH file: rotation order, frame rate and pace (cubic
+    resampling of positions and unrolled quaternions), and optionally
+    re-centre the root at the origin, facing as the first frame's heading.
+    The quaternion math runs in float32 on the host."""
+    from scipy.interpolate import griddata
+
+    anim = bvh.load(filename)
+    output = dict(anim)
+
+    def quats(euler_deg, euler_order):
+        return _host(lambda e: quat.unroll(quat.from_euler(e, euler_order)), np.radians(euler_deg))
+
+    if order is not None:
+        output["order"] = order
+        output["rotations"] = np.degrees(
+            _host(quat.to_euler, quats(anim["rotations"], anim["order"]), order=order))
+
+    if pace is not None or fps is not None:
+        if fps is None:
+            fps = 1.0 / anim["frametime"]
+        positions = anim["positions"]
+        rots = quats(anim["rotations"], anim["order"])
+        nframes, nbones = positions.shape[:2]
+        t_orig = np.linspace(0, nframes - 1, nframes)
+        t_new = np.linspace(0, nframes - 1, int(pace * (nframes * (fps * anim["frametime"]) - 1)))
+        output["positions"] = griddata(
+            t_orig, positions.reshape(nframes, -1), t_new, method="cubic"
+        ).reshape(len(t_new), nbones, 3)
+        rots = griddata(t_orig, rots.reshape(nframes, -1), t_new, method="cubic").reshape(
+            len(t_new), nbones, 4)
+        rots = _host(quat.normalize, rots)
+        output["rotations"] = np.degrees(_host(quat.to_euler, rots, order=output["order"]))
+        output["frametime"] = 1.0 / fps
+
+    if center:
+        lrot = _host(quat.from_euler, np.radians(output["rotations"]), order=output["order"])
+        offset_pos = output["positions"][0:1, 0:1].copy() * np.array([1, 0, 1])
+        offset_rot = lrot[0:1, 0:1].copy() * np.array([1, 0, 1, 0])
+        inv_offset = _host(quat.inv, offset_rot)
+        output["positions"] = np.asarray(output["positions"]).copy()
+        output["positions"][:, 0:1] = _host(quat.mul_vec, inv_offset,
+                                            output["positions"][:, 0:1] - offset_pos)
+        output["rotations"] = np.asarray(output["rotations"]).copy()
+        output["rotations"][:, 0:1] = np.degrees(_host(
+            quat.to_euler, _host(quat.mul, inv_offset, lrot[:, 0:1]), order=output["order"]))
+
+    bvh.save(savename, output)
