@@ -62,9 +62,33 @@ and 12 s) under build/chip_smoke/, then:
      must equal one process's; rank 0's sample synthesis launches the GRU
      cell; then one NCCL process for one step, joined from torchrun's
      environment variables (no flags);
- 10. prints times, each beside the card's name and power limit, a JSON
-     line of launch counts, one of training results, one of the new phases'
-     results, one of the barrier floor, one of kernel results and, last,
+ 10. runs the v2 model (configs/configs_v2.json: the v1 widths with label
+     styles, a decoder styled by the one-hot of 19 labels, no style
+     encoder): the generate CLI with `-se label` over the three clips (CSV
+     at bf16 weights 3 decoder launches, `-b` one decoder launch and 1023
+     GRU-cell launches, `--int8` 3 int8 decoder launches; 3 mel launches
+     each), the 4 s label request on the card against the CPU, a 10 s
+     session with a label style (a GRU-cell launch a decoder step), one
+     daemon /synthesize with `style_label` (and an unknown label refused
+     with 400); then the training corpus through `cli.pipeline` under
+     data_pipeline_conf_v2.json and `cli.train` with the v2 options for 3
+     steps, with sample synthesis from one-hot styles;
+ 11. trains at v1 width, B=32, for 2 steps under each training option
+     (none, bfloat16 compute, remat, the gru style body, FiLM,
+     `--host-batches`; finite losses, step times), then holds remat's
+     gradients to the step without it (rtol 1e-5, atol 1e-6) and a
+     bfloat16 step to the float32 step and, over one decoder step, to the
+     CPU's bfloat16 step (4e-2 of max(1, max|g|));
+ 12. evaluates the training phase's checkpoint with `cli.eval_checkpoint`
+     on the card and on the CPU (the reports agree within the quality
+     test's tolerances, the gate verdicts are equal, one GRU-cell launch a
+     decoder step of the validation rollouts) and checks that the v2
+     checkpoint is refused;
+ 13. prints times, each beside the card's name and power limit, a JSON
+     line of launch counts, one of training results, one of the
+     checkpoint, multi-process and Griffin-Lim phases' results, one of the
+     v2, training-option and quality phases' results,
+     one of the barrier floor, one of kernel results and, last,
      {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
@@ -151,6 +175,39 @@ DDP_TIMEOUT_S = 600
 # relative L2 error bound of tests/test_torch_misc.py
 GL_ITERATIONS, GL_TOL = 30, 1e-4
 NETWORKS = ("speech_encoder", "style_encoder", "decoder")
+# the v2 model (configs/configs_v2.json): the v1 widths with label styles;
+# the released dataset's 19 labels make the decoder's style input 19 wide
+V2 = WORK / "v2"
+V2_LABELS = ["Agreement", "Angry", "Disagreement", "Distracted", "Flirty", "Happy", "Laughing",
+             "Neutral", "Old", "Oration", "Pensive", "Relaxed", "Sad", "Sarcastic", "Scared",
+             "Sneaky", "Still", "Threatening", "Tired"]
+V2_STYLES = ("Agreement", "Happy", "Tired")  # a label a request: the first, a middle, the last
+V2_TRAIN_STEPS = 3
+# training options, each a run of `cli.train` at v1 width, B=32, window 256
+# on the training corpus: its options and flags; OPTION_STEPS steps, sample
+# synthesis cut as in the multi-process phase (depth, for time)
+TRAIN_OPTIONS = {
+    "none": ({}, {}, []),  # the v1 options as they are, the others' baseline
+    "bfloat16": ({"compute_dtype": "bfloat16"}, {}, []),
+    "remat": ({"remat": True}, {}, []),
+    "gru_style_body": ({}, {"style_encoder": {"type": "gru"}}, []),
+    "film": ({}, {"decoder": {"rnn_cond": "film"}}, []),
+    "host_batches": ({}, {}, ["--host-batches"]),
+}
+OPTION_STEPS = 2
+# remat against no remat: one step's gradients on the card, per element
+REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
+# bfloat16 products: the bound tests/test_torch_train_grads.py holds the
+# port's bfloat16 step to against JAX's (loss rtol 1e-4, every gradient 4e-2
+# of max(1, max|g|)), here for the card's bfloat16 step against the CPU's over
+# one decoder step (2-frame windows, BF16_BATCH rows) and, gradients only,
+# for a whole bfloat16 step (B=32, window 256) against the float32 step on
+# the card
+BF16_LOSS_RTOL, BF16_GRAD_TOL, BF16_BATCH = 1e-4, 4e-2, 4
+# the evaluation on the card against the CPU: the tolerances of
+# tests/test_torch_quality.py (rtol 1e-3 and one rounding quantum; jerk
+# and variance ratios within bounds derived from the rollouts' difference)
+EVAL_RTOL = 1e-3
 
 
 def fail(msg):
@@ -624,12 +681,13 @@ def check_bvhs(results, label):
             fail(f"{label} {clip}: bad BVH ({frames} frames, expected {round(60 * seconds)})")
 
 
-def run_cli_path(torch, results, label, flags, expected):
+def run_cli_path(torch, results, label, flags, expected, fixture=WORK):
     """Phase 2: the generate CLI over the three clips on the card, every
-    launch count reset just before and read just after."""
+    launch count reset just before and read just after; ``fixture`` holds
+    the options and the requests (the v1 fixture, or the v2 one)."""
     from zeggs_tpu_torch.cli import generate as cli
 
-    argv = ["-o", str(WORK / "options.json"), "-c", str(WORK / "requests.csv"),
+    argv = ["-o", str(fixture / "options.json"), "-c", str(fixture / "requests.csv"),
             "-p", str(results), "--device", "cuda", *flags]
     reset_counts()
     t0 = time.perf_counter()
@@ -764,11 +822,12 @@ def bvh_maes(a_path, b_path):
             float(np.abs(a["rotations"] - b["rotations"]).mean()))
 
 
-def run_session(torch, pipe, audio):
-    """One session over the clip in 0.5 s pushes, quantum 16 -> (session,
-    times)."""
+def run_session(torch, pipe, audio, styles=None, first_pose=None):
+    """One session over the clip in 0.5 s pushes, quantum 16, styled by the
+    fixture's style BVH unless ``styles`` are given -> (session, times)."""
     t_start = time.perf_counter()
-    sess = pipe.streaming_session([(WORK / "style.bvh", None)], seed=SEED, quantum=16)
+    sess = pipe.streaming_session(styles or [(WORK / "style.bvh", None)], first_pose=first_pose,
+                                  seed=SEED, quantum=16)
     t0 = time.perf_counter()
     ttff, lats = None, []
     for o in range(0, len(audio), PUSH_SAMPLES):
@@ -1325,18 +1384,19 @@ def ddp_options(train_root, name):
     return path
 
 
-def ddp_trainer(torch, base):
+def short_trainer(torch, base):
     """The CLI's Trainer with short sample synthesis, its GRU-cell launches
-    counted, each train step timed, and the process group's backend and an
-    all-reduce checked."""
+    counted, each train step timed and its losses kept, and the process
+    group's backend and an all-reduce checked."""
     from zeggs_tpu_torch.ops.kernels import gru_cell as GC
     from zeggs_tpu_torch.parallel import distributed
 
-    class DdpTrainer(base):
-        record = dict(steps_ms=[], synthesis=None, backend=None, all_reduce=None)
+    class ShortTrainer(base):
+        record = dict(steps_ms=[], finite=[], losses=[], synthesis=None, backend=None,
+                      all_reduce=None)
 
         def train_step(self, batch):
-            rec = DdpTrainer.record
+            rec = ShortTrainer.record
             if torch.distributed.is_initialized() and rec["backend"] is None:
                 probe = torch.ones(1, device=self.device) * (self.rank + 1)
                 torch.distributed.all_reduce(probe)
@@ -1346,6 +1406,8 @@ def ddp_trainer(torch, base):
             metrics = super().train_step(batch)
             torch.cuda.synchronize()
             rec["steps_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["finite"].append(all(bool(torch.isfinite(v)) for v in metrics.values()))
+            rec["losses"].append(metrics["total_loss"].item())
             return metrics
 
         def generate_samples(self, n=3, length_s=30):
@@ -1353,10 +1415,10 @@ def ddp_trainer(torch, base):
             steps = super().generate_samples(DDP_SAMPLES, DDP_SAMPLE_S)
             torch.cuda.synchronize()
             if distributed.process_index() == 0:
-                DdpTrainer.record["synthesis"] = dict(steps=steps, gru_cell=GC.launches - g0)
+                ShortTrainer.record["synthesis"] = dict(steps=steps, gru_cell=GC.launches - g0)
             return steps
 
-    return DdpTrainer
+    return ShortTrainer
 
 
 def ddp_worker(argv):
@@ -1368,7 +1430,7 @@ def ddp_worker(argv):
 
     address, rank, options, host_batches = argv
     torch.set_num_threads(2)
-    cli_train.Trainer = Trainer = ddp_trainer(torch, cli_train.Trainer)
+    cli_train.Trainer = Trainer = short_trainer(torch, cli_train.Trainer)
     trainer = cli_train.main(
         ["-o", options, "--device", "cuda", "--max-iterations", str(DDP_STEPS),
          "--coordinator-address", address, "--num-processes", "2", "--process-id", rank,
@@ -1415,7 +1477,7 @@ def ddp_phase(torch, card, train_root):
                     for line in out.splitlines() if line.startswith("DDP_WORKER ")]
             rank0 = next(r for r in recs if r["rank"] == 0)
 
-            cli_train.Trainer = Single = ddp_trainer(torch, base)
+            cli_train.Trainer = Single = short_trainer(torch, base)
             single = ddp_options(train_root, f"single_{path}")
             cli_train.main(["-o", str(single), "--device", "cuda", "--max-iterations",
                             str(DDP_STEPS)] + (["--host-batches"] if host else []))
@@ -1455,7 +1517,7 @@ def ddp_phase(torch, card, train_root):
 
         # one NCCL process (the default backend on a card) for one step, joined
         # as torchrun joins it: its variables set and none of the three flags
-        cli_train.Trainer = Nccl = ddp_trainer(torch, base)
+        cli_train.Trainer = Nccl = short_trainer(torch, base)
         nccl = ddp_options(train_root, "ddp_nccl")
         torchrun_env = dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
                             MASTER_PORT=str(free_port()), LOCAL_RANK="0")
@@ -1523,6 +1585,484 @@ def griffin_lim_phase(torch, card):
                 launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# the v2 label model, training options, the quality evaluation
+# ---------------------------------------------------------------------------
+
+def write_v2_fixture(torch):
+    """The v2 model at full width under build/chip_smoke/v2: the v1
+    fixture's speech encoder, a decoder whose style input is the one-hot of
+    V2_LABELS (random PyTorch-default weights from the seed), no style
+    encoder; the fixture's statistics, and requests of the three clips, each
+    with a label and the style BVH as first pose."""
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.io import checkpoint, weights
+    from zeggs_tpu_torch.models.decoder import Decoder
+
+    data, models = V2 / "processed", V2 / "models"
+    for d in (data, models):
+        d.mkdir(parents=True)
+    definition = json.loads((WORK / "processed" / "data_definition.json").read_text())
+    (data / "data_definition.json").write_text(json.dumps({**definition,
+                                                           "label_names": V2_LABELS}))
+    shutil.copy(ROOT / "configs" / "data_pipeline_conf_v2.json", data / "data_pipeline_conf.json")
+    shutil.copy(WORK / "processed" / "stats.npz", data / "stats.npz")
+    shutil.copy(WORK / "models" / "speech_encoder.npz", models / "speech_encoder.npz")
+    v2 = json.loads((ROOT / "configs" / "configs_v2.json").read_text())
+    net = Options.from_options_dict(v2).net
+    with np.load(data / "stats.npz") as stats:
+        pose_in, pose_out = stats["anim_input_mean"].size, stats["anim_output_mean"].size
+    torch.manual_seed(SEED + 2)
+    dec = Decoder(pose_in, pose_out, net.speech_encoder.speech_encoding_size, len(V2_LABELS),
+                  net.decoder.nhidden, net.decoder.num_rnn_layers, net.decoder.rnn_cond)
+    checkpoint.save(models / "decoder.npz", weights.to_jax(dec))
+    v2["paths"] = {"base_path": str(V2), "path_processed_data": "processed",
+                   "output_dir": str(V2), "models_dir": str(models)}
+    (V2 / "options.json").write_text(json.dumps(v2, indent=2))
+    with open(V2 / "requests.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["base_path", "audio", "style", "file_name", "temperature", "seed",
+                    "use_gpu", "frames", "first_pose", "generate"])
+        for i, (clip, label) in enumerate(zip(CLIPS, V2_STYLES)):
+            w.writerow([str(WORK), f"{clip}.wav", label, clip, "1.0", str(SEED + i), "TRUE", "",
+                        "style.bvh", "TRUE"])
+
+
+def v2_labels(torch, card, results):
+    """Phase v2_labels, inference: the v2 model through the generate CLI
+    (CSV at bf16 weights, `-b`, `--int8`; `-se label`), the 4 s request on
+    the card against the CPU, a 10 s streaming session with a label style
+    and one /synthesize with `style_label` on the daemon (an unknown label
+    is refused with 400)."""
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+    from zeggs_tpu_torch.io import bvh
+    from zeggs_tpu_torch.serve import GestureServer
+
+    write_v2_fixture(torch)
+    n, flags, out = len(CLIPS), ["-se", "label"], results / "v2"
+    counts = {
+        "csv": run_cli_path(torch, out / "csv", "v2 labels (CSV, bf16)", flags,
+                            {"decoder_rollout": n, "mel_spectrogram": n}, V2),
+        "batched": run_cli_path(torch, out / "batched", "v2 labels (-b, bf16)", ["-b", *flags],
+                                {"decoder_rollout": 1, "gru_cell": 1023, "mel_spectrogram": n}, V2),
+        "int8": run_cli_path(torch, out / "int8", "v2 labels (--int8)", ["--int8", *flags],
+                             {"decoder_rollout": n, "mel_spectrogram": n}, V2),
+    }
+    opts = Options.from_options_json(V2 / "options.json")
+
+    def pipeline(device, **kw):
+        return GesturePipeline(V2 / "models", V2 / "processed", options=opts,
+                               style_encoding_type="label", device=device, **kw)
+
+    # the 4 s request on the card (fp32 rollout weights: bounded; bf16:
+    # reported) against the CPU; labels draw nothing
+    maes = {}
+    for tag, device, weights in (("cpu", "cpu", None), ("float32", "cuda", "float32"),
+                                 ("bfloat16", "cuda", "bfloat16")):
+        pipe = pipeline(device, rollout_weights=weights)
+        reset_counts()
+        generate_gesture(WORK / "clip_04s.wav", [V2_STYLES[0]], None, None, out / "card_vs_cpu",
+                         style_encoding_type="label", first_pose=WORK / "style.bvh",
+                         file_name=tag, seed=SEED, pipeline=pipe)
+        counts[f"card_vs_cpu_{tag}"] = read_counts()
+        if tag != "cpu":
+            maes[tag] = float(bvh_mae(torch, out / "card_vs_cpu" / "cpu.bvh",
+                                      out / "card_vs_cpu" / f"{tag}.bvh"))
+    print(f"v2 labels: 4 s request ({V2_STYLES[0]}, first pose) on the card against the CPU: BVH "
+          f"MAE {maes['float32']:.3e} at fp32 rollout weights (tol {CARD_VS_CPU_MAE:g}), "
+          f"{maes['bfloat16']:.3e} at bf16 (reported); launches {counts['card_vs_cpu_float32']}")
+    if not maes["float32"] < CARD_VS_CPU_MAE or any(counts["card_vs_cpu_cpu"].values()):
+        fail(f"v2 labels: card against CPU MAE {maes}, launches {counts}")
+
+    pipe = pipeline("cuda")
+    reset_counts()
+    sess, times = run_session(torch, pipe, read_wav("clip_10s"), styles=[V2_STYLES[1]],
+                              first_pose=WORK / "style.bvh")
+    counts["streaming"] = read_counts()
+    path = sess.write_bvh(out, "stream")
+    finite = bool(np.isfinite(bvh.load(path)["rotations"]).all())
+    print(f"v2 labels: streaming session ({V2_STYLES[1]}), 10 s clip in 0.5 s pushes, quantum 16: "
+          f"{sess.frames_emitted} frames, {sess.decoder_steps} decoder steps, launches "
+          f"{counts['streaming']}, finite {finite}; time to first frame "
+          f"{times['ttff_s'] * 1e3:.1f} ms, push p50 {times['push_p50_s'] * 1e3:.1f} ms, realtime "
+          f"factor {times['rtf']:.2f}, {card}")
+    c = counts["streaming"]
+    if not (sess.frames_emitted == round(60 * CLIPS["clip_10s"]) and finite
+            and c["gru_cell"] == sess.decoder_steps and c["decoder_rollout"] == 0
+            and c["mel_spectrogram"] > 0):
+        fail(f"v2 labels streaming: {sess.frames_emitted} frames, launches {c}")
+
+    srv = GestureServer(pipe, max_batch=8, max_wait_ms=50)
+    port = srv.start()
+    try:
+        payload = {"audio_wav_b64": base64.b64encode((WORK / "clip_04s.wav").read_bytes()).decode(),
+                   "first_pose_bvh_b64": base64.b64encode((WORK / "style.bvh").read_bytes()).decode(),
+                   "seed": SEED}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/synthesize",
+            data=json.dumps({**payload, "style_label": "NoSuchStyle"}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=600)
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        reset_counts()
+        t0 = time.perf_counter()
+        reply = post(port, "/synthesize", {**payload, "style_label": V2_STYLES[2]})
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        counts["serve"] = read_counts()
+    finally:
+        srv.stop()
+    (out / "serve.bvh").write_text(reply["bvh"])
+    anim = bvh.load(out / "serve.bvh")
+    frames = anim["rotations"].shape[0]
+    print(f"v2 labels: daemon /synthesize with style_label {V2_STYLES[2]!r}: {frames} frames, "
+          f"batch size {reply['batch_size']}, launches {counts['serve']}, {serve_ms:.1f} ms "
+          f"(client); an unknown label: HTTP {refused}, {card}")
+    if not (refused == 400 and frames == round(60 * CLIPS["clip_04s"])
+            and np.isfinite(anim["rotations"]).all()
+            and counts["serve"] == {"decoder_rollout": 1, "gru_cell": 0, "mel_spectrogram": 1}):
+        fail(f"v2 labels daemon: refused {refused}, {frames} frames, launches {counts['serve']}")
+    return dict(launches=counts, card_vs_cpu_mae=maes, stream=times, serve_ms=serve_ms)
+
+
+def v2_training(torch, card, train_root):
+    """Phase v2_labels, training: the training corpus through `cli.pipeline`
+    under data_pipeline_conf_v2.json (info_Short.csv, processed_v2), then
+    `cli.train` with the v2 options for V2_TRAIN_STEPS steps at B=32, window
+    256: a checkpoint and sample synthesis with one-hot styles at iteration
+    0 (one GRU-cell launch a decoder step)."""
+    from zeggs_tpu_torch.cli import pipeline as cli_pipeline
+    from zeggs_tpu_torch.cli import train as cli_train
+    from zeggs_tpu_torch.io import bvh, checkpoint
+
+    shutil.copy(train_root / "info.csv", train_root / "info_Short.csv")
+    conf = json.loads((ROOT / "configs" / "data_pipeline_conf_v2.json").read_text())
+    conf.update(base_path=str(train_root), save_trimmed_audio=False,
+                save_trimmed_animation=False)
+    (train_root / "pipeline_v2.json").write_text(json.dumps(conf, indent=2))
+    reset_counts()
+    t0 = time.perf_counter()
+    cli_pipeline.main(["-c", str(train_root / "pipeline_v2.json"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    pipe_s, pipe_counts = time.perf_counter() - t0, read_counts()
+    processed = train_root / conf["processed_data_path"]
+    labels = json.loads((processed / "data_definition.json").read_text())["label_names"]
+    print(f"v2 pipeline ({conf['info_filename']} -> {conf['processed_data_path']}): labels "
+          f"{labels}, launches {pipe_counts}, {pipe_s:.3f} s wall, {card}")
+    if len(labels) < 3 or pipe_counts != {"decoder_rollout": 0, "gru_cell": 0,
+                                          "mel_spectrogram": TRAIN_CLIPS * 2}:
+        fail(f"v2 pipeline: labels {labels}, launches {pipe_counts}")
+
+    v2 = json.loads((ROOT / "configs" / "configs_v2.json").read_text())
+    v2["paths"] = {"base_path": str(train_root), "path_processed_data": conf["processed_data_path"],
+                   "output_dir": str(train_root / "v2_run"), "models_dir": None}
+    v2["train_opt"].update(generate_samples_step=1000, use_tensorboard=False)
+    (train_root / "options_v2.json").write_text(json.dumps(v2, indent=2))
+    base = cli_train.Trainer
+    cli_train.Trainer = Short = short_trainer(torch, base)
+    try:
+        trainer = cli_train.main(["-o", str(train_root / "options_v2.json"), "--device", "cuda",
+                                  "--max-iterations", str(V2_TRAIN_STEPS)])
+    finally:
+        cli_train.Trainer = base
+    rec = Short.record
+    _, _, meta = checkpoint.load_train_state(train_root / "v2_run" / "saved_models")
+    saved = sorted(p.stem for p in (train_root / "v2_run" / "saved_models").glob("*.npz"))
+    style_in = trainer.nets["decoder"].cell_state_encoder.l0.in_features - trainer.ds.get_shapes()[
+        "pose_input_size"]
+    samples = sorted((train_root / "v2_run" / "logs" / "samples").glob("*.bvh"))
+    finite = all(np.isfinite(bvh.load(f)["rotations"]).all() for f in samples)
+    synth = rec["synthesis"] or {}
+    print(f"v2 train: {V2_TRAIN_STEPS} steps at v1 width, label styles ({len(labels)} labels, "
+          f"the decoder's style input {style_in} wide, no style encoder), B="
+          f"{trainer.opts.train.batchsize}, window {trainer.opts.train.window}: losses "
+          f"{[round(x, 4) for x in rec['losses']]}; checkpoint {saved} at step {meta['step']}; "
+          f"sample synthesis {synth.get('steps')} decoder steps, {synth.get('gru_cell')} GRU-cell "
+          f"launches, {len(samples)} BVHs finite {finite}; time step "
+          f"{', '.join(f'{m:.1f}' for m in rec['steps_ms'])} ms, {card}")
+    if not (trainer.iteration == V2_TRAIN_STEPS and all(rec["finite"])
+            and len(rec["steps_ms"]) == V2_TRAIN_STEPS and style_in == len(labels)
+            and "style_encoder" not in trainer.nets and meta["step"] == V2_TRAIN_STEPS
+            and saved == ["decoder", "opt_state", "speech_encoder"] and samples and finite
+            and synth.get("steps") and synth["gru_cell"] == synth["steps"]):
+        fail(f"v2 train: {rec}, saved {saved}, style input {style_in}")
+    return dict(labels=labels, pipeline_mel=pipe_counts["mel_spectrogram"], pipeline_s=pipe_s,
+                losses=rec["losses"], steps_ms=rec["steps_ms"], synthesis=synth)
+
+
+def corpus_batch(torch, opts, processed, device, rows=None, frames=None):
+    """A batch of the training corpus at the options' window (the first
+    ``rows`` rows and ``frames`` frames), the examples at their longest."""
+    from zeggs_tpu_torch.data.dataset import WindowedDataset
+
+    ds = WindowedDataset(processed / "data_definition.json", processed / "processed_data.npz",
+                         opts.train.window, example_length=opts.net.style_encoder.example_length)
+    idx = np.random.default_rng(SEED).permutation(len(ds))[: rows or opts.train.batchsize]
+    batch = ds.make_batch(idx, example_window_length=ds.max_example_length)
+    if frames is not None:
+        batch = {k: v[:, :frames] if k not in ("example", "example_lengths") else v
+                 for k, v in batch.items()}
+    return ds, {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def step_gradients(torch, opts, ds, batch, device, deterministic):
+    """(loss, {parameter: gradient}, generator state) of one step of the
+    training loss from the seed's initial networks on ``device``."""
+    from zeggs_tpu_torch.train import loop
+
+    nets = loop.init_networks(opts, ds.get_shapes(), ds.nlabels, SEED, device)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    loss, _ = loop.make_loss_fn(opts, ds.stats, ds.parents, ds.dt, deterministic)(
+        nets, batch, 7500, generator)
+    loss.backward()
+    grads = {k: p.grad.detach() for k, p in loop.named_parameters(nets).items()}
+    return loss.item(), grads, generator.get_state()
+
+
+def scaled_error(grads, ref):
+    """(worst per-leaf max|diff| / max(1, max|ref|), its leaf)."""
+    return max(((grads[k].cpu() - g.cpu()).abs().max().item()
+                / max(1.0, g.abs().max().item()), k) for k, g in ref.items())
+
+
+def option_gradients(torch, train_root):
+    """remat and bfloat16 steps on the card: remat's gradients against the
+    step without it (v1 width, B=32, window 256, dropout and VAE noise from
+    one seeded generator, whose state must end the same); a bfloat16 step
+    against the float32 step (whole batch and window) and, over one decoder
+    step, against the CPU's bfloat16 step."""
+    from zeggs_tpu_torch.config import Options
+
+    opts = Options.from_options_json(train_root / "options.json")
+    processed = train_root / "processed"
+
+    def with_train(**kw):
+        return dataclasses.replace(opts, train=dataclasses.replace(opts.train, **kw))
+
+    ds, batch = corpus_batch(torch, opts, processed, "cuda")
+    loss, grads, state = step_gradients(torch, opts, ds, batch, "cuda", False)
+    loss_r, grads_r, state_r = step_gradients(torch, with_train(remat=True), ds, batch, "cuda",
+                                              False)
+    excess = max(((grads_r[k] - g).abs() - (REMAT_ATOL + REMAT_RTOL * g.abs())).max().item()
+                 for k, g in grads.items())
+    remat = dict(loss=loss, loss_remat=loss_r, worst_excess=excess,
+                 worst_scaled=scaled_error(grads_r, grads)[0],
+                 generator_state_equal=bool(torch.equal(state, state_r)))
+    print(f"train option remat: one step (B={opts.train.batchsize}, window {opts.train.window}) "
+          f"against no remat on the card: loss {loss_r:.6f} / {loss:.6f}, worst element excess "
+          f"over atol {REMAT_ATOL:g} + rtol {REMAT_RTOL:g} * |g|: {excess:.3e} (must be <= 0), "
+          f"worst max|diff| / max(1, max|g|) {remat['worst_scaled']:.3e}; generator state equal "
+          f"{remat['generator_state_equal']}")
+    if not (excess <= 0 and remat["generator_state_equal"]
+            and abs(loss_r - loss) <= REMAT_RTOL * abs(loss)):
+        fail(f"remat gradients differ from the step without it: {remat}")
+
+    bf16 = with_train(compute_dtype="bfloat16")
+    one = {}
+    for tag, o, device in (("card_bf16", bf16, "cuda"), ("cpu_bf16", bf16, "cpu"),
+                           ("card_f32", opts, "cuda")):
+        ds, b = corpus_batch(torch, o, processed, device, rows=BF16_BATCH, frames=2)
+        one[tag] = step_gradients(torch, o, ds, b, device, True)
+    err, leaf = scaled_error(one["card_bf16"][1], one["cpu_bf16"][1])
+    vs_f32 = scaled_error(one["card_bf16"][1], one["card_f32"][1])
+    loss_err = abs(one["card_bf16"][0] - one["cpu_bf16"][0]) / abs(one["cpu_bf16"][0])
+    full = step_gradients(torch, bf16, *corpus_batch(torch, bf16, processed, "cuda"), "cuda", True)
+    full_f32 = step_gradients(torch, opts, *corpus_batch(torch, opts, processed, "cuda"), "cuda",
+                              True)
+    report = dict(card_vs_cpu=err, leaf=leaf, loss_rel_err=loss_err, vs_f32=vs_f32[0],
+                  full_vs_f32=scaled_error(full[1], full_f32[1])[0],
+                  losses=dict(bf16=one["card_bf16"][0], f32=one["card_f32"][0]))
+    print(f"train option bfloat16: a whole step (B={opts.train.batchsize}, window "
+          f"{opts.train.window}) against the float32 step on the card: gradients "
+          f"{report['full_vs_f32']:.3e} of max(1, max|g|) (tol {BF16_GRAD_TOL:g}), losses "
+          f"{full[0]:.6f} / {full_f32[0]:.6f}; one decoder step ({BF16_BATCH} rows, 2 frames), "
+          f"the card against the CPU, both bfloat16: loss relative error {loss_err:.3e} (tol "
+          f"{BF16_LOSS_RTOL:g}), gradients {err:.3e} at {leaf} (tol {BF16_GRAD_TOL:g}); against "
+          f"float32 on the card (reported) {vs_f32[0]:.3e} at {vs_f32[1]}")
+    if not (err <= BF16_GRAD_TOL and loss_err <= BF16_LOSS_RTOL
+            and report["full_vs_f32"] <= BF16_GRAD_TOL and full[0] != full_f32[0]
+            and one["card_bf16"][0] != one["card_f32"][0]):
+        fail(f"bfloat16 step on the card: {report}")
+    return dict(remat=remat, bfloat16=report)
+
+
+def train_options(torch, card, train_root):
+    """Phase train_options: `cli.train` at v1 width, B=32, for OPTION_STEPS
+    steps under each of TRAIN_OPTIONS (finite losses; the option in effect;
+    sample synthesis at iteration 0, one GRU-cell launch a decoder step but
+    none for FiLM, whose rollout is eager), then `option_gradients`."""
+    from zeggs_tpu_torch.cli import train as cli_train
+
+    v1 = json.loads((train_root / "options.json").read_text())
+    base, report = cli_train.Trainer, {}
+    try:
+        for name, (train_opt, net_opt, flags) in TRAIN_OPTIONS.items():
+            o = json.loads(json.dumps(v1))
+            o["train_opt"].update(train_opt)
+            for block, values in net_opt.items():
+                o["net_opt"][block].update(values)
+            o["paths"]["output_dir"] = str(train_root / f"option_{name}")
+            path = train_root / f"option_{name}.json"
+            path.write_text(json.dumps(o, indent=2))
+            cli_train.Trainer = Short = short_trainer(torch, base)
+            t0 = time.perf_counter()
+            trainer = cli_train.main(["-o", str(path), "--device", "cuda", "--max-iterations",
+                                      str(OPTION_STEPS), *flags])
+            wall = time.perf_counter() - t0
+            rec, synth = Short.record, Short.record["synthesis"] or {}
+            t, net = trainer.opts.train, trainer.opts.net
+            in_effect = {"none": True, "bfloat16": t.compute_dtype == "bfloat16",
+                         "remat": t.remat,
+                         "gru_style_body": net.style_encoder.type == "gru",
+                         "film": trainer.nets["decoder"].rnn_cond == "film",
+                         "host_batches": trainer.device_corpus is None}[name]
+            film = name == "film"
+            print(f"time train option {name}: {OPTION_STEPS} steps at v1 width, B={t.batchsize}, "
+                  f"window {t.window}: {', '.join(f'{m:.1f}' for m in rec['steps_ms'])} ms "
+                  f"(the first includes warm-up), losses {[round(x, 4) for x in rec['losses']]}, "
+                  f"all finite {all(rec['finite'])}; sample synthesis {synth.get('steps')} decoder "
+                  f"steps, {synth.get('gru_cell')} GRU-cell launches; run {wall:.1f} s with "
+                  f"set-up, {card}")
+            if not (in_effect and trainer.iteration == OPTION_STEPS and all(rec["finite"])
+                    and len(rec["steps_ms"]) == OPTION_STEPS and synth.get("steps")
+                    and synth["gru_cell"] == (0 if film else synth["steps"])):
+                fail(f"train option {name}: in effect {in_effect}, {rec}")
+            report[name] = dict(steps_ms=rec["steps_ms"], losses=rec["losses"], synthesis=synth,
+                                wall_s=wall)
+    finally:
+        cli_train.Trainer = base
+    report["gradients"] = option_gradients(torch, train_root)
+    return report
+
+
+def eval_bounds(ds, card, cpu):
+    """Per validation clip, from the two evaluations' rollouts: (largest lpos
+    difference d after the warm-in, the jerk-ratio bound 8 * 60^3 * sqrt(3)
+    * d over the ground truth's mean jerk, the variance-ratio bound: the
+    largest (2 std d + d^2) of a moving joint over its ground-truth
+    variance); the derivation of tests/test_torch_quality.py."""
+    fps, out = 1.0 / ds.dt, []
+    for ri, ((_, p), (_, q)) in enumerate(zip(card, cpu, strict=True)):
+        g = ds.get_sample("valid", range_index=ri)[0]["lpos"][0]
+        warm = min(int(round(0.5 * fps)), max(0, len(p) - 5))
+        p, q, g = p[warm:], q[warm:], g[warm:]
+        diff = np.abs(p - q)
+        g_jerk = np.linalg.norm(np.diff(g, n=3, axis=0) * fps**3, axis=-1).mean()
+        std, d_j = np.maximum(p.std(axis=0), q.std(axis=0)), diff.max(axis=0)
+        g_var = g.var(axis=0).mean(-1)
+        moving = g_var > 1e-6
+        out.append((float(diff.max()), float(8 * fps**3 * np.sqrt(3) * diff.max() / g_jerk),
+                    float(((2 * std * d_j + d_j**2).mean(-1)[moving] / g_var[moving]).max())))
+    return out
+
+
+def reports_agree(a, b, bounds):
+    """The failed comparisons of two evaluation reports (empty: they agree)."""
+    bad = []
+
+    def close(x, y, quantum, key):
+        if not abs(x - y) <= quantum + EVAL_RTOL * abs(y):
+            bad.append((key, x, y))
+
+    for i, (ca, cb, (_, jerk, var)) in enumerate(zip(a["clips"], b["clips"], bounds, strict=True)):
+        bad += [(k, ca[k], cb[k]) for k in ("label", "frames", "warmin_frames_skipped")
+                if ca[k] != cb[k]]
+        for k in ("lpos_mae", "root_pos_mae"):
+            close(ca[k], cb[k], 1e-5, f"clip {i} {k}")
+        close(ca["vel_ratio"], cb["vel_ratio"], 1e-4, f"clip {i} vel_ratio")
+        if not abs(ca["jerk_ratio"] - cb["jerk_ratio"]) <= jerk + 1e-4:
+            bad.append((f"clip {i} jerk_ratio", ca["jerk_ratio"], cb["jerk_ratio"]))
+        if not abs(ca["motion_var_ratio_median"] - cb["motion_var_ratio_median"]) <= var + 1e-4:
+            bad.append((f"clip {i} motion_var_ratio_median", ca["motion_var_ratio_median"],
+                        cb["motion_var_ratio_median"]))
+    bad += [(k, a[k], b[k]) for k in ("n_valid_clips", "total_frames") if a[k] != b[k]]
+    close(a["lpos_mae_mean"], b["lpos_mae_mean"], 2e-5, "lpos_mae_mean")
+    close(a["vel_ratio_mean"], b["vel_ratio_mean"], 2e-4, "vel_ratio_mean")
+    if not abs(a["jerk_ratio_mean"] - b["jerk_ratio_mean"]) <= np.mean(
+            [x[1] for x in bounds]) + 2e-4:
+        bad.append(("jerk_ratio_mean", a["jerk_ratio_mean"], b["jerk_ratio_mean"]))
+    if not abs(a["motion_var_ratio_median"] - b["motion_var_ratio_median"]) <= max(
+            x[2] for x in bounds) + 2e-4:
+        bad.append(("motion_var_ratio_median", a["motion_var_ratio_median"],
+                    b["motion_var_ratio_median"]))
+    return bad
+
+
+def quality(torch, card, train_root):
+    """Phase quality: `cli.eval_checkpoint.evaluate` on the training phase's
+    checkpoint (iteration TRAIN_STEPS) on the card and on the CPU: the
+    reports agree, the gate verdicts are equal (not their value: 6 steps do
+    not train a model), and the card launches the GRU cell once a decoder
+    step of the validation rollouts; the v2 run's checkpoint is refused
+    (label styles, no style encoder)."""
+    from zeggs_tpu_torch.cli import eval_checkpoint as E
+    from zeggs_tpu_torch.data.dataset import WindowedDataset
+    from zeggs_tpu_torch.models import decoder as D
+
+    def run_root(name, processed, models):
+        root = WORK / name
+        root.mkdir()
+        (root / "processed").symlink_to(processed)
+        (root / "models").symlink_to(models)
+        return root
+
+    root = run_root("eval", train_root / "processed", train_root / "run" / "saved_models")
+    rollouts, reports, seconds, counts = {}, {}, {}, {}
+    original = D.rollout
+
+    def recording(*args, **kw):
+        out = original(*args, **kw)
+        rollouts[device].append(tuple(o[0].float().cpu().numpy() for o in out))
+        return out
+
+    D.rollout = recording
+    try:
+        for device in ("cuda", "cpu"):
+            rollouts[device] = []
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reports[device] = E.evaluate(root, TRAIN_STEPS, device=device)
+            torch.cuda.synchronize()
+            seconds[device], counts[device] = time.perf_counter() - t0, read_counts()
+    finally:
+        D.rollout = original
+    a, b = reports["cuda"], reports["cpu"]
+    ds = WindowedDataset(root / "processed" / "data_definition.json",
+                         root / "processed" / "processed_data.npz", 256)
+    bounds = eval_bounds(ds, rollouts["cuda"], rollouts["cpu"])
+    bad = reports_agree(a, b, bounds)
+    steps = sum(len(r[0]) - 1 for r in rollouts["cuda"])
+    gates = (E.gate(a), E.gate(b))
+    keys = ("lpos_mae_mean", "vel_ratio_mean", "jerk_ratio_mean", "motion_var_ratio_median")
+    print(f"quality: eval_checkpoint at iteration {TRAIN_STEPS}, {a['n_valid_clips']} validation "
+          f"clips, {a['total_frames']} frames; card {[a[k] for k in keys]}, CPU "
+          f"{[b[k] for k in keys]} ({', '.join(keys)}); largest lpos difference "
+          f"{max(x[0] for x in bounds):.3e}, derived bounds jerk {[round(x[1], 5) for x in bounds]}, "
+          f"variance {[x[2] for x in bounds]}; gate {gates}; launches {counts['cuda']} for {steps} "
+          f"decoder steps (CPU {counts['cpu']})")
+    print(f"time quality: evaluate on the card {seconds['cuda']:.3f} s, on the CPU "
+          f"{seconds['cpu']:.3f} s, {card}")
+    if bad or gates[0] != gates[1]:
+        fail(f"quality: the card's report differs from the CPU's: {bad}, gates {gates}")
+    if counts["cuda"] != {"decoder_rollout": 0, "gru_cell": steps, "mel_spectrogram": 0} or any(
+            counts["cpu"].values()):
+        fail(f"quality: launches {counts} for {steps} decoder steps")
+    label_root = run_root("eval_v2", train_root / "processed_v2",
+                          train_root / "v2_run" / "saved_models")
+    try:
+        E.evaluate(label_root, V2_TRAIN_STEPS, device="cuda")
+        fail("quality: the label-style checkpoint was evaluated")
+    except ValueError as e:
+        print(f"quality: the v2 (label-style) checkpoint is refused: {e}")
+    return dict(report={k: a[k] for k in keys}, report_cpu={k: b[k] for k in keys},
+                gate=gates[0], launches=counts["cuda"], decoder_steps=steps,
+                max_lpos_diff=max(x[0] for x in bounds), seconds=seconds)
+
+
 def main():
     import torch
 
@@ -1567,8 +2107,14 @@ def main():
     grad_err = grad_card_vs_cpu(torch)
     trained = train_phase(torch, card)
     ddp = ddp_phase(torch, card, WORK / "train")
+    v2 = v2_labels(torch, card, results)
+    v2.update(training=v2_training(torch, card, WORK / "train"))
+    options = train_options(torch, card, WORK / "train")
+    judged = quality(torch, card, WORK / "train")
     if "jax" in sys.modules:
         fail("jax was imported")
+
+    v2l = v2["launches"]
 
     def decoder_entry(weights, launches):
         r = report[weights]
@@ -1594,19 +2140,32 @@ def main():
     print(json.dumps({"train": {**trained, "grad_card_vs_cpu": grad_err, "card": card}}))
     print(json.dumps({"reference_checkpoints": reference, "griffin_lim": gl, "ddp": ddp,
                       "card": card}))
+    print(json.dumps({"v2_labels": v2, "train_options": options, "quality": judged,
+                      "card": card}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
-        decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
+        {**decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
+         "launches_v2_card_vs_cpu": v2l["card_vs_cpu_float32"]["decoder_rollout"]},
         {**decoder_entry("bfloat16", csv_counts["decoder_rollout"]),
-         "launches_reference_checkpoints": reference["launches"]["decoder_rollout"]},
-        decoder_entry("int8", int8_counts["decoder_rollout"]),
+         "launches_reference_checkpoints": reference["launches"]["decoder_rollout"],
+         "launches_v2_csv": v2l["csv"]["decoder_rollout"],
+         "launches_v2_batched": v2l["batched"]["decoder_rollout"],
+         "launches_v2_serve": v2l["serve"]["decoder_rollout"]},
+        {**decoder_entry("int8", int8_counts["decoder_rollout"]),
+         "launches_v2_int8": v2l["int8"]["decoder_rollout"]},
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
          "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
          "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"], "tol": GRU_TOL,
          **{k: gru[64][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "batch": 64, "by_batch": {str(B): gru[B] for B in GRU_TIMED},
          "launches_sample_synthesis": trained["synthesis_gru"],
-         "launches_ddp_sample_synthesis": ddp["device_corpus"]["synthesis"]["gru_cell"]},
+         "launches_ddp_sample_synthesis": ddp["device_corpus"]["synthesis"]["gru_cell"],
+         "launches_v2_batched": v2l["batched"]["gru_cell"],
+         "launches_v2_streaming": v2l["streaming"]["gru_cell"],
+         "launches_v2_sample_synthesis": v2["training"]["synthesis"]["gru_cell"],
+         "launches_train_options_sample_synthesis": {
+             k: v["synthesis"]["gru_cell"] for k, v in options.items() if "synthesis" in v},
+         "launches_eval": judged["launches"]["gru_cell"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
@@ -1619,7 +2178,12 @@ def main():
          "n_fft_8192": {k: v for k, v in mel.items() if str(k).startswith("n_fft_8192")},
          "launches_pipeline": trained["pipeline_mel"],
          "launches_reference_checkpoints": reference["launches"]["mel_spectrogram"],
-         "launches_griffin_lim_input": gl["launches"]["mel_spectrogram"]},
+         "launches_griffin_lim_input": gl["launches"]["mel_spectrogram"],
+         "launches_v2_csv": v2l["csv"]["mel_spectrogram"],
+         "launches_v2_streaming": v2l["streaming"]["mel_spectrogram"],
+         "launches_v2_serve": v2l["serve"]["mel_spectrogram"],
+         "launches_v2_pipeline": v2["training"]["pipeline_mel"],
+         "launches_eval": judged["launches"]["mel_spectrogram"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -336,12 +336,10 @@ def test_gru_cell_raises_under_autograd_on_the_card(device):
     assert GC.launches == before
 
 
-@pytest.mark.parametrize("rnn_cond", ["normal", "film"])
-def test_train_step_gradients_match_the_cpu(device, rnn_cond):
-    """One deterministic small-width step on the card against the CPU, and
-    no kernel launch inside it."""
+def _train_case(rnn_cond="normal", compute_dtype="float32", remat=False):
+    """Small-width options, statistics and a random batch (B=3, 24 frames,
+    8 joints) of a training step."""
     from zeggs_tpu_torch.config import Options
-    from zeggs_tpu_torch.train import loop
 
     rng = np.random.default_rng(7)
     J, B, T, L = 8, 3, 24, 40
@@ -350,7 +348,8 @@ def test_train_step_gradients_match_the_cpu(device, rnn_cond):
     opts = Options.from_options_dict({"net_opt": {
         "decoder": {"nhidden": 64, "rnn_cond": rnn_cond},
         "speech_encoder": {"nhidden": 16, "speech_encoding_size": 16},
-        "style_encoder": {"nhidden": 24, "style_encoding_size": 8}}})
+        "style_encoder": {"nhidden": 24, "style_encoding_size": 8}},
+        "train_opt": {"compute_dtype": compute_dtype, "remat": remat}})
     stats = dict(audio_input_mean=rng.normal(size=81) * 0.1, audio_input_std=np.float32(1.5),
                  anim_input_mean=rng.normal(size=pose_in) * 0.1,
                  anim_input_std=rng.uniform(0.5, 2.0, pose_in),
@@ -366,24 +365,75 @@ def test_train_step_gradients_match_the_cpu(device, rnn_cond):
                  gaze_pos=np.repeat(rng.normal(size=(B, 1, 3)) * 100, T, axis=1),
                  example=rng.normal(size=(B, L, pose_in)))
     dims = dict(num_audio_features=81, pose_input_size=pose_in, pose_output_size=pose_out)
+    return opts, stats, parents, batch, dims, [L, 33, 20]
+
+
+def _step(opts, stats, parents, batch, dims, lengths, dev, generator=None, frames=None):
+    """(loss, {parameter: gradient on the CPU}) of one step from seed 5's
+    networks on ``dev``; deterministic without a generator."""
+    from zeggs_tpu_torch.train import loop
+
+    nets = loop.init_networks(opts, dims, 3, 5, dev)
+    b = {k: torch.as_tensor(np.asarray(v, np.float32)[:, :frames] if k != "example"
+                            else np.asarray(v, np.float32), device=dev)
+         for k, v in batch.items()}
+    b["example_lengths"] = torch.tensor(lengths, device=dev)
+    loss, _ = loop.make_loss_fn(opts, stats, parents, DT, deterministic=generator is None)(
+        nets, b, 7500, generator)
+    loss.backward()
+    return loss.item(), {k: p.grad.cpu() for k, p in loop.named_parameters(nets).items()}
+
+
+@pytest.mark.parametrize("rnn_cond", ["normal", "film"])
+def test_train_step_gradients_match_the_cpu(device, rnn_cond):
+    """One deterministic small-width step on the card against the CPU, and
+    no kernel launch inside it."""
+    case = _train_case(rnn_cond)
     grads = {}
     for dev in ("cpu", device):
-        nets = loop.init_networks(opts, dims, 3, 5, dev)
-        b = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in batch.items()}
-        b["example_lengths"] = torch.tensor([L, 33, 20], device=dev)
         counts = (GC.launches, MK.launches, DR.launches)
-        loss, _ = loop.make_loss_fn(opts, stats, parents, DT, deterministic=True)(nets, b, 7500)
-        loss.backward()
+        grads[str(dev)] = _step(*case, dev)[1]
         assert (GC.launches, MK.launches, DR.launches) == counts
-        grads[str(dev)] = {k: p.grad.cpu() for k, p in loop.named_parameters(nets).items()}
     for k, g in grads["cpu"].items():
         assert (grads["cuda"][k] - g).abs().max().item() <= 1e-4 * max(1.0, g.abs().max().item()), k
+
+
+def test_remat_step_equals_the_step_without_it_on_the_card(device):
+    """With dropout and VAE noise from one seeded generator: the same loss
+    and gradients (rtol 1e-5, atol 1e-6), and the generator's state after
+    the backward pass equal (the rematerialised steps draw nothing)."""
+    results = []
+    for remat in (False, True):
+        generator = torch.Generator(device=device).manual_seed(11)
+        loss, grads = _step(*_train_case(remat=remat), device, generator=generator)
+        results.append((loss, grads, generator.get_state()))
+    (loss, grads, state), (loss_r, grads_r, state_r) = results
+    assert torch.equal(state, state_r)
+    assert loss_r == pytest.approx(loss, rel=1e-6)
+    for k, g in grads.items():
+        torch.testing.assert_close(grads_r[k], g, rtol=1e-5, atol=1e-6, msg=k)
+
+
+def test_bfloat16_step_on_the_card_matches_the_cpu(device):
+    """bfloat16 products over one decoder step (2 frames), the card against
+    the CPU at the bound tests/test_torch_train_grads.py holds the port's
+    bfloat16 step to against JAX's: loss rtol 1e-4, every gradient 4e-2 of
+    max(1, max|g|); and the products ran in bfloat16 (the loss differs from
+    float32's)."""
+    case = _train_case(compute_dtype="bfloat16")
+    loss, grads = _step(*case, device, frames=2)
+    loss_cpu, grads_cpu = _step(*case, "cpu", frames=2)
+    loss_f32, _ = _step(*_train_case(), device, frames=2)
+    assert loss == pytest.approx(loss_cpu, rel=1e-4) and loss != loss_f32
+    for k, g in grads_cpu.items():
+        assert (grads[k] - g).abs().max().item() <= 4e-2 * max(1.0, g.abs().max().item()), k
 
 
 @pytest.fixture(scope="module")
 def small_models(device, tmp_path_factory):
     """A small model (8 joints, decoder H=128) as .npz and as the
-    reference's .pt pickles, its data directory, a style BVH and a WAV."""
+    reference's .pt pickles, a label-style model of the same widths, their
+    data directory, a style BVH and a WAV."""
     import json
     import shutil
     from pathlib import Path
@@ -418,6 +468,11 @@ def small_models(device, tmp_path_factory):
     for n, tree in trees.items():
         checkpoint.save(root / "npz" / f"{n}.npz", tree)
     torch_compat.save_reference_networks(root / "pt", trees)
+    # a label-style model: the speech encoder and a decoder styled by the
+    # one-hot of the two labels
+    checkpoint.save(root / "label" / "speech_encoder.npz", trees["speech_encoder"])
+    checkpoint.save(root / "label" / "decoder.npz",
+                    weights.to_jax(D.Decoder(pose_in, pose_out, 16, 2, 128)))
     T = 120
     t = np.linspace(0, 2 * np.pi, T)[:, None, None]
     offsets = rng.uniform(-10, 10, (J, 3)).astype(np.float32)
@@ -445,6 +500,122 @@ def test_generation_from_reference_checkpoints_on_the_card(small_models, tmp_pat
         assert (DR.launches, MK.launches) == (before[0] + 1, before[1] + 1)
         texts[tag] = (tmp_path / f"{tag}.bvh").read_text()
     assert texts["pt"] == texts["npz"]
+
+
+def test_label_request_launches_the_decoder_once(small_models, tmp_path):
+    """A label-style B=1 request with a first pose: one decoder launch (fp32
+    weights) and one mel launch on the card, and the CPU's BVH within the
+    pose MAE budget of 1e-3."""
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+    from zeggs_tpu_torch.io import bvh
+
+    m, launched = small_models, {}
+    for tag in ("cpu", "cuda"):
+        pipe = GesturePipeline(m["root"] / "label", m["data"], options=m["opts"],
+                               style_encoding_type="label", device=tag,
+                               rollout_weights="float32")
+        before = (DR.launches, GC.launches, MK.launches)
+        generate_gesture(m["root"] / "audio.wav", ["B"], None, None, tmp_path,
+                         style_encoding_type="label", first_pose=m["root"] / "style.bvh",
+                         file_name=tag, pipeline=pipe)
+        torch.cuda.synchronize()
+        launched[tag] = tuple(n - b for n, b in zip((DR.launches, GC.launches, MK.launches),
+                                                    before))
+    assert launched == {"cpu": (0, 0, 0), "cuda": (1, 0, 1)}
+    a, b = bvh.load(tmp_path / "cpu.bvh"), bvh.load(tmp_path / "cuda.bvh")
+    assert a["rotations"].shape == b["rotations"].shape and np.isfinite(b["rotations"]).all()
+    assert np.abs(a["positions"] - b["positions"]).mean() < 1e-3
+    assert np.abs(a["rotations"] - b["rotations"]).mean() < 1e-3
+
+
+@pytest.fixture(scope="module")
+def small_run(device, tmp_path_factory):
+    """A training run's layout at small width: three 4 s clips (8 joints)
+    through the port's corpus pipeline (the last one validation) under
+    processed/, and networks from a seed (the 64-wide style embedding that
+    the evaluation's default options read) at models/0/."""
+    import csv
+    import json
+
+    from zeggs_tpu_torch import config as C
+    from zeggs_tpu_torch.data.dataset import WindowedDataset
+    from zeggs_tpu_torch.data.pipeline import data_pipeline
+    from zeggs_tpu_torch.io import bvh, checkpoint, wav, weights
+    from zeggs_tpu_torch.train import loop
+
+    root = tmp_path_factory.mktemp("small_run")
+    orig = root / "original"
+    orig.mkdir()
+    names = ["Hips", "Spine", "Spine1", "Spine2", "Neck", "Head", "Arm", "Hand"]
+    J, parents, T = len(names), [-1, 0, 1, 2, 3, 4, 3, 6], 240
+    rng = np.random.default_rng(13)
+    rows = []
+    for i in range(3):
+        name = f"{i:03d}_Clip_{i}"
+        t = np.linspace(0, 4 * np.pi, T)[:, None, None]
+        offsets = rng.uniform(-10, 10, (J, 3)).astype(np.float32)
+        offsets[0] = 0
+        positions = np.repeat(offsets[None], T, axis=0)
+        positions[:, 0, 1] += 90.0
+        bvh.save(orig / f"{name}.bvh", {
+            "rotations": (rng.uniform(5, 25, (1, J, 3)) * np.sin(t + rng.uniform(0, 6, (1, J, 3)))
+                          ).astype(np.float32),
+            "positions": positions, "offsets": offsets, "parents": np.asarray(parents, np.int32),
+            "names": names, "order": "zyx", "frametime": DT})
+        wav.write_wavefile(orig / f"{name}.wav", _speech_like(4.0, 20 + i), 16000)
+        with open(orig / f"{name}.csv", "w", newline="") as f:
+            csv.writer(f).writerows([["#", "Start", "End"], ["R1", "0:0.0", "0:4.0"]])
+        rows.append(dict(audio_filename=f"{name}.wav", audio_start_time="00:00:00:00",
+                         anim_start_time="00:00:00:00", acting_start_time="00:00:00:30",
+                         acting_end_time="00:00:03:30", style=["A", "B", "A"][i],
+                         anim_bvh=f"{name}.bvh", validation="TRUE" if i == 2 else "FALSE"))
+    with open(root / "info.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    data_pipeline(C.PipelineConfig(
+        base_path=str(root), processed_data_path="processed", info_filename="info.csv",
+        len_ratios=(1.0,), save_trimmed_audio=False, save_trimmed_animation=False), device="cpu")
+    processed = root / "processed"
+    ds = WindowedDataset(processed / "data_definition.json", processed / "processed_data.npz", 32)
+    opts = C.Options.from_options_dict({"net_opt": {
+        "decoder": {"nhidden": 64}, "speech_encoder": {"nhidden": 16, "speech_encoding_size": 16},
+        "style_encoder": {"nhidden": 24}}})
+    nets = loop.init_networks(opts, ds.get_shapes(), ds.nlabels, 3, "cpu")
+    checkpoint.save_train_state(root / "models" / "0", 0,
+                                {n: weights.to_jax(m) for n, m in nets.items()})
+    return dict(root=root, ds=ds)
+
+
+def test_evaluate_on_the_card_matches_the_cpu(small_run, monkeypatch):
+    """`cli.eval_checkpoint.evaluate` on the card against the CPU: one
+    GRU-cell launch a decoder step of the validation rollouts; the
+    tolerances of tests/test_torch_quality.py (`chip_smoke.reports_agree`:
+    rtol 1e-3 and a rounding quantum; the jerk and variance ratios within
+    the bounds derived from the two rollouts' difference); equal gate
+    verdicts."""
+    from chip_smoke import eval_bounds, reports_agree
+    from zeggs_tpu_torch.cli import eval_checkpoint as E
+
+    rollouts = {"cuda": [], "cpu": []}
+    original = D.rollout
+
+    def recording(*args, **kw):
+        out = original(*args, **kw)
+        rollouts[out[1].device.type].append(tuple(o[0].float().cpu().numpy() for o in out))
+        return out
+
+    monkeypatch.setattr(D, "rollout", recording)
+    root, ds = small_run["root"], small_run["ds"]
+    before = (DR.launches, GC.launches, MK.launches)
+    card = E.evaluate(root, 0, device="cuda")
+    torch.cuda.synchronize()
+    launched = tuple(n - b for n, b in zip((DR.launches, GC.launches, MK.launches), before))
+    cpu = E.evaluate(root, 0, device="cpu")
+    assert launched == (0, sum(len(r[1]) - 1 for r in rollouts["cuda"]), 0)
+    assert card["n_valid_clips"] == cpu["n_valid_clips"] == len(rollouts["cpu"]) == 1
+    assert reports_agree(card, cpu, eval_bounds(ds, rollouts["cuda"], rollouts["cpu"])) == []
+    assert E.gate(card) == E.gate(cpu)
 
 
 def test_griffin_lim_on_the_card_matches_the_cpu(device):

@@ -43,6 +43,34 @@ STYLE_CACHE = 128
 _STATE0 = ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy", "lvel", "lvrt")
 
 
+def build_network(name, params, opts: Options, pose_input_size, device):
+    """The network ``name`` of a checkpoint (a JAX-layout tree) at the tree's
+    widths, on ``device``, for inference: eval mode, no gradients. The
+    style encoder's body type, VAE head and embedding size come from
+    ``opts``, as the JAX package reads them."""
+    if name == "speech_encoder":
+        _, n_in, hidden = params["conv0"]["w"].shape
+        module = SpeechEncoder(n_in, hidden, params["conv1"]["w"].shape[2], device=device)
+    elif name == "style_encoder":
+        se_cfg = opts.net.style_encoder
+        _, n_in, hidden = params["body"]["conv0"]["w"].shape
+        module = StyleEncoder(n_in, hidden, se_cfg.style_encoding_size, se_cfg.use_vae,
+                              encoder_type=se_cfg.type, device=device)
+    else:
+        dec_cfg = opts.net.decoder
+        cell = params["cell"]
+        style = params["cell_state_encoder"]["l0"]["w"].shape[0] - pose_input_size
+        # layer0 takes [pose | speech | style], or [pose | speech] in the film cell
+        speech = (cell["layer0"]["w"].shape[0] - pose_input_size
+                  - (0 if "gammas" in cell else style))
+        module = Decoder(pose_input_size, cell["out"]["w"].shape[1], speech, style,
+                         cell["gru1"]["w_hh"].shape[0], dec_cfg.num_rnn_layers,
+                         dec_cfg.rnn_cond, device=device)
+    module.load_state_dict(weights.from_jax(params), strict=True)
+    # inference: autograd never records on these networks
+    return module.to(device).eval().requires_grad_(False)
+
+
 class GesturePipeline:
     """Loads networks and statistics once and serves generation requests on
     ``device``, which it never leaves."""
@@ -123,32 +151,9 @@ class GesturePipeline:
             raise FileNotFoundError(f"missing network checkpoints in {network_path}: {missing}")
         nets = {}
         for name in needed:
-            module = self._build_network(name, trees[name])
-            module.load_state_dict(weights.from_jax(trees[name]), strict=True)
-            # inference: autograd never records on a pipeline's networks
-            nets[name] = module.to(self.device).eval().requires_grad_(False)
+            nets[name] = build_network(name, trees[name], self.opts,
+                                       self.stats["anim_input_mean"].shape[-1], self.device)
         return nets
-
-    def _build_network(self, name, params):
-        """An empty module of the checkpoint's widths on the pipeline's device."""
-        dev = self.device
-        if name == "speech_encoder":
-            _, n_in, hidden = params["conv0"]["w"].shape
-            return SpeechEncoder(n_in, hidden, params["conv1"]["w"].shape[2], device=dev)
-        if name == "style_encoder":
-            se_cfg = self.opts.net.style_encoder
-            _, n_in, hidden = params["body"]["conv0"]["w"].shape
-            return StyleEncoder(n_in, hidden, se_cfg.style_encoding_size, se_cfg.use_vae,
-                                encoder_type=se_cfg.type, device=dev)
-        dec_cfg = self.opts.net.decoder
-        cell = params["cell"]
-        pose_in = self.stats["anim_input_mean"].shape[-1]
-        style = params["cell_state_encoder"]["l0"]["w"].shape[0] - pose_in
-        # layer0 takes [pose | speech | style], or [pose | speech] in the film cell
-        speech = cell["layer0"]["w"].shape[0] - pose_in - (0 if "gammas" in cell else style)
-        return Decoder(pose_in, cell["out"]["w"].shape[1], speech, style,
-                       cell["gru1"]["w_hh"].shape[0], dec_cfg.num_rnn_layers, dec_cfg.rnn_cond,
-                       device=dev)
 
     # -- features and encoders ----------------------------------------------
 
