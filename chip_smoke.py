@@ -37,7 +37,15 @@ and 12 s) under build/chip_smoke/, then:
      weights); times the first frame, the pushes and the realtime factor;
   6. serves the pipeline on 127.0.0.1: four concurrent /synthesize
      requests that must share a batch, a stream over HTTP against an
-     in-process session, and /healthz;
+     in-process session, and /healthz; then the mesh phase: a mesh of two
+     replicas on cuda:0 (`parallel.create_mesh`), each a worker thread and
+     stream of its own: the 64-clip batch with one replica and with the
+     mesh in turns (frames/s; 2 x 1023 GRU-cell launches from the workers,
+     no decoder launch, one mel launch a request from the main thread),
+     the `-b` requests at fp32 rollout weights against the unsharded run,
+     and four concurrent /synthesize to a daemon with the mesh against
+     `generate_batch` without one (BVH MAE < 1e-3 both); with several
+     cards, the 64-clip batch over every card (skipped on one card);
   7. writes the fixture's networks as the reference's whole-module .pt
      pickles: `cli.convert` must give back the .npz trees array for array,
      and `cli.generate` from a directory of only the .pt files must write
@@ -87,8 +95,8 @@ and 12 s) under build/chip_smoke/, then:
  13. prints times, each beside the card's name and power limit, a JSON
      line of launch counts, one of training results, one of the
      checkpoint, multi-process and Griffin-Lim phases' results, one of the
-     v2, training-option and quality phases' results,
-     one of the barrier floor, one of kernel results and, last,
+     v2, training-option and quality phases' results, one of the mesh
+     phase's, one of the barrier floor, one of kernel results and, last,
      {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
@@ -977,6 +985,258 @@ def serve(torch, card):
         return {"synthesize": synth_counts, "stream": stream_counts}
     finally:
         srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# mesh
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def launch_sites(torch):
+    """Tally each kernel's launches by (kernel, current card, "block" for a
+    thread that runs a mesh's block, else "caller") while the block runs,
+    through the wrappers' counters; the counts themselves are left as they
+    are."""
+    from zeggs_tpu_torch.infer.batch import SHARD_THREADS
+    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+    from zeggs_tpu_torch.ops.kernels import mel as MK
+
+    sites, lock, saved = {}, threading.Lock(), {}
+    for name, mod in (("decoder_rollout", DR), ("gru_cell", GC), ("mel_spectrogram", MK)):
+        saved[mod] = count = mod._count_launch
+
+        def counted(name=name, count=count):
+            block = threading.current_thread().name.startswith(SHARD_THREADS)
+            key = (name, f"cuda:{torch.cuda.current_device()}", "block" if block else "caller")
+            with lock:
+                sites[key] = sites.get(key, 0) + 1
+            count()
+
+        mod._count_launch = counted
+    try:
+        yield sites
+    finally:
+        for mod, count in saved.items():
+            mod._count_launch = count
+
+
+def mesh_gru_launches(frames, replicas, bucket=512, max_batch=64):
+    """GRU-cell launches of `generate_batch` over a mesh for clips of these
+    lengths: each chunk runs T_pad - 1 steps in each non-empty block."""
+    buckets = {}
+    for n in frames:
+        t_pad = max(bucket, -(-n // bucket) * bucket)
+        buckets[t_pad] = buckets.get(t_pad, 0) + 1
+    return sum((t_pad - 1) * min(replicas, max_batch, count - k)
+               for t_pad, count in buckets.items() for k in range(0, count, max_batch))
+
+
+def run_sharded(torch, label, run, expected, sharded=True):
+    """``run()`` with every count reset just before and read just after, and
+    the launch sites tallied -> (result, wall seconds, counts, sites). Fails
+    unless each kernel launched as ``expected``, the mel kernel only from
+    the caller's thread and the GRU cell only from the mesh's block threads
+    (from the caller's where the run is not ``sharded``)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    with launch_sites(torch) as sites:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    for name, n in counts.items():
+        if n != expected.get(name, 0):
+            fail(f"mesh {label}: {name} launched {n} times, expected {expected.get(name, 0)}")
+    threads = {"mel_spectrogram": "caller", "gru_cell": "block" if sharded else "caller"}
+    if any(thread != threads.get(name, thread) for name, _, thread in sites):
+        fail(f"mesh {label}: a kernel launched from the wrong thread: {sites}")
+    return out, wall, counts, {"/".join(k): v for k, v in sorted(sites.items())}
+
+
+def mesh_phase(torch, card, results):
+    """Phase mesh: `generate_batch` and the daemon over a mesh of two
+    replicas on cuda:0 (each its own worker thread and stream, over the
+    pipeline's own modules) and, with several cards, over every card. The
+    64 x 10 s batch with one replica (no mesh) and with the mesh, in turns
+    (one, mesh, mesh, one; the path of one replica is warm from phase 3);
+    the `-b` requests at fp32 rollout weights against the unsharded run
+    (BVH MAE < ROLLOUT_MAE); four concurrent /synthesize against
+    `generate_batch` without a mesh (the same bound)."""
+    from zeggs_tpu_torch.cli import generate as cli
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer import batch as batch_mod
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.parallel import create_mesh, shard_rows
+    from zeggs_tpu_torch.serve import GestureServer
+
+    mesh = create_mesh(devices=["cuda:0"] * 2)
+    out = results / "mesh"
+    report = {"replicas": mesh.size, "card": card}
+    n10 = round(60 * CLIPS["clip_10s"])
+    frames = BATCH_COPIES * n10
+
+    # 64 x 10 s: one replica and the mesh, in turns after a warm-up of each
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda")
+    reqs = [Request(audio=WORK / "clip_10s.wav", styles=[(WORK / "style.bvh", None)],
+                    file_name=f"copy_{i}", seed=SEED + i) for i in range(BATCH_COPIES)]
+    shards = [len(b) for b in shard_rows(torch.empty(BATCH_COPIES), mesh)]
+    expect = {"one": {"gru_cell": 1023, "mel_spectrogram": BATCH_COPIES},
+              "mesh": {"gru_cell": mesh_gru_launches([n10] * BATCH_COPIES, mesh.size),
+                       "mel_spectrogram": BATCH_COPIES}}
+    rates, stage = {"one": [], "mesh": []}, {}
+    rollout_one, shard = pipe.rollout_batch, batch_mod._rollout_shard
+
+    def timed_one(*args):  # the rollout stage of one replica, to the card's end
+        t0 = time.perf_counter()
+        result = rollout_one(*args)
+        torch.cuda.synchronize()
+        stage.setdefault("one", []).append(time.perf_counter() - t0)
+        return result
+
+    def timed_block(*args):  # a block's thread: rows in, rollout, host copies out
+        t0 = time.perf_counter()
+        result = shard(*args)
+        with lock:
+            stage.setdefault("blocks", []).append(time.perf_counter() - t0)
+        return result
+
+    lock = threading.Lock()
+    pipe.rollout_batch, batch_mod._rollout_shard = timed_one, timed_block
+    try:
+        for label in ("one", "mesh", "mesh", "one"):
+            stage.clear()
+            _, wall, counts, sites = run_sharded(
+                torch, f"batch of {BATCH_COPIES} ({label})",
+                lambda: generate_batch(pipe, reqs, out / label,
+                                       mesh=mesh if label == "mesh" else None),
+                expect[label], sharded=label == "mesh")
+            rates[label].append(frames / wall)
+            report[f"batch64_{label}"] = {"launches": counts, "sites": sites,
+                                          "rollout_stage_s": list(stage.get(
+                                              "blocks" if label == "mesh" else "one", []))}
+    finally:
+        del pipe.rollout_batch
+        batch_mod._rollout_shard = shard
+    report["batch64_frames_per_s"] = rates
+    report["batch64_shards"] = shards
+    one_s = report["batch64_one"]["rollout_stage_s"]
+    block_s = report["batch64_mesh"]["rollout_stage_s"]
+    print(f"mesh: batch of {BATCH_COPIES} x 10 s clips over {mesh.size} replicas on cuda:0, "
+          f"rows a shard {shards}, launches {report['batch64_mesh']['launches']}, by site "
+          f"{report['batch64_mesh']['sites']}")
+    print(f"time mesh batch of {BATCH_COPIES} x 10 s clips ({frames} frames): one replica "
+          f"{', '.join(f'{r:.1f}' for r in rates['one'])} frames/s, {mesh.size} replicas on cuda:0 "
+          f"{', '.join(f'{r:.1f}' for r in rates['mesh'])} frames/s "
+          f"({max(rates['mesh']) / max(rates['one']):.3f}x best to best); rollout stage of the "
+          f"last run: one replica {', '.join(f'{t:.3f}' for t in one_s)} s "
+          f"({one_s[0] / 1023 * 1e3:.3f} ms a step), each block "
+          f"{', '.join(f'{t:.3f}' for t in block_s)} s "
+          f"({max(block_s) / 1023 * 1e3:.3f} ms a step), {card}")
+
+    # the -b requests at fp32 rollout weights: the mesh against no mesh
+    pipe32 = GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                             rollout_weights="float32")
+    with open(WORK / "requests.csv", newline="") as f:
+        csv_reqs = cli._requests(list(csv.DictReader(f)), "example")
+    generate_batch(pipe32, csv_reqs, out / "b_plain")
+    lengths = [round(60 * s) for s in CLIPS.values()]
+    _, _, counts, sites = run_sharded(
+        torch, "-b requests", lambda: generate_batch(pipe32, csv_reqs, out / "b_mesh", mesh=mesh),
+        {"gru_cell": mesh_gru_launches(lengths, mesh.size), "mel_spectrogram": len(CLIPS)})
+    maes = {r.file_name: float(bvh_mae(torch, out / "b_mesh" / f"{r.file_name}.bvh",
+                                       out / "b_plain" / f"{r.file_name}.bvh")) for r in csv_reqs}
+    report["batched"] = {"launches": counts, "sites": sites, "bvh_mae": maes}
+    print(f"mesh: -b requests (fp32 rollout weights) over {mesh.size} replicas, launches {counts}; "
+          f"against no mesh BVH MAE {', '.join(f'{k} {v:.3e}' for k, v in maes.items())} "
+          f"(tol {ROLLOUT_MAE:g})")
+    if not max(maes.values()) < ROLLOUT_MAE:
+        fail(f"mesh -b requests against no mesh: BVH MAE {maes}")
+
+    # the daemon: four concurrent /synthesize coalesce into one batch (the
+    # drain ends at the fourth) split over the mesh
+    serve_reqs = [Request(audio=WORK / f"{list(CLIPS)[i % len(CLIPS)]}.wav",
+                          styles=[(WORK / "style.bvh", None)], file_name=f"serve_{i}",
+                          seed=SEED + i) for i in range(4)]
+    srv = GestureServer(pipe, max_batch=4, max_wait_ms=60_000, mesh=mesh)
+    port = srv.start()
+    try:
+        style = base64.b64encode((WORK / "style.bvh").read_bytes()).decode()
+        replies = [None] * 4
+
+        def request(i):
+            r = serve_reqs[i]
+            t0 = time.perf_counter()
+            replies[i] = post(port, "/synthesize", {
+                "audio_wav_b64": base64.b64encode(r.audio.read_bytes()).decode(),
+                "styles": [{"bvh_b64": style}], "seed": r.seed, "file_name": r.file_name})
+            replies[i]["client_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def synthesize():
+            threads = [threading.Thread(target=request, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return threads
+
+        threads, _, counts, sites = run_sharded(
+            torch, "daemon", synthesize,
+            {"gru_cell": mesh_gru_launches(
+                [round(60 * CLIPS[Path(r.audio).stem]) for r in serve_reqs], mesh.size),
+             "mel_spectrogram": 4})
+        if any(t.is_alive() for t in threads) or any(r is None for r in replies):
+            fail("mesh daemon: a /synthesize request failed")
+        health = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                                   timeout=60).read())
+    finally:
+        srv.stop()
+    generate_batch(pipe, serve_reqs, out / "serve_plain")
+    maes = {}
+    for r in replies:
+        (out / f"{r['file_name']}.bvh").write_text(r["bvh"])
+        maes[r["file_name"]] = float(bvh_mae(torch, out / f"{r['file_name']}.bvh",
+                                             out / "serve_plain" / f"{r['file_name']}.bvh"))
+    sizes = [r["batch_size"] for r in replies]
+    lat = [r["client_ms"] for r in replies]
+    report["serve"] = {"launches": counts, "sites": sites, "batch_sizes": sizes,
+                       "client_ms": lat, "bvh_mae": maes}
+    print(f"mesh: daemon over {mesh.size} replicas, 4 concurrent /synthesize, batch sizes {sizes}, "
+          f"launches {counts}; against generate_batch without a mesh BVH MAE max "
+          f"{max(maes.values()):.3e} (tol {ROLLOUT_MAE:g}); /healthz {health}; time request p50 "
+          f"{np.percentile(lat, 50):.1f} ms (client), {card}")
+    if sizes != [4] * 4 or not max(maes.values()) < ROLLOUT_MAE:
+        fail(f"mesh daemon: batch sizes {sizes}, BVH MAE {maes}")
+
+    # every card, where there are several
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"mesh over the real cards: skipped, {n_cards} card")
+        report["cards"] = None
+        return report
+    cards = create_mesh()
+    per_card = [len(b) for b in shard_rows(torch.empty(BATCH_COPIES), cards)]
+    walls = []
+    for rep in range(2):
+        _, wall, counts, sites = run_sharded(
+            torch, f"batch of {BATCH_COPIES} over {n_cards} cards",
+            lambda: generate_batch(pipe, reqs, out / "cards", mesh=cards),
+            expect["mesh"] | {"gru_cell": mesh_gru_launches([n10] * BATCH_COPIES, cards.size)})
+        walls.append(wall)
+    for dev in cards.devices:
+        if sites.get(f"gru_cell/{dev}/block") != 1023:
+            fail(f"mesh over the cards: GRU-cell launches by site {sites}")
+    mae = max(float(bvh_mae(torch, out / "cards" / f"copy_{i}.bvh",
+                            out / "one" / f"copy_{i}.bvh")) for i in (0, BATCH_COPIES - 1))
+    report["cards"] = {"n": n_cards, "shards": per_card, "launches": counts, "sites": sites,
+                       "frames_per_s": [frames / w for w in walls], "bvh_mae_vs_one": mae}
+    print(f"mesh over {n_cards} cards: rows a card {per_card}, launches {counts}, by site {sites}; "
+          f"first and last copy against one replica BVH MAE {mae:.3e} (tol {ROLLOUT_MAE:g}); "
+          f"time {', '.join(f'{frames / w:.1f}' for w in walls)} frames/s, {card}")
+    if not mae < ROLLOUT_MAE:
+        fail(f"mesh over the cards against one replica: BVH MAE {mae}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -2101,6 +2361,7 @@ def main():
     card_vs_cpu(torch)
     stream = streaming(torch, card, results)
     served = serve(torch, card)
+    meshed = mesh_phase(torch, card, results)
     reference = reference_checkpoints(torch, card)
     with torch.inference_mode():
         gl = griffin_lim_phase(torch, card)
@@ -2129,6 +2390,8 @@ def main():
     print(json.dumps({"launches": {"csv": csv_counts, "batched": batch_counts,
                                    "int8": int8_counts, "streaming": stream["counts"],
                                    "serve": served,
+                                   "mesh": {k: meshed[k]["launches"] for k in
+                                            ("batch64_one", "batch64_mesh", "batched", "serve")},
                                    "pipeline": {"mel_spectrogram": trained["pipeline_mel"]},
                                    "train_step": trained["launches_per_step"],
                                    "sample_synthesis": {"gru_cell": trained["synthesis_gru"]},
@@ -2142,6 +2405,7 @@ def main():
                       "card": card}))
     print(json.dumps({"v2_labels": v2, "train_options": options, "quality": judged,
                       "card": card}))
+    print(json.dumps({"mesh": meshed}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         {**decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
@@ -2150,7 +2414,9 @@ def main():
          "launches_reference_checkpoints": reference["launches"]["decoder_rollout"],
          "launches_v2_csv": v2l["csv"]["decoder_rollout"],
          "launches_v2_batched": v2l["batched"]["decoder_rollout"],
-         "launches_v2_serve": v2l["serve"]["decoder_rollout"]},
+         "launches_v2_serve": v2l["serve"]["decoder_rollout"],
+         "launches_mesh": sum(meshed[k]["launches"]["decoder_rollout"]
+                              for k in ("batch64_mesh", "batched", "serve"))},
         {**decoder_entry("int8", int8_counts["decoder_rollout"]),
          "launches_v2_int8": v2l["int8"]["decoder_rollout"]},
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
@@ -2165,7 +2431,10 @@ def main():
          "launches_v2_sample_synthesis": v2["training"]["synthesis"]["gru_cell"],
          "launches_train_options_sample_synthesis": {
              k: v["synthesis"]["gru_cell"] for k, v in options.items() if "synthesis" in v},
-         "launches_eval": judged["launches"]["gru_cell"]},
+         "launches_eval": judged["launches"]["gru_cell"],
+         "launches_mesh_batch64": meshed["batch64_mesh"]["launches"]["gru_cell"],
+         "launches_mesh_batched": meshed["batched"]["launches"]["gru_cell"],
+         "launches_mesh_serve": meshed["serve"]["launches"]["gru_cell"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
@@ -2183,7 +2452,8 @@ def main():
          "launches_v2_streaming": v2l["streaming"]["mel_spectrogram"],
          "launches_v2_serve": v2l["serve"]["mel_spectrogram"],
          "launches_v2_pipeline": v2["training"]["pipeline_mel"],
-         "launches_eval": judged["launches"]["mel_spectrogram"]},
+         "launches_eval": judged["launches"]["mel_spectrogram"],
+         "launches_mesh_batch64": meshed["batch64_mesh"]["launches"]["mel_spectrogram"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

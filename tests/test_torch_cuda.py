@@ -15,7 +15,10 @@ docs/DESIGN.md section 5. The GRU cell: 2e-5, and the mel spectrogram:
 2e-4 at n_fft 800, 1024 and 802 and, through the global-workspace variant,
 6000 and 8192: the budgets of tests/test_pallas_kernels.py. Training
 gradients: per leaf 1e-4 * max(1, max|g|) against the same step on the CPU,
-TF32 off. Generation from the reference's `.pt` pickles writes the same BVH
+TF32 off. The GRU cell launched from four threads at once counts every
+launch; `generate_batch` over a mesh (two replicas on one card, and every
+card where there are several) stays within the pose MAE budget of the
+unsharded run. Generation from the reference's `.pt` pickles writes the same BVH
 text as from the `.npz` files; Griffin-Lim on the card against the CPU from
 the same first signal: relative L2 error 1e-4 (tests/test_torch_misc.py's
 bound); one NCCL process comes up on the card.
@@ -336,6 +339,39 @@ def test_gru_cell_raises_under_autograd_on_the_card(device):
     assert GC.launches == before
 
 
+def test_gru_cell_counts_launches_from_four_threads(device):
+    """Four threads launch the GRU cell on one card at once, each on a
+    stream of its own (as the shards of a mesh do): `launches` rises by the
+    sum, and every output matches the plain version (2e-5)."""
+    import threading
+
+    torch.manual_seed(4)
+    cell = torch.nn.GRUCell(1024, 1024, device=device)
+    with torch.no_grad():
+        p = GC.pack_gru(cell)
+        x, h = torch.randn(32, 1024, device=device), torch.randn(32, 1024, device=device)
+        ref = GC.gru_cell_plain(p, x, h)
+    torch.cuda.synchronize()
+    errors, n = [], 200
+
+    def launch():
+        stream = torch.cuda.Stream(device)
+        with torch.no_grad(), torch.cuda.stream(stream):
+            outs = [GC.fused_gru_cell(p, x, h) for _ in range(n)]
+            stream.synchronize()
+            errors.append(max((o - ref).abs().max().item() for o in outs))
+
+    before = GC.launches
+    threads = [threading.Thread(target=launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert GC.launches == before + 4 * n
+    assert len(errors) == 4 and max(errors) <= 2e-5
+
+
 def _train_case(rnn_cond="normal", compute_dtype="float32", remat=False):
     """Small-width options, statistics and a random batch (B=3, 24 frames,
     8 joints) of a training step."""
@@ -526,6 +562,42 @@ def test_label_request_launches_the_decoder_once(small_models, tmp_path):
     assert a["rotations"].shape == b["rotations"].shape and np.isfinite(b["rotations"]).all()
     assert np.abs(a["positions"] - b["positions"]).mean() < 1e-3
     assert np.abs(a["rotations"] - b["rotations"]).mean() < 1e-3
+
+
+def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path):
+    """Three requests as one chunk over two replicas on cuda:0 and, with
+    several cards, over every card, at fp32 rollout weights: each BVH within
+    the pose MAE budget of 1e-3 of the run without a mesh; GRU-cell launches
+    = decoder steps x non-empty blocks, no decoder launch, one mel launch a
+    request."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.io import bvh
+    from zeggs_tpu_torch.parallel import create_mesh
+
+    m = small_models
+    pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
+                           rollout_weights="float32")
+    reqs = [Request(audio=m["root"] / "audio.wav", styles=[(m["root"] / "style.bvh", None)],
+                    file_name=f"r{i}", seed=i) for i in range(3)]
+    generate_batch(pipe, reqs, tmp_path / "plain", bucket=64)
+    n = bvh.load(tmp_path / "plain" / "r0.bvh")["rotations"].shape[0]
+    steps = -(-n // 64) * 64 - 1
+    meshes = [create_mesh(devices=["cuda:0"] * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(create_mesh())
+    for k, mesh in enumerate(meshes):
+        before = (DR.launches, GC.launches, MK.launches)
+        generate_batch(pipe, reqs, tmp_path / f"mesh{k}", bucket=64, mesh=mesh)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip((DR.launches, GC.launches, MK.launches), before))
+        assert launched == (0, steps * min(mesh.size, 3), 3), (mesh, launched)
+        for r in reqs:
+            a = bvh.load(tmp_path / "plain" / f"{r.file_name}.bvh")
+            b = bvh.load(tmp_path / f"mesh{k}" / f"{r.file_name}.bvh")
+            assert np.isfinite(b["rotations"]).all()
+            assert np.abs(a["positions"] - b["positions"]).mean() < 1e-3
+            assert np.abs(a["rotations"] - b["rotations"]).mean() < 1e-3
 
 
 @pytest.fixture(scope="module")

@@ -67,11 +67,29 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _cluster(option_files, n_iter, host_batches, torchrun_env=False):
+#: how rank 0 fails to listen when another process took its port between
+#: `_free_port` and the bind (the suite runs in several processes at once)
+_PORT_TAKEN = ("EADDRINUSE", "Address already in use")
+
+
+def _cluster(option_files, n_iter, host_batches, torchrun_env=False, attempts=3):
     """Two worker processes, rank i reading option_files[i]: joined through
     the three flags, or through the variables torchrun sets and no flags.
-    Returns their outputs."""
-    port = _free_port()
+    Returns their outputs. A run whose port was taken before rank 0 bound
+    it is made again on another port, up to ``attempts`` runs."""
+    for attempt in range(attempts):
+        procs, outputs = _run_cluster(_free_port(), option_files, n_iter, host_batches,
+                                      torchrun_env)
+        failed = any(p.returncode != 0 for p in procs)
+        if not (failed and attempt + 1 < attempts
+                and any(m in out for out in outputs for m in _PORT_TAKEN)):
+            break
+    for pid, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, f"process {pid} failed:\n{out[-4000:]}"
+    return outputs
+
+
+def _run_cluster(port, option_files, n_iter, host_batches, torchrun_env):
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         env.pop(k, None)
@@ -95,9 +113,7 @@ def _cluster(option_files, n_iter, host_batches, torchrun_env=False):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for pid, (p, out) in enumerate(zip(procs, outputs)):
-        assert p.returncode == 0, f"process {pid} failed:\n{out[-4000:]}"
-    return outputs
+    return procs, outputs
 
 
 def _single(options, n_iter, host_batches):

@@ -127,7 +127,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "new = {'train.loop', 'train.loss', 'train.radam', 'data.pipeline', 'data.dataset', "
         "'data.device_dataset', 'cli.train', 'cli.pipeline', 'utils.metrics', 'utils.logs', "
         "'io.torch_compat', 'cli.convert', 'cli.compare', 'cli.bvh2fbx', 'parallel', "
-        "'parallel.distributed', 'utils.profiling', 'cli.eval_checkpoint'}\n"
+        "'parallel.distributed', 'utils.profiling', 'cli.eval_checkpoint', 'parallel.mesh'}\n"
         "assert {'zeggs_tpu_torch.' + n for n in new} <= set(names), names\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"

@@ -7,6 +7,19 @@ computed. A chunk of one clip takes the B=1 decoder kernel on a card;
 larger chunks run the eager rollout with GRU1 of every step through the
 GRU-cell kernel.
 
+With a ``mesh`` (`parallel/mesh.py`) each chunk's rows are split into one
+contiguous block a device (`shard_rows`). Everything before the rollout
+stays on ``pipe.device``: audio features, style featurizing and the style
+draws, so the draws do not depend on the mesh. One host thread a
+non-empty block then copies its rows to its device, runs the speech
+encoder and the eager rollout there on a stream of its own, in inference
+mode (grad mode is per thread), and copies the outputs to the host. Every
+chunk under a mesh runs the eager rollout, one of a single clip too, as
+`zeggs_tpu`'s sharded path does; whether it runs int8 products is decided
+by the chunk's size, not the block's. Blocks of a chunk reduce in another
+order than the whole chunk (the GRU cell's batch tile follows B), so
+sharded rows are close to, not bit-equal to, unsharded ones.
+
 Length padding is exact for the speech encoder: features are
 edge-repeated, which coincides with the encoder's replicate padding at the
 true clip end; rollout frames past a clip's true length are computed and
@@ -15,11 +28,10 @@ per length bucket, and each request's style draws come from its own
 `torch.Generator`, so a batched request gets the draws `generate_gesture`
 makes for the same seed.
 
-Left out, because they exist only for XLA's compile cache or the TPU
-mesh: ``resolve_batch_pad`` ("full" / "pow2") and the padding of B,
-``plan_programs``, ``warmup`` and ``mesh`` sharding. Eager PyTorch has no
-compiled programs to bound; ``warmup`` and ``plan_programs`` are to be
-reconsidered with the serving daemon.
+Left out, because they exist only for XLA's compile cache:
+``resolve_batch_pad`` ("full" / "pow2") and the padding of B,
+``plan_programs`` and ``warmup``. Eager PyTorch has no compiled programs
+to bound.
 """
 
 from __future__ import annotations
@@ -34,8 +46,11 @@ import torch
 
 from ..data import features as F
 from ..io import bvh
+from ..parallel import shard_rows
 from ..utils import split_by_ratio
 
+#: name prefix of the threads that run a mesh's blocks
+SHARD_THREADS = "mesh-block"
 _STATE0 = ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy", "lvel", "lvrt")
 
 
@@ -103,13 +118,62 @@ def _pad_time(x, T_pad):
     return torch.cat([x, x[-1:].expand(T_pad - x.shape[0], *x.shape[1:])])
 
 
+def _shard_on(replica, rows, quantize_int8):
+    dev = replica.device
+    *state0, gaze, audio, style = (t.to(dev, non_blocking=True) for t in rows)
+    speech = replica.encode_speech_batched(audio)
+    out = replica.rollout_eager(tuple(state0), gaze, speech, style.contiguous(), quantize_int8)
+    return [o.float().cpu() for o in out]
+
+
+def _rollout_shard(replica, ready, rows, quantize_int8):
+    """One block of a chunk on ``replica``, in a worker thread -> host
+    trajectories. ``rows``: the block's 8 frame-0 state tensors, gaze,
+    audio features and style, on the pipeline's device, written before the
+    CUDA event ``ready`` (None when that device is the CPU). On a card the
+    block runs on a stream of its own, which is idle when this returns."""
+    dev = replica.device
+    with torch.inference_mode():  # grad mode is per thread
+        if dev.type != "cuda":
+            if ready is not None:
+                ready.synchronize()
+            return _shard_on(replica, rows, quantize_int8)
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            if ready is not None:
+                stream.wait_event(ready)
+            host = _shard_on(replica, rows, quantize_int8)
+            stream.synchronize()
+        return host
+
+
+def _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio, style):
+    """A chunk's rows over the mesh, one task of the pool ``shards`` a
+    non-empty block -> host trajectories of the whole chunk, in row order.
+    The int8 decision is the chunk's."""
+    ready = None
+    if pipe.device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(pipe.device))
+    blocks = zip(*(shard_rows(t, mesh) for t in (*state0, gaze, audio, style)))
+    quantize_int8 = pipe.quantize_batched(audio.shape[0])
+    futures = [shards.submit(_rollout_shard, replica, ready, rows, quantize_int8)
+               for replica, rows in zip(replicas, blocks) if rows[0].shape[0]]
+    outs = [f.result() for f in futures]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
 @torch.inference_mode()
-def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, write_workers=4):
-    """Run many requests as bucketed batched rollouts on ``pipe.device``.
+def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=None,
+                   write_workers=4):
+    """Run many requests as bucketed batched rollouts on ``pipe.device``, or
+    with a ``mesh`` (`parallel.create_mesh`) each chunk's rows split over
+    its devices.
 
     pipe: GesturePipeline. Writes <file_name>.bvh (and the .wav) of every
     request under ``results_path``; returns the written BVH paths, in the
-    order of the requests' buckets and chunks."""
+    order of the requests' buckets and chunks. Returns once every block
+    has finished."""
     results_path = Path(results_path)
     results_path.mkdir(parents=True, exist_ok=True)
 
@@ -128,7 +192,10 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, write
         item = (req, af, n, style, state, feats.gaze_pos[0])
         buckets.setdefault(max(bucket, _round_up(n, bucket)), []).append(item)
 
-    with ThreadPoolExecutor(max_workers=write_workers) as pool:
+    replicas = None if mesh is None else [pipe.replica(d) for d in mesh.devices]
+    with ThreadPoolExecutor(max_workers=write_workers) as pool, \
+            ThreadPoolExecutor(max_workers=1 if mesh is None else mesh.size,
+                               thread_name_prefix=SHARD_THREADS) as shards:
         futures = []
         for T_pad, items in sorted(buckets.items()):
             for start in range(0, len(items), max_batch):
@@ -140,9 +207,13 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, write
                     _pad_time(se[:n], T_pad) if se.ndim == 2 else se.expand(T_pad, -1)
                     for (_, _, n, se, _, _) in chunk
                 ])
-                speech = pipe.encode_speech_batched(audio)
-                out = pipe.rollout_batch(state0, gaze, speech, style.contiguous())
-                host = [o.float().cpu() for o in out]
+                if mesh is None:
+                    speech = pipe.encode_speech_batched(audio)
+                    out = pipe.rollout_batch(state0, gaze, speech, style.contiguous())
+                    host = [o.float().cpu() for o in out]
+                else:
+                    host = _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio,
+                                            style)
                 for i, (req, _, n, *_) in enumerate(chunk):
                     futures.append(pool.submit(
                         pipe.write_result, results_path, req.file_name,

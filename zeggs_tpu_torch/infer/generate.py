@@ -8,12 +8,15 @@ style draw. `GesturePipeline` loads networks and statistics once onto one
 device and serves requests there; at B=1 on a card the decoder rollout is
 one launch of the CUDA kernel. The batched entry points used by
 `infer/batch.py` (`encode_speech_batched`, `encode_styles_batch`,
-`rollout_batch`) live here too, and `streaming_session` opens an
-`infer/streaming.py` session.
+`rollout_batch`) live here too, with `GesturePipeline.replica`, which puts
+the speech encoder and the decoder on another device of a mesh, and
+`streaming_session` opens an `infer/streaming.py` session.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 from pathlib import Path
 from shutil import copyfile
@@ -71,9 +74,45 @@ def build_network(name, params, opts: Options, pose_input_size, device):
     return module.to(device).eval().requires_grad_(False)
 
 
+def _with_quaternions(out):
+    """(root_pos, root_rot, lpos, ltxy) -> (root_pos, root_rot, lpos, lrot),
+    joint rotations as quaternions."""
+    return out[:3] + (quat.from_xform(xform.orthogonalize_from_xy(out[3])),)
+
+
+@dataclasses.dataclass(frozen=True)
+class Replica:
+    """What a batched rollout runs on one device: the speech encoder and the
+    decoder (``networks``), the statistics, and the frame time."""
+
+    device: torch.device
+    networks: dict
+    stats: dict
+    dt: float
+
+    def encode_speech_batched(self, audio_features):
+        """(B, T, n_features) -> (B, T, S) speech encodings."""
+        x = (audio_features - self.stats["audio_input_mean"]) / self.stats["audio_input_std"]
+        return self.networks["speech_encoder"](x)
+
+    def rollout_eager(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False):
+        """The eager rollout of B clips (see `GesturePipeline.rollout_batch`),
+        GRU1 of every step through the GRU-cell kernel on a card; products
+        on int8 values with ``quantize_int8``."""
+        s = self.stats
+        out = decoder.rollout(
+            self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
+            s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
+            s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
+            quantize_int8=quantize_int8,
+        )
+        return _with_quaternions(out)
+
+
 class GesturePipeline:
     """Loads networks and statistics once and serves generation requests on
-    ``device``, which it never leaves."""
+    ``device``, which it never leaves; `replica` copies what a batched
+    rollout needs to another device."""
 
     def __init__(self, network_path, data_path, options=None, style_encoding_type="example",
                  device="cuda", rollout_weights=None):
@@ -117,6 +156,7 @@ class GesturePipeline:
             }
         self.networks = self._load_networks(network_path)
         self._style_cache = {}
+        self._replicas = {}
 
         dec_cfg = self.opts.net.decoder
         self.rollout_weights = rollout_weights
@@ -172,8 +212,7 @@ class GesturePipeline:
 
     def encode_speech_batched(self, audio_features):
         """(B, T, n_features) -> (B, T, S) speech encodings."""
-        x = (audio_features - self.stats["audio_input_mean"]) / self.stats["audio_input_std"]
-        return self.networks["speech_encoder"](x)
+        return self.replica(self.device).encode_speech_batched(audio_features)
 
     def style_example_from_bvh(self, path, frames=None):
         """BVH example -> (feature vec (L, pose_in), AnimFeatures). Cached by
@@ -262,6 +301,11 @@ class GesturePipeline:
         state0 = tuple(getattr(first_pose_feats, k)[0:1] for k in _STATE0)
         return self.rollout_batch(state0, gaze_pos, speech_enc, style_enc)
 
+    def quantize_batched(self, B):
+        """Whether an eager rollout of a chunk of B clips runs its products
+        on int8 values."""
+        return self._quantize_batched and B >= INT8_BATCHED_MIN
+
     def rollout_batch(self, state0, gaze_pos, speech_enc, style_enc):
         """Rollout of B clips from their frame-0 states (8 tensors (B, ...),
         the order of `decoder.rollout`) under (B, T, ...) conditioning ->
@@ -271,17 +315,31 @@ class GesturePipeline:
         B = speech_enc.shape[0]
         if self._fused_fn is not None and B == 1:
             out = self._fused_fn(state0, gaze_pos, speech_enc, style_enc)
-            out = tuple(out[i] for i in (0, 1, 4, 5))
-        else:
-            s = self.stats
-            out = decoder.rollout(
-                self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
-                s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
-                s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
-                quantize_int8=self._quantize_batched and B >= INT8_BATCHED_MIN,
-            )
-        lrot = quat.from_xform(xform.orthogonalize_from_xy(out[3]))
-        return out[:3] + (lrot,)
+            return _with_quaternions(tuple(out[i] for i in (0, 1, 4, 5)))
+        return self.replica(self.device).rollout_eager(
+            state0, gaze_pos, speech_enc, style_enc, quantize_int8=self.quantize_batched(B))
+
+    def replica(self, device):
+        """The speech encoder, the decoder and the statistics on ``device``
+        (a card by its index, as a mesh names it; a `Replica`): on the
+        pipeline's own device its own modules, else a copy made at the first
+        call and kept. A replica runs only the eager rollout; the B=1 decoder
+        kernel's packing stays with the pipeline."""
+        device = torch.device(device)
+        own = self.stats["anim_input_mean"].device
+        if device == own:
+            return Replica(own, {n: self.networks[n] for n in ("speech_encoder", "decoder")},
+                           self.stats, self.dt)
+        if device not in self._replicas:
+            require_device(device)
+            # plain tensors, also when called under inference mode: the copy
+            # outlives the call
+            with torch.inference_mode(False):
+                nets = {n: copy.deepcopy(self.networks[n]).to(device)
+                        for n in ("speech_encoder", "decoder")}
+                stats = {k: v.to(device) for k, v in self.stats.items()}
+            self._replicas[device] = Replica(device, nets, stats, self.dt)
+        return self._replicas[device]
 
     def streaming_session(self, styles, first_pose=None, blend_ratio=(0.5, 0.5),
                           temperature=1.0, seed=1234, gain=1.0, quantum=1):

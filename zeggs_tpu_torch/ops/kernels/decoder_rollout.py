@@ -33,6 +33,7 @@ import ctypes
 import dataclasses
 import functools
 import heapq
+import threading
 
 import numpy as np
 import torch
@@ -44,6 +45,15 @@ from . import build
 #: launches of the CUDA kernel in this process; the plain version on CPU
 #: tensors does not count
 launches = 0
+_launches_lock = threading.Lock()
+
+
+def _count_launch():
+    """Add one to `launches`; wrappers launch from several threads at once."""
+    global launches
+    with _launches_lock:
+        launches += 1
+
 
 #: weight dtype -> the kernel's instantiation
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -501,7 +511,6 @@ def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0,
     [pose_out | root_pos | root_rot]. CUDA tensors launch the kernel once;
     CPU tensors take `rollout_b1_plain`. Raises on anything the kernel does
     not take, on a plan that does not fit the card, and on any CUDA error."""
-    global launches
     _check(packed, cond_l0, cond_g0, gaze, p0, h_init, root0)
     dev = packed.wx.device
     if dev.type == "cpu":
@@ -529,7 +538,7 @@ def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0,
             plan.smem_bytes, float(dt), stream,
         )
     _raise_for(err, "decoder_rollout kernel")
-    launches += 1
+    _count_launch()
     return out
 
 

@@ -29,6 +29,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import torch
 import torch.nn as nn
@@ -38,6 +39,14 @@ from . import build
 #: launches of the CUDA kernel in this process; the plain version on CPU
 #: tensors does not count
 launches = 0
+_launches_lock = threading.Lock()
+
+
+def _count_launch():
+    """Add one to `launches`; wrappers launch from several threads at once."""
+    global launches
+    with _launches_lock:
+        launches += 1
 
 
 @dataclasses.dataclass
@@ -177,7 +186,6 @@ def fused_gru_cell(p: PackedGRU, x, h):
     """One GRU step -> (B, H) float32. CUDA tensors launch the kernel; CPU
     tensors take `gru_cell_plain`. Raises on anything the kernel does not
     take, on any CUDA error, and where autograd records."""
-    global launches
     _refuse_autograd("fused_gru_cell", [x, h] + [getattr(p, f.name) for f in dataclasses.fields(p)])
     _check(p, x, h)
     dev = x.device
@@ -200,5 +208,5 @@ def fused_gru_cell(p: PackedGRU, x, h):
     if err != 0:
         raise RuntimeError(f"gru_cell kernel failed: CUDA error {err} "
                            f"({lib.zeggs_gru_cell_error_string(err).decode()})")
-    launches += 1
+    _count_launch()
     return out

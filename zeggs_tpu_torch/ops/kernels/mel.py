@@ -27,6 +27,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -37,6 +38,15 @@ from . import build
 #: launches of the CUDA kernel in this process; the plain version on CPU
 #: tensors does not count
 launches = 0
+_launches_lock = threading.Lock()
+
+
+def _count_launch():
+    """Add one to `launches`; wrappers launch from several threads at once."""
+    global launches
+    with _launches_lock:
+        launches += 1
+
 
 #: radices with a butterfly of their own in the kernel, in the order the
 #: plan takes them; any other prime factor is one generic stage
@@ -258,7 +268,6 @@ def _launch(x, n_frames, c: MelConsts, groups, force_global=False):
     ``groups`` frame pairs a block, or the global-workspace variant where a
     pair does not fit shared memory; `mel_frames` picks ``groups``, a
     timing script may force either setting."""
-    global launches
     dev = x.device
     nbytes = _workspace_bytes(dev.index, n_frames, c.twiddles.shape[0], c.filters.shape[1],
                               c.n_fft, c.n_mels, force_global)
@@ -274,5 +283,5 @@ def _launch(x, n_frames, c: MelConsts, groups, force_global=False):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_for(err)
-    launches += 1
+    _count_launch()
     return out

@@ -13,7 +13,11 @@ Design:
   * one scheduler thread owns all device work, inside
     `torch.inference_mode` (which is thread-local); HTTP handler threads
     only validate, enqueue, and wait on per-request futures, so the
-    device's stream of work stays single-threaded,
+    device's stream of work stays single-threaded. With a ``mesh``,
+    `generate_batch` spreads a batch's rows over its devices from worker
+    threads of its own and returns once all are done, so a session push
+    (which runs on the pipeline's device) never overlaps a sharded
+    rollout,
   * dynamic batching: after the first request of a window, drain the
     queue up to ``max_batch``, waiting at most ``max_wait_ms`` — while a
     batch is running on device, arrivals pile up and the next drain takes
@@ -183,11 +187,13 @@ class GestureServer:
     """
 
     def __init__(self, pipe, host="127.0.0.1", port=0, max_batch=64,
-                 max_wait_ms=30, bucket=512, max_queue=256,
+                 max_wait_ms=30, bucket=512, mesh=None, max_queue=256,
                  request_timeout_s=900.0, allow_paths=None, drain_s=30.0,
                  max_sessions=16, session_ttl_s=600.0, stream_quantum=16,
                  max_body_bytes=64 << 20, max_push_s=120.0):
-        """``max_queue`` bounds the scheduler queue: a burst beyond device
+        """``mesh`` (`parallel.create_mesh`): the devices a batch's rows are
+        split over; None runs every batch on the pipeline's device.
+        ``max_queue`` bounds the scheduler queue: a burst beyond device
         throughput gets 429 + Retry-After instead of unbounded memory and
         thread growth. ``request_timeout_s`` bounds how long a handler
         waits for its batch (504 on expiry).
@@ -203,6 +209,7 @@ class GestureServer:
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
         self.bucket = int(bucket)
+        self.mesh = mesh
         self.request_timeout_s = float(request_timeout_s)
         self.drain_s = float(drain_s)
         if allow_paths is None:
@@ -856,7 +863,7 @@ class GestureServer:
         try:
             generate_batch(
                 self.pipe, [j.request for j in jobs], out_dir,
-                bucket=self.bucket, max_batch=self.max_batch,
+                bucket=self.bucket, max_batch=self.max_batch, mesh=self.mesh,
             )
             for j in jobs:
                 j.bvh_text = (out_dir / f"{j.request.file_name}.bvh").read_text()
