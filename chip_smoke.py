@@ -26,26 +26,40 @@ and 12 s) under build/chip_smoke/, then:
   2. drives each path through the generate CLI over the three clips on the
      card, every launch count reset just before and read just after: CSV
      mode (3 bf16 decoder launches), `-b` (buckets of 512 frames: one B=1
-     decoder launch and a B=2 chunk of 1023 GRU-cell launches, then
-     batched against single requests at fp32 weights) and `--int8` (3 int8
-     decoder launches); each path launches the mel kernel once a request;
+     decoder launch and a B=2 chunk replayed from CUDA graphs, 1023
+     GRU-cell launches and one eager warm-up step for each of the three
+     programs captured, then batched against single requests at fp32
+     weights) and `--int8` (3 int8 decoder launches); each path launches
+     the mel kernel once a request;
   3. times single requests and a batch of 64 copies of the 10 s clip;
   4. compares a request on the card (fp32 rollout weights) with the same
      request on the CPU;
   5. streams the 10 s clip in 0.5 s pushes (quantum 16) through a session
      and holds its frames against the offline request (fp32 rollout
-     weights); times the first frame, the pushes and the realtime factor;
+     weights; 608 decoder steps, the tail padded to the grain of 16, and
+     one warm-up step for the session's program); times the first frame,
+     the pushes and the realtime factor;
   6. serves the pipeline on 127.0.0.1: four concurrent /synthesize
      requests that must share a batch, a stream over HTTP against an
      in-process session, and /healthz; then the mesh phase: a mesh of two
      replicas on cuda:0 (`parallel.create_mesh`), each a worker thread and
-     stream of its own: the 64-clip batch with one replica and with the
-     mesh in turns (frames/s; 2 x 1023 GRU-cell launches from the workers,
-     no decoder launch, one mel launch a request from the main thread),
-     the `-b` requests at fp32 rollout weights against the unsharded run,
+     stream of its own and its own slot of programs, each run's programs
+     captured before it by `warmup`: the 64-clip batch with one replica
+     and with the mesh in turns (frames/s; 2 x 1023 GRU-cell launches from
+     the workers, no decoder launch, one mel launch a request from the
+     main thread), the `-b` requests at fp32 rollout weights against the
+     unsharded run (each chunk padded to two rows: 2 x 511 + 2 x 1023),
      and four concurrent /synthesize to a daemon with the mesh against
      `generate_batch` without one (BVH MAE < 1e-3 both); with several
-     cards, the 64-clip batch over every card (skipped on one card);
+     cards, the 64-clip batch over every card (skipped on one card); then
+     the programs phase: `warmup` over the fixture's plan (18 graphs:
+     their capture times and memory, peak memory), and the `-b` requests,
+     the 64-clip batch, a 10 s session and four concurrent /synthesize
+     each through the CUDA graphs and through the eager step they replace,
+     in turns (frames/s, rollout stage, push p50 / p99, realtime factor,
+     client p50; launch counts; graphed against eager within 1e-6 BVH MAE);
+     and, after the last phase, a host sync injected into the step, whose
+     capture must raise;
   7. writes the fixture's networks as the reference's whole-module .pt
      pickles: `cli.convert` must give back the .npz trees array for array,
      and `cli.generate` from a directory of only the .pt files must write
@@ -96,7 +110,8 @@ and 12 s) under build/chip_smoke/, then:
      line of launch counts, one of training results, one of the
      checkpoint, multi-process and Griffin-Lim phases' results, one of the
      v2, training-option and quality phases' results, one of the mesh
-     phase's, one of the barrier floor, one of kernel results and, last,
+     phase's, one of the programs phase's, one of each phase's wall
+     seconds, one of the barrier floor, one of kernel results and, last,
      {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
@@ -163,8 +178,19 @@ MEL_TIMED = (1, 32)  # frames timed besides the 10 s clip's (800 at n_fft 800)
 # BVH positions (cm) and Euler angles (degrees), tests/test_streaming.py
 STREAM_POS_MAE, STREAM_ROT_MAE = 1e-4, 1e-3
 PUSH_SAMPLES = 8000  # 0.5 s
+# GRU-cell launches of the `-b` CLI path's chunk of two clips at T_pad 1024
+# on a new pipeline: 1023 steps replayed from the 16-, 4- and 1-step
+# programs (63, 3 and 3 replays) and one eager warm-up step a capture
+B_CHUNK_GRU = 1023 + 3
+# decoder steps of a 10 s session at quantum 16: 599 steps in chunks of
+# multiples of 16, the finish tail padded to the grain
+SESSION_STEPS = -(-599 // 16) * 16
 # frames over HTTP against the same session run in the process
 HTTP_TOL = 1e-5
+# the rollout programs (CUDA graphs) against the eager step they replay, at
+# fp32: BVH MAE and session frames (bitwise equal expected: the same kernels
+# on the same inputs)
+GRAPH_MAE = 1e-6
 # training: a raw corpus of 4 clips of 20 s (the last one validation),
 # the v1 widths, a handful of steps and one more after the resume
 TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_STEPS = 4, 20.0, 6
@@ -872,17 +898,20 @@ def streaming(torch, card, results):
         torch.cuda.synchronize()
         offline_counts = read_counts()
         reset_counts()
+        made = len(pipe.programs.programs())
         sess, times = run_session(torch, pipe, audio)
         counts = read_counts()
+        made = len(pipe.programs.programs()) - made
         pos, rot = bvh_maes(out / f"offline_{weights}.bvh",
                             sess.write_bvh(out, f"stream_{weights}"))
         print(f"streaming session ({weights} pipeline), 10 s clip in 0.5 s pushes, quantum 16: "
-              f"{sess.frames_emitted} frames, {sess.decoder_steps} decoder steps, launches "
-              f"{counts}; against offline ({weights} decoder kernel): position MAE {pos:.3e}, "
-              f"rotation MAE {rot:.3e} deg")
+              f"{sess.frames_emitted} frames, {sess.decoder_steps} decoder steps, {made} program "
+              f"captured, launches {counts}; against offline ({weights} decoder kernel): position "
+              f"MAE {pos:.3e}, rotation MAE {rot:.3e} deg")
         if sess.frames_emitted != round(60 * CLIPS["clip_10s"]):
             fail(f"streaming: {sess.frames_emitted} frames")
-        if not (counts["mel_spectrogram"] > 0 and counts["gru_cell"] == sess.decoder_steps
+        if not (counts["mel_spectrogram"] > 0 and sess.decoder_steps == SESSION_STEPS
+                and counts["gru_cell"] == sess.decoder_steps + made == SESSION_STEPS + 1
                 and counts["decoder_rollout"] == 0):
             fail(f"streaming launches {counts} for {sess.decoder_steps} decoder steps")
         if weights == "bfloat16":
@@ -1006,12 +1035,12 @@ def launch_sites(torch):
     for name, mod in (("decoder_rollout", DR), ("gru_cell", GC), ("mel_spectrogram", MK)):
         saved[mod] = count = mod._count_launch
 
-        def counted(name=name, count=count):
+        def counted(*n, name=name, count=count):  # n: the launches of a graph's replay
             block = threading.current_thread().name.startswith(SHARD_THREADS)
             key = (name, f"cuda:{torch.cuda.current_device()}", "block" if block else "caller")
             with lock:
-                sites[key] = sites.get(key, 0) + 1
-            count()
+                sites[key] = sites.get(key, 0) + (n[0] if n else 1)
+            count(*n)
 
         mod._count_launch = counted
     try:
@@ -1023,13 +1052,14 @@ def launch_sites(torch):
 
 def mesh_gru_launches(frames, replicas, bucket=512, max_batch=64):
     """GRU-cell launches of `generate_batch` over a mesh for clips of these
-    lengths: each chunk runs T_pad - 1 steps in each non-empty block."""
+    lengths, its programs captured: each chunk is padded to a multiple of
+    the mesh and runs T_pad - 1 steps in every block."""
     buckets = {}
     for n in frames:
         t_pad = max(bucket, -(-n // bucket) * bucket)
         buckets[t_pad] = buckets.get(t_pad, 0) + 1
-    return sum((t_pad - 1) * min(replicas, max_batch, count - k)
-               for t_pad, count in buckets.items() for k in range(0, count, max_batch))
+    return sum((t_pad - 1) * replicas
+               for t_pad, count in buckets.items() for _ in range(0, count, max_batch))
 
 
 def run_sharded(torch, label, run, expected, sharded=True):
@@ -1058,16 +1088,17 @@ def run_sharded(torch, label, run, expected, sharded=True):
 def mesh_phase(torch, card, results):
     """Phase mesh: `generate_batch` and the daemon over a mesh of two
     replicas on cuda:0 (each its own worker thread and stream, over the
-    pipeline's own modules) and, with several cards, over every card. The
-    64 x 10 s batch with one replica (no mesh) and with the mesh, in turns
-    (one, mesh, mesh, one; the path of one replica is warm from phase 3);
-    the `-b` requests at fp32 rollout weights against the unsharded run
-    (BVH MAE < ROLLOUT_MAE); four concurrent /synthesize against
-    `generate_batch` without a mesh (the same bound)."""
+    pipeline's own modules, and its block's slot of the program cache) and,
+    with several cards, over every card; each run's programs captured
+    before it by `warmup`. The 64 x 10 s batch with one replica (no mesh)
+    and with the mesh, in turns (one, mesh, mesh, one); the `-b` requests
+    at fp32 rollout weights against the unsharded run (BVH MAE <
+    ROLLOUT_MAE); four concurrent /synthesize against `generate_batch`
+    without a mesh (the same bound)."""
     from zeggs_tpu_torch.cli import generate as cli
     from zeggs_tpu_torch.infer import GesturePipeline
     from zeggs_tpu_torch.infer import batch as batch_mod
-    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch, warmup
     from zeggs_tpu_torch.parallel import create_mesh, shard_rows
     from zeggs_tpu_torch.serve import GestureServer
 
@@ -1103,6 +1134,8 @@ def mesh_phase(torch, card, results):
         return result
 
     lock = threading.Lock()
+    report["warmup"] = {"one": warmup(pipe, [n10] * BATCH_COPIES),
+                        "mesh": warmup(pipe, [n10] * BATCH_COPIES, mesh=mesh)}
     pipe.rollout_batch, batch_mod._rollout_shard = timed_one, timed_block
     try:
         for label in ("one", "mesh", "mesh", "one"):
@@ -1142,6 +1175,7 @@ def mesh_phase(torch, card, results):
         csv_reqs = cli._requests(list(csv.DictReader(f)), "example")
     generate_batch(pipe32, csv_reqs, out / "b_plain")
     lengths = [round(60 * s) for s in CLIPS.values()]
+    warmup(pipe32, lengths, mesh=mesh)
     _, _, counts, sites = run_sharded(
         torch, "-b requests", lambda: generate_batch(pipe32, csv_reqs, out / "b_mesh", mesh=mesh),
         {"gru_cell": mesh_gru_launches(lengths, mesh.size), "mel_spectrogram": len(CLIPS)})
@@ -1159,6 +1193,8 @@ def mesh_phase(torch, card, results):
     serve_reqs = [Request(audio=WORK / f"{list(CLIPS)[i % len(CLIPS)]}.wav",
                           styles=[(WORK / "style.bvh", None)], file_name=f"serve_{i}",
                           seed=SEED + i) for i in range(4)]
+    warmup(pipe, [round(60 * CLIPS[Path(r.audio).stem]) for r in serve_reqs], max_batch=4,
+           mesh=mesh)
     srv = GestureServer(pipe, max_batch=4, max_wait_ms=60_000, mesh=mesh)
     port = srv.start()
     try:
@@ -1217,6 +1253,7 @@ def mesh_phase(torch, card, results):
         return report
     cards = create_mesh()
     per_card = [len(b) for b in shard_rows(torch.empty(BATCH_COPIES), cards)]
+    warmup(pipe, [n10] * BATCH_COPIES, mesh=cards)
     walls = []
     for rep in range(2):
         _, wall, counts, sites = run_sharded(
@@ -1237,6 +1274,296 @@ def mesh_phase(torch, card, results):
     if not mae < ROLLOUT_MAE:
         fail(f"mesh over the cards against one replica: BVH MAE {mae}")
     return report
+
+
+# ---------------------------------------------------------------------------
+# rollout programs
+# ---------------------------------------------------------------------------
+
+class EagerPrograms:
+    """The eager path that the program cache replaces, for comparison only:
+    every chunk through `decoder.rollout_chunk` and `decoder.rollout`, ~295
+    eager launches a decoder step (the port's batched and streamed path
+    before the programs). It takes the cache's place on a pipeline
+    (``pipe.programs``)."""
+
+    def __init__(self, pipe):
+        from zeggs_tpu_torch.models import decoder
+
+        s = pipe.stats
+        self.decoder, self.dec = decoder, pipe.networks["decoder"]
+        self.stats = (s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
+                      s["anim_output_std"], pipe.dt)
+
+    def rollout_chunk(self, carry, gaze, speech, style, quantize_int8=False, slot=0):
+        return self.decoder.rollout_chunk(self.dec, carry, gaze, speech, style, *self.stats,
+                                          output_indices=(0, 1, 4, 5), quantize_int8=quantize_int8)
+
+    def rollout(self, state0, gaze, speech, style, quantize_int8=False, slot=0):
+        return self.decoder.rollout(self.dec, *state0, gaze, speech, style, *self.stats,
+                                    output_indices=(0, 1, 4, 5), quantize_int8=quantize_int8)
+
+
+def counted_run(torch, run, label, expected):
+    """``run()`` with every count reset just before and read just after ->
+    (result, wall seconds, counts); fails unless each kernel launched as
+    ``expected``."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != {k: expected.get(k, 0) for k in counts}:
+        fail(f"programs {label}: launches {counts}, expected {expected}")
+    return out, wall, counts
+
+
+def programs_phase(torch, card, results):
+    """Phase programs: the rollout programs (CUDA graphs of the decoder
+    step, `infer/programs.py`) against the eager path they replace
+    (`EagerPrograms`), on one fp32-weight pipeline. `warmup` over the
+    inference fixture's plan (the three clips, the 64-clip batch and every
+    power-of-two drain up to 64; seconds, graphs, their memory and capture
+    times, peak memory); then, each through the programs and eagerly, with
+    launch counts: the `-b` requests, the 64-clip batch in turns (eager,
+    graphed, graphed, eager; frames/s and the rollout stage), a 10 s
+    session in turns (push p50 / p99, realtime factor) and four concurrent
+    daemon /synthesize (client p50). Graphed results must equal eager ones
+    within GRAPH_MAE (BVH MAE, and frames for the session)."""
+    from zeggs_tpu_torch.cli import generate as cli
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch, warmup
+    from zeggs_tpu_torch.serve import GestureServer
+
+    out = results / "programs"
+    report = {"card": card}
+    n10 = round(60 * CLIPS["clip_10s"])
+    lengths = [round(60 * s) for s in CLIPS.values()]
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                           rollout_weights="float32")
+    modes = {"graphed": pipe.programs, "eager": EagerPrograms(pipe)}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    warm = warmup(pipe, lengths + [n10] * BATCH_COPIES, all_pow2=True, style_jobs=[(300, 1)])
+    torch.cuda.synchronize()
+    warm_wall, warm_counts = time.perf_counter() - t0, read_counts()
+    made = pipe.programs.programs()
+    graphs = [{"B": key[2], "steps": key[3], "capture_s": p.capture_seconds,
+               "bytes": p.graph_bytes, "launches": p.launches} for key, p in made]
+    report["warmup"] = {**warm, "wall_s": warm_wall, "launches": warm_counts,
+                        "graphs": len(graphs), "graph_bytes": sum(g["bytes"] for g in graphs),
+                        "capture_s": sum(g["capture_s"] for g in graphs),
+                        "peak_bytes": torch.cuda.max_memory_allocated(), "by_graph": graphs}
+    w = report["warmup"]
+    print(f"programs: warmup of {len(warm['compiled'])} shapes {warm['compiled']}: "
+          f"{warm['seconds']} s ({warm_wall:.3f} s wall), {w['graphs']} graphs captured in "
+          f"{w['capture_s']:.3f} s, graph memory {w['graph_bytes'] / 2**20:.1f} MiB, peak device "
+          f"memory {w['peak_bytes'] / 2**20:.1f} MiB, launches {warm_counts}, {card}")
+    for g in graphs:
+        print(f"programs: graph B={g['B']} steps={g['steps']}: capture "
+              f"{g['capture_s'] * 1e3:.1f} ms, {g['bytes'] / 2**20:.2f} MiB, {g['launches']} "
+              "GRU-cell launches a replay")
+    if not (warm["complete"] and len(graphs) == 6 * 3
+            and all(g["launches"] == g["steps"] for g in graphs)):
+        fail(f"programs: warmup {warm}, graphs {graphs}")
+
+    # the -b requests: one B=1 decoder launch and the chunk of two clips
+    with open(WORK / "requests.csv", newline="") as f:
+        csv_reqs = cli._requests(list(csv.DictReader(f)), "example")
+    b_counts = {}
+    for mode in ("eager", "graphed"):
+        pipe.programs = modes[mode]
+        _, _, b_counts[mode] = counted_run(
+            torch, lambda: generate_batch(pipe, csv_reqs, out / f"b_{mode}"), f"-b {mode}",
+            {"decoder_rollout": 1, "gru_cell": 1023, "mel_spectrogram": len(CLIPS)})
+    b_mae = {r.file_name: float(bvh_mae(torch, out / "b_graphed" / f"{r.file_name}.bvh",
+                                        out / "b_eager" / f"{r.file_name}.bvh")) for r in csv_reqs}
+    report["batched"] = {"launches": b_counts, "bvh_mae": b_mae}
+    print(f"programs: -b requests graphed against eager, launches {b_counts['graphed']} / "
+          f"{b_counts['eager']}, BVH MAE {b_mae} (tol {GRAPH_MAE:g})")
+
+    # the 64-clip batch in turns, the rollout stage timed to the card's end
+    reqs = [Request(audio=WORK / "clip_10s.wav", styles=[(WORK / "style.bvh", None)],
+                    file_name=f"copy_{i}", seed=SEED + i) for i in range(BATCH_COPIES)]
+    frames = BATCH_COPIES * n10
+    rates, stages, stage = {"eager": [], "graphed": []}, {"eager": [], "graphed": []}, []
+    batch_counts = {}
+    rollout_batch = pipe.rollout_batch
+
+    def timed(*args):
+        t = time.perf_counter()
+        result = rollout_batch(*args)
+        torch.cuda.synchronize()
+        stage.append(time.perf_counter() - t)
+        return result
+
+    pipe.rollout_batch = timed
+    try:
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            pipe.programs = modes[mode]
+            stage.clear()
+            _, wall, batch_counts[mode] = counted_run(
+                torch, lambda: generate_batch(pipe, reqs, out / f"batch64_{mode}"),
+                f"batch of {BATCH_COPIES} {mode}",
+                {"gru_cell": 1023, "mel_spectrogram": BATCH_COPIES})
+            rates[mode].append(frames / wall)
+            stages[mode].append(stage[0])
+    finally:
+        del pipe.rollout_batch
+    batch_mae = max(float(bvh_mae(torch, out / "batch64_graphed" / f"copy_{i}.bvh",
+                                  out / "batch64_eager" / f"copy_{i}.bvh"))
+                    for i in (0, BATCH_COPIES - 1))
+    report["batch64"] = {"frames_per_s": rates, "rollout_stage_s": stages, "bvh_mae": batch_mae,
+                         "launches": batch_counts}
+    print(f"time programs batch of {BATCH_COPIES} x 10 s clips ({frames} frames): graphed "
+          f"{', '.join(f'{r:.1f}' for r in rates['graphed'])} frames/s, eager "
+          f"{', '.join(f'{r:.1f}' for r in rates['eager'])} frames/s "
+          f"({max(rates['graphed']) / max(rates['eager']):.3f}x best to best); rollout stage "
+          f"graphed {', '.join(f'{t:.3f}' for t in stages['graphed'])} s "
+          f"({min(stages['graphed']) / 1023 * 1e3:.3f} ms a step), eager "
+          f"{', '.join(f'{t:.3f}' for t in stages['eager'])} s "
+          f"({min(stages['eager']) / 1023 * 1e3:.3f} ms a step); first and last copy graphed "
+          f"against eager BVH MAE {batch_mae:.3e}, {card}")
+
+    # a 10 s session in turns, after one that captures the session's program
+    audio = read_wav("clip_10s")
+    pipe.programs = modes["graphed"]
+    run_session(torch, pipe, audio)
+    sessions, times, s_counts = {}, {"eager": [], "graphed": []}, {}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        pipe.programs = modes[mode]
+        (sess, t), _, s_counts[mode] = counted_run(
+            torch, lambda: run_session(torch, pipe, audio), f"session {mode}",
+            {"gru_cell": SESSION_STEPS, "mel_spectrogram": 40})
+        sessions[mode] = sess
+        times[mode].append(t)
+    got, ref = sessions["graphed"]._collect(0), sessions["eager"]._collect(0)
+    s_err = max(float(np.abs(got[k] - ref[k]).max()) for k in got)
+    s_mae = float(bvh_mae(torch, sessions["graphed"].write_bvh(out, "stream_graphed"),
+                          sessions["eager"].write_bvh(out, "stream_eager")))
+    report["session"] = {"launches": s_counts, "max_abs_diff": s_err, "bvh_mae": s_mae,
+                         "times": times}
+    for mode in ("graphed", "eager"):
+        def listed(key, scale=1e3, ts=times[mode]):
+            return ", ".join(f"{x[key] * scale:.{1 if scale > 1 else 2}f}" for x in ts)
+
+        print(f"time programs session {mode}, 10 s clip in 0.5 s pushes, quantum 16: push p50 "
+              f"{listed('push_p50_s')} ms, p99 {listed('push_p99_s')} ms, time to first frame "
+              f"{listed('ttff_s')} ms, realtime factor {listed('rtf', 1)}, {card}")
+    print(f"programs: session graphed against eager, launches {s_counts['graphed']} / "
+          f"{s_counts['eager']}, frames max|diff| {s_err:.3e}, BVH MAE {s_mae:.3e} "
+          f"(tol {GRAPH_MAE:g})")
+
+    # four concurrent /synthesize (4, 10, 12, 4 s): one drain of two chunks
+    style = base64.b64encode((WORK / "style.bvh").read_bytes()).decode()
+    serve_clips = [list(CLIPS)[i % len(CLIPS)] for i in range(4)]
+    served, d_counts, client = {}, {}, {}
+    for mode in ("eager", "graphed"):
+        pipe.programs = modes[mode]
+        srv = GestureServer(pipe, max_batch=4, max_wait_ms=60_000)
+        port = srv.start()
+        replies = [None] * 4
+
+        def request(i):
+            t = time.perf_counter()
+            replies[i] = post(port, "/synthesize", {
+                "audio_wav_b64": base64.b64encode(
+                    (WORK / f"{serve_clips[i]}.wav").read_bytes()).decode(),
+                "styles": [{"bvh_b64": style}], "seed": SEED + i, "file_name": f"serve_{i}"})
+            replies[i]["client_ms"] = (time.perf_counter() - t) * 1e3
+
+        def synthesize():
+            threads = [threading.Thread(target=request, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return threads
+
+        try:
+            threads, _, d_counts[mode] = counted_run(
+                torch, synthesize, f"daemon {mode}",
+                {"gru_cell": 511 + 1023, "mel_spectrogram": 4})
+        finally:
+            srv.stop()
+        if any(t.is_alive() for t in threads) or any(r is None for r in replies):
+            fail(f"programs daemon {mode}: a /synthesize request failed")
+        if [r["batch_size"] for r in replies] != [4] * 4:
+            fail(f"programs daemon {mode}: batch sizes {[r['batch_size'] for r in replies]}")
+        client[mode] = [r["client_ms"] for r in replies]
+        for r in replies:
+            (out / f"{mode}_{r['file_name']}.bvh").write_text(r["bvh"])
+        served[mode] = [r["file_name"] for r in replies]
+    d_mae = max(float(bvh_mae(torch, out / f"graphed_{n}.bvh", out / f"eager_{n}.bvh"))
+                for n in served["graphed"])
+    pipe.programs = modes["graphed"]
+    report["serve"] = {"launches": d_counts, "client_ms": client, "bvh_mae": d_mae}
+    print(f"time programs daemon, 4 concurrent /synthesize in one drain: client p50 graphed "
+          f"{np.percentile(client['graphed'], 50):.1f} ms, eager "
+          f"{np.percentile(client['eager'], 50):.1f} ms; graphed against eager BVH MAE "
+          f"{d_mae:.3e} (tol {GRAPH_MAE:g}), launches {d_counts['graphed']}, {card}")
+    worst = max(max(b_mae.values()), batch_mae, s_mae, d_mae)
+    if not (worst <= GRAPH_MAE and s_err <= GRAPH_MAE):
+        fail(f"programs: graphed against eager BVH MAE {worst}, session frames {s_err}")
+    return report
+
+
+def failed_capture_raises(torch):
+    """A host sync injected into the decoder step (through the pose
+    integration) makes a program's capture fail: the rollout must raise,
+    not hand back eager results; then a new cache captures and replays the
+    chunk as the eager step computes it. Run last: a failed capture leaves
+    the caching allocator's record of it behind."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+    from zeggs_tpu_torch.models import decoder as D
+    from zeggs_tpu_torch.models import pose as P
+
+    pipe = GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                           rollout_weights="float32")
+    feats, n = pipe.audio_to_features(WORK / "clip_04s.wav")
+    _, f0 = pipe.style_example_from_bvh(WORK / "style.bvh")
+    with torch.inference_mode():
+        speech = pipe.encode_speech_batched(feats[None].expand(2, -1, -1))[:, :17]
+        style = torch.zeros((2, 17, pipe.style_encoding_size), device="cuda")
+        state0 = [getattr(f0, k)[0:1].expand(2, *getattr(f0, k).shape[1:]).contiguous()
+                  for k in ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy",
+                            "lvel", "lvrt")]
+        gaze = f0.gaze_pos[0].expand(2, 17, 3)
+        eager = EagerPrograms(pipe)
+        carry = D.init_carry(pipe.networks["decoder"], *state0, gaze[:, 0], style[:, 0],
+                             *eager.stats[:2])
+        cond = (gaze[:, 1:], speech[:, 1:], style[:, 1:])
+        integrate = P.devectorize_output
+
+        def syncing(*args, **kw):
+            result = integrate(*args, **kw)
+            result[0].sum().item()  # waits for the card: not allowed while capturing
+            return result
+
+        P.devectorize_output = syncing
+        try:
+            ProgramCache(pipe.networks["decoder"], pipe.stats, pipe.dt).rollout_chunk(carry, *cond)
+            error = None
+        except RuntimeError as e:
+            error = f"{e} ({e.__cause__})"
+        finally:
+            P.devectorize_output = integrate
+        ref = eager.rollout_chunk(carry, *cond)[1]
+        got = ProgramCache(pipe.networks["decoder"], pipe.stats, pipe.dt).rollout_chunk(
+            carry, *cond)[1]
+        torch.cuda.synchronize()
+    after = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    print(f"programs: a host sync inside the step: {'raised' if error else 'did not raise'}: "
+          f"{error}; a new cache afterwards against eager max|diff| {after:.3e}")
+    if error is None or not after <= GRAPH_MAE:
+        fail(f"programs: a failed capture did not raise ({error}) or the card broke ({after})")
+    return {"raised": error, "after_max_abs_diff": after}
 
 
 # ---------------------------------------------------------------------------
@@ -1904,8 +2231,9 @@ def v2_labels(torch, card, results):
     counts = {
         "csv": run_cli_path(torch, out / "csv", "v2 labels (CSV, bf16)", flags,
                             {"decoder_rollout": n, "mel_spectrogram": n}, V2),
-        "batched": run_cli_path(torch, out / "batched", "v2 labels (-b, bf16)", ["-b", *flags],
-                                {"decoder_rollout": 1, "gru_cell": 1023, "mel_spectrogram": n}, V2),
+        "batched": run_cli_path(
+            torch, out / "batched", "v2 labels (-b, bf16)", ["-b", *flags],
+            {"decoder_rollout": 1, "gru_cell": B_CHUNK_GRU, "mel_spectrogram": n}, V2),
         "int8": run_cli_path(torch, out / "int8", "v2 labels (--int8)", ["--int8", *flags],
                              {"decoder_rollout": n, "mel_spectrogram": n}, V2),
     }
@@ -1940,6 +2268,7 @@ def v2_labels(torch, card, results):
     sess, times = run_session(torch, pipe, read_wav("clip_10s"), styles=[V2_STYLES[1]],
                               first_pose=WORK / "style.bvh")
     counts["streaming"] = read_counts()
+    made = len(pipe.programs.programs())  # the session's, on a new pipeline
     path = sess.write_bvh(out, "stream")
     finite = bool(np.isfinite(bvh.load(path)["rotations"]).all())
     print(f"v2 labels: streaming session ({V2_STYLES[1]}), 10 s clip in 0.5 s pushes, quantum 16: "
@@ -1949,8 +2278,8 @@ def v2_labels(torch, card, results):
           f"factor {times['rtf']:.2f}, {card}")
     c = counts["streaming"]
     if not (sess.frames_emitted == round(60 * CLIPS["clip_10s"]) and finite
-            and c["gru_cell"] == sess.decoder_steps and c["decoder_rollout"] == 0
-            and c["mel_spectrogram"] > 0):
+            and c["gru_cell"] == sess.decoder_steps + made == SESSION_STEPS + 1
+            and c["decoder_rollout"] == 0 and c["mel_spectrogram"] > 0):
         fail(f"v2 labels streaming: {sess.frames_emitted} frames, launches {c}")
 
     srv = GestureServer(pipe, max_batch=8, max_wait_ms=50)
@@ -2342,36 +2671,61 @@ def main():
     print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     check_ptxas(libs)
 
+    phase_s, mark = {}, [t0]
+
+    def done(phase):  # seconds since the last phase ended
+        now = time.perf_counter()
+        phase_s[phase], mark[0] = now - mark[0], now
+
+    done("build")
     results = write_fixture(torch)
     with torch.inference_mode():
         report = check_kernels(torch, card)
         floor = barrier_floor(torch, card, report["bfloat16"]["T1"])
         gru = check_gru_cell(torch, card)
         mel = check_mel(torch, card)
+    done("fixture_and_kernels")
     n = len(CLIPS)
     csv_counts = run_cli_path(torch, results, "main path (CSV, bf16)", [],
                               {"decoder_rollout": n, "mel_spectrogram": n})
-    batch_counts = run_cli_path(torch, results / "batched", "batched path (-b, bf16)", ["-b"],
-                                {"decoder_rollout": 1, "gru_cell": 1023, "mel_spectrogram": n})
+    batch_counts = run_cli_path(
+        torch, results / "batched", "batched path (-b, bf16)", ["-b"],
+        {"decoder_rollout": 1, "gru_cell": B_CHUNK_GRU, "mel_spectrogram": n})
     batched_vs_single(torch, results)
     int8_counts = run_cli_path(torch, results / "int8", "int8 path (--int8)", ["--int8"],
                                {"decoder_rollout": n, "mel_spectrogram": n})
+    done("cli_paths")
     time_requests(torch, card, results)
     time_batch(torch, card, results)
     card_vs_cpu(torch)
+    done("timings_and_card_vs_cpu")
     stream = streaming(torch, card, results)
+    done("streaming")
     served = serve(torch, card)
+    done("serve")
     meshed = mesh_phase(torch, card, results)
+    done("mesh")
+    progs = programs_phase(torch, card, results)
+    done("programs")
     reference = reference_checkpoints(torch, card)
     with torch.inference_mode():
         gl = griffin_lim_phase(torch, card)
+    done("reference_checkpoints_and_griffin_lim")
     grad_err = grad_card_vs_cpu(torch)
     trained = train_phase(torch, card)
+    done("train")
     ddp = ddp_phase(torch, card, WORK / "train")
+    done("ddp")
     v2 = v2_labels(torch, card, results)
     v2.update(training=v2_training(torch, card, WORK / "train"))
+    done("v2_labels")
     options = train_options(torch, card, WORK / "train")
+    done("train_options")
     judged = quality(torch, card, WORK / "train")
+    done("quality")
+    progs["failed_capture"] = failed_capture_raises(torch)
+    done("failed_capture")
+    print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2406,6 +2760,7 @@ def main():
     print(json.dumps({"v2_labels": v2, "train_options": options, "quality": judged,
                       "card": card}))
     print(json.dumps({"mesh": meshed}))
+    print(json.dumps({"programs": progs}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         {**decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
@@ -2434,7 +2789,13 @@ def main():
          "launches_eval": judged["launches"]["gru_cell"],
          "launches_mesh_batch64": meshed["batch64_mesh"]["launches"]["gru_cell"],
          "launches_mesh_batched": meshed["batched"]["launches"]["gru_cell"],
-         "launches_mesh_serve": meshed["serve"]["launches"]["gru_cell"]},
+         "launches_mesh_serve": meshed["serve"]["launches"]["gru_cell"],
+         "launches_streaming": stream["counts"]["gru_cell"],
+         "launches_programs_warmup": progs["warmup"]["launches"]["gru_cell"],
+         "launches_programs_batched": progs["batched"]["launches"]["graphed"]["gru_cell"],
+         "launches_programs_batch64": progs["batch64"]["launches"]["graphed"]["gru_cell"],
+         "launches_programs_session": progs["session"]["launches"]["graphed"]["gru_cell"],
+         "launches_programs_serve": progs["serve"]["launches"]["graphed"]["gru_cell"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",

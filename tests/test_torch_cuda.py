@@ -18,7 +18,10 @@ gradients: per leaf 1e-4 * max(1, max|g|) against the same step on the CPU,
 TF32 off. The GRU cell launched from four threads at once counts every
 launch; `generate_batch` over a mesh (two replicas on one card, and every
 card where there are several) stays within the pose MAE budget of the
-unsharded run. Generation from the reference's `.pt` pickles writes the same BVH
+unsharded run. The rollout programs (CUDA graphs of the decoder step)
+equal the eager chunk within 1e-6, count their replays' launches, raise
+where the step cannot be captured, and give the single-thread result when
+two threads replay at once. Generation from the reference's `.pt` pickles writes the same BVH
 text as from the `.npz` files; Griffin-Lim on the card against the CPU from
 the same first signal: relative L2 error 1e-4 (tests/test_torch_misc.py's
 bound); one NCCL process comes up on the card.
@@ -372,6 +375,140 @@ def test_gru_cell_counts_launches_from_four_threads(device):
     assert len(errors) == 4 and max(errors) <= 2e-5
 
 
+
+def _program_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
+    """A decoder of PyTorch-default initialisation on the card, its pose
+    statistics and the carry and (B, T - 1) conditioning of a chunk."""
+    from zeggs_tpu_torch.infer.programs import _STATS
+
+    pose_in, pose_out = 6 + njoints * 15 + 3, 6 + njoints * 15
+    torch.manual_seed(seed)
+    dec = D.Decoder(pose_in, pose_out, 64, 64, hidden).to(device).eval().requires_grad_(False)
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * scale).astype(np.float32), device=device)
+
+    stats = (t(pose_in, scale=0.1), t(pose_in).abs() + 0.5, t(pose_out, scale=0.1),
+             t(pose_out).abs() * 0.2 + 0.05)
+    q = t(B, 4)
+    state0 = (t(B, 3), q / q.norm(dim=-1, keepdim=True), t(B, 3, scale=0.1), t(B, 3, scale=0.1),
+              t(B, njoints, 3), t(B, njoints, 2, 3), t(B, njoints, 3, scale=0.1),
+              t(B, njoints, 3, scale=0.1))
+    gaze, speech, style = t(B, T, 3, scale=100.0), t(B, T, 64), t(B, T, 64)
+    with torch.inference_mode():
+        carry = D.init_carry(dec, *state0, gaze[:, 0], style[:, 0], *stats[:2])
+    return dec, dict(zip(_STATS, stats)), carry, (gaze[:, 1:], speech[:, 1:], style[:, 1:])
+
+
+def _eager_chunk(dec, stats, carry, cond, quantize_int8=False):
+    return D.rollout_chunk(dec, carry, *cond, *stats.values(), DT, output_indices=(0, 1, 4, 5),
+                           quantize_int8=quantize_int8)
+
+
+def _max_diff(a, b):
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("quantize_int8", [False, True])
+def test_graphed_chunk_equals_the_eager_chunk(device, quantize_int8):
+    """40 steps of 4 rows through the program cache (two replays of the
+    16-step graph, two of the 4-step one) against the eager chunk on the
+    card: trajectories and carry within 1e-6 (bitwise expected: the same
+    kernels on the same inputs)."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+
+    dec, stats, carry, cond = _program_case(device)
+    with torch.inference_mode():
+        ref_carry, ref = _eager_chunk(dec, stats, carry, cond, quantize_int8)
+        got_carry, got = ProgramCache(dec, stats, DT).rollout_chunk(carry, *cond,
+                                                                    quantize_int8=quantize_int8)
+        torch.cuda.synchronize()
+    err = max(_max_diff(got, ref), _max_diff(got_carry, ref_carry))
+    print(f"graphed against eager chunk (int8 {quantize_int8}): max|diff| {err:.3e}")
+    assert err <= 1e-6
+
+
+def test_launch_counter_counts_replays(device):
+    """A capture adds nothing and its one eager warm-up step adds one
+    GRU-cell launch; each replay adds the launches its graph captured. 40
+    steps: the 16- and 4-step programs, 40 + 2 launches at the first call,
+    40 at the next."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+
+    dec, stats, carry, cond = _program_case(device)
+    cache = ProgramCache(dec, stats, DT)
+    counts = []
+    with torch.inference_mode():
+        for _ in range(2):
+            before = GC.launches
+            cache.rollout_chunk(carry, *cond)
+            counts.append(GC.launches - before)
+    assert counts == [42, 40]
+    assert sorted(p.launches for _, p in cache.programs()) == [4, 16]
+
+
+def test_an_uncapturable_step_raises(device, monkeypatch):
+    """A host sync inside the step (injected into the pose integration)
+    makes the capture fail: the rollout raises instead of returning the
+    eager result, and the card keeps working afterwards."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+
+    dec, stats, carry, cond = _program_case(device)
+    integrate = P.devectorize_output
+
+    def syncing(*args, **kw):
+        out = integrate(*args, **kw)
+        out[0].sum().item()  # waits for the card: not allowed while capturing
+        return out
+
+    monkeypatch.setattr(P, "devectorize_output", syncing)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="capturing the rollout"):
+        ProgramCache(dec, stats, DT).rollout_chunk(carry, *cond)
+    monkeypatch.undo()
+    with torch.inference_mode():
+        ref = _eager_chunk(dec, stats, carry, cond)[1]
+        got = ProgramCache(dec, stats, DT).rollout_chunk(carry, *cond)[1]
+    assert _max_diff(got, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("slots", [(0, 1), ("shared", "shared")])
+def test_block_slots_replaying_at_once_give_the_single_thread_result(device, slots):
+    """Two threads on one card, each on a stream of its own, roll out their
+    own rows five times over: through two slots (one captures its programs
+    while the other replays) or through one slot's programs (serialised by
+    the program's lock and event). Every result equals the single-thread
+    run of the same rows."""
+    import threading
+
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+
+    dec, stats, carry_a, cond_a = _program_case(device, seed=21)
+    _, _, carry_b, cond_b = _program_case(device, seed=22)
+    with torch.inference_mode():
+        refs = [ProgramCache(dec, stats, DT).rollout_chunk(c, *k)[1]
+                for c, k in ((carry_a, cond_a), (carry_b, cond_b))]
+        cache = ProgramCache(dec, stats, DT)
+        cache.rollout_chunk(carry_a, *cond_a, slot=slots[0])  # slot 0's programs exist
+    torch.cuda.synchronize()
+    errors = [None, None]
+
+    def run(i, carry, cond):
+        stream = torch.cuda.Stream(device)
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            outs = [cache.rollout_chunk(carry, *cond, slot=slots[i])[1] for _ in range(5)]
+            stream.synchronize()
+        errors[i] = max(_max_diff(o, refs[i]) for o in outs)
+
+    threads = [threading.Thread(target=run, args=(0, carry_a, cond_a)),
+               threading.Thread(target=run, args=(1, carry_b, cond_b))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [0.0, 0.0]
+
 def _train_case(rnn_cond="normal", compute_dtype="float32", remat=False):
     """Small-width options, statistics and a random batch (B=3, 24 frames,
     8 joints) of a training step."""
@@ -567,11 +704,12 @@ def test_label_request_launches_the_decoder_once(small_models, tmp_path):
 def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path):
     """Three requests as one chunk over two replicas on cuda:0 and, with
     several cards, over every card, at fp32 rollout weights: each BVH within
-    the pose MAE budget of 1e-3 of the run without a mesh; GRU-cell launches
-    = decoder steps x non-empty blocks, no decoder launch, one mel launch a
-    request."""
+    the pose MAE budget of 1e-3 of the run without a mesh; with the mesh's
+    programs captured first by `warmup`, GRU-cell launches = decoder steps
+    x blocks (the chunk padded to a multiple of the mesh), no decoder
+    launch, one mel launch a request."""
     from zeggs_tpu_torch.infer import GesturePipeline
-    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch, warmup
     from zeggs_tpu_torch.io import bvh
     from zeggs_tpu_torch.parallel import create_mesh
 
@@ -587,11 +725,12 @@ def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path):
     if torch.cuda.device_count() > 1:
         meshes.append(create_mesh())
     for k, mesh in enumerate(meshes):
+        warmup(pipe, [n] * len(reqs), bucket=64, mesh=mesh)
         before = (DR.launches, GC.launches, MK.launches)
         generate_batch(pipe, reqs, tmp_path / f"mesh{k}", bucket=64, mesh=mesh)
         torch.cuda.synchronize()
         launched = tuple(a - b for a, b in zip((DR.launches, GC.launches, MK.launches), before))
-        assert launched == (0, steps * min(mesh.size, 3), 3), (mesh, launched)
+        assert launched == (0, steps * mesh.size, 3), (mesh, launched)
         for r in reqs:
             a = bvh.load(tmp_path / "plain" / f"{r.file_name}.bvh")
             b = bvh.load(tmp_path / f"mesh{k}" / f"{r.file_name}.bvh")

@@ -35,7 +35,7 @@ from zeggs_tpu.infer.batch import generate_batch as jax_generate_batch
 from zeggs_tpu.parallel import create_mesh as jax_create_mesh
 from zeggs_tpu_torch.infer import generate as G
 from zeggs_tpu_torch.infer.batch import Request, generate_batch
-from zeggs_tpu_torch.models import decoder as D
+from zeggs_tpu_torch.infer.programs import ProgramCache
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
 from zeggs_tpu_torch.ops.kernels import gru_cell as GC
 from zeggs_tpu_torch.ops.kernels import mel as MK
@@ -101,9 +101,9 @@ def test_shard_rows_gives_contiguous_blocks_in_order(rows, sizes):
 
 @pytest.fixture(scope="module")
 def sharded(corpus, tmp_path_factory):  # noqa: F811
-    """Five requests (uneven blocks 2, 1, 1, 1) over four replicas: the
-    port's and JAX's on four of its eight forced host devices, at
-    temperature 0."""
+    """Five requests (padded to eight rows, blocks of two) over four
+    replicas: the port's and JAX's on four of its eight forced host devices,
+    at temperature 0."""
     c = corpus
     root = tmp_path_factory.mktemp("mesh_batch")
     jax_generate_batch(JaxPipeline(c["nets"], c["data"], options=c["opts"]),
@@ -124,9 +124,9 @@ def test_sharded_generate_batch_matches_jax(sharded, i):
 
 @pytest.mark.parametrize("n,mesh_size", [(5, 4), (3, 4), (4, 2)])
 def test_sharded_equals_unsharded_at_temperature_1(corpus, tmp_path, n, mesh_size):  # noqa: F811
-    """Five requests (uneven blocks), three over four replicas (one block
-    empty, skipped) and four over two: the same files, in the same order,
-    as the run without a mesh, within the budget."""
+    """Five requests over four replicas (padded to eight rows), three over
+    four (padded to four) and four over two: the same files, in the same
+    order, as the run without a mesh, within the budget."""
     c = corpus
     pipe = _port(c)
     reqs = _requests(c, Request, 1.0, n)
@@ -140,11 +140,11 @@ def test_sharded_equals_unsharded_at_temperature_1(corpus, tmp_path, n, mesh_siz
 
 def test_one_clip_chunk_runs_the_eager_rollout_under_a_mesh(corpus, tmp_path, monkeypatch):  # noqa: F811
     """With int8 rollout weights a one-clip chunk takes the B=1 decoder
-    kernel's plain version on the CPU; under a mesh it runs the eager
-    rollout instead, at float32 products (1 < INT8_BATCHED_MIN), as
-    zeggs_tpu's sharded path does. Its BVH equals a float32-products eager
-    run without a mesh (a bfloat16 pipeline on the CPU has no B=1 kernel)
-    within 1e-5."""
+    kernel's plain version on the CPU; under a mesh (padded to four rows)
+    it runs the rollout programs instead, at float32 products
+    (4 < INT8_BATCHED_MIN), as zeggs_tpu's sharded path does. Its BVH
+    equals a float32-products run without a mesh (a bfloat16 pipeline on
+    the CPU has no B=1 kernel) within 1e-5."""
     c = corpus
     calls = []
     plain_b1 = DR.rollout_b1_plain
@@ -160,17 +160,18 @@ def test_one_clip_chunk_runs_the_eager_rollout_under_a_mesh(corpus, tmp_path, mo
 
 
 def test_int8_products_are_decided_by_the_chunk(corpus, tmp_path, monkeypatch):  # noqa: F811
-    """Three clips over four replicas with int8 products from B=2: every
-    block of one row runs int8 products, because its chunk holds three."""
+    """Three clips over four replicas with int8 products from B=2: the chunk
+    is padded to four rows, and every block of one row runs int8 products
+    (through its slot of the program cache), because its chunk holds four."""
     c = corpus
     monkeypatch.setattr(G, "INT8_BATCHED_MIN", 2)
     seen = []
-    rollout = D.rollout
-    monkeypatch.setattr(D, "rollout", lambda *a, **k: seen.append(
-        (a[9].shape[0], k["quantize_int8"])) or rollout(*a, **k))
+    rollout = ProgramCache.rollout
+    monkeypatch.setattr(ProgramCache, "rollout", lambda self, *a: seen.append(
+        (a[1].shape[0], a[4], a[5])) or rollout(self, *a))
     generate_batch(_port(c, rollout_weights="int8"), _requests(c, Request, 0.0, 3), tmp_path,
                    bucket=BUCKET, mesh=create_mesh(devices=CPU4))
-    assert sorted(seen) == [(1, True)] * 3
+    assert sorted(seen) == [(1, True, slot) for slot in range(4)]
 
 
 def test_workers_run_in_inference_mode_of_their_own(corpus, tmp_path):  # noqa: F811

@@ -1,24 +1,34 @@
 """Batched multi-clip inference (counterpart of `zeggs_tpu/infer/batch.py`).
 
-Requests are bucketed by padded length (``bucket`` frames), cut into
-chunks of at most ``max_batch`` clips and rolled out as one batched rollout
-per chunk; BVH writing runs on a thread pool while the next chunk is
-computed. A chunk of one clip takes the B=1 decoder kernel on a card;
-larger chunks run the eager rollout with GRU1 of every step through the
-GRU-cell kernel.
+Requests are bucketed by padded length (``bucket`` frames) and cut into
+chunks of at most ``max_batch`` clips; each chunk's rows are padded to the
+batch size of the padding policy (`resolve_batch_pad`: "pow2" or "full",
+`_chunk_b_pad`) and rolled out as one batched rollout, so that a few rollout
+programs (`infer/programs.py`: CUDA graphs of the decoder step) serve every
+chunk. BVH writing runs on a thread pool while the next chunk is computed.
+A chunk of one row takes the B=1 decoder kernel on a card; larger chunks
+replay the programs, GRU1 of every step through the GRU-cell kernel.
+`plan_programs` predicts the (T_pad, B_pad) shapes `generate_batch` will
+run, and `warmup` captures and runs each of them once, before traffic.
 
-With a ``mesh`` (`parallel/mesh.py`) each chunk's rows are split into one
-contiguous block a device (`shard_rows`). Everything before the rollout
+Pad rows repeat the chunk's last frame-0 state and get zero audio, gaze
+and style, as `zeggs_tpu`'s do; they are computed and discarded. The GRU
+cell's batch tile follows B, so a padded chunk's real rows are close to,
+not bit-equal to, an unpadded run's.
+
+With a ``mesh`` (`parallel/mesh.py`) B is padded to a multiple of the
+mesh's size and each chunk's rows are split into one contiguous block a
+device (`shard_rows`), all of one size. Everything before the rollout
 stays on ``pipe.device``: audio features, style featurizing and the style
-draws, so the draws do not depend on the mesh. One host thread a
-non-empty block then copies its rows to its device, runs the speech
-encoder and the eager rollout there on a stream of its own, in inference
-mode (grad mode is per thread), and copies the outputs to the host. Every
-chunk under a mesh runs the eager rollout, one of a single clip too, as
-`zeggs_tpu`'s sharded path does; whether it runs int8 products is decided
-by the chunk's size, not the block's. Blocks of a chunk reduce in another
-order than the whole chunk (the GRU cell's batch tile follows B), so
-sharded rows are close to, not bit-equal to, unsharded ones.
+draws, so the draws do not depend on the mesh. One host thread a block
+then copies its rows to its device, runs the speech encoder and the
+rollout there on a stream of its own, through its block's slot of the
+replica's program cache, in inference mode (grad mode is per thread), and
+copies the outputs to the host. Every chunk under a mesh runs the
+programs, one of a single clip too, as `zeggs_tpu`'s sharded path does;
+whether it runs int8 products is decided by the padded chunk's size, not
+the block's. Blocks of a chunk reduce in another order than the whole
+chunk, so sharded rows are close to, not bit-equal to, unsharded ones.
 
 Length padding is exact for the speech encoder: features are
 edge-repeated, which coincides with the encoder's replicate padding at the
@@ -27,15 +37,11 @@ discarded. Style examples of all requests are encoded in one batched call
 per length bucket, and each request's style draws come from its own
 `torch.Generator`, so a batched request gets the draws `generate_gesture`
 makes for the same seed.
-
-Left out, because they exist only for XLA's compile cache:
-``resolve_batch_pad`` ("full" / "pow2") and the padding of B,
-``plan_programs`` and ``warmup``. Eager PyTorch has no compiled programs
-to bound.
 """
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -113,67 +119,224 @@ def _blend(req: Request, encodings, n_frames):
     return torch.einsum("nbc,n->bc", torch.stack(encodings), ratio)
 
 
+def resolve_batch_pad(batch_pad):
+    """The chunk batch-padding policy.
+
+    "pow2": pad each chunk's batch to the next power of two, so partial
+    tail chunks reuse a small ladder of programs; right where compute
+    scales with B, as on a card at B <= 64 (the GRU cell's batch tile
+    follows B).
+    "full": pad every chunk to ``max_batch``: one program per length
+    bucket.
+    "auto": "pow2". `zeggs_tpu` takes "full" only on a TPU, where a B <= 64
+    rollout costs the same at any B."""
+    if batch_pad == "auto":
+        return "pow2"
+    if batch_pad not in ("pow2", "full"):
+        raise ValueError(f"batch_pad must be 'auto', 'pow2' or 'full', not {batch_pad!r}")
+    return batch_pad
+
+
+def _chunk_b_pad(B, max_batch, n_dev, batch_pad):
+    """Padded batch size for a chunk of B requests under the policy."""
+    if batch_pad == "full":
+        return _round_up(max_batch, n_dev)
+    B_pad = max(n_dev, 1 << (B - 1).bit_length())
+    B_pad = _round_up(min(B_pad, max_batch), n_dev)
+    return max(B_pad, _round_up(B, n_dev))
+
+
+def plan_programs(lengths, bucket=512, max_batch=64, n_dev=1, batch_pad="auto"):
+    """The (T_pad, B_pad) rollout shapes `generate_batch` will run for clips
+    of these lengths (frames), sorted: its bucketing and chunking exactly.
+    `warmup` captures them; operators size a deployment's set of programs
+    with it."""
+    batch_pad = resolve_batch_pad(batch_pad)
+    buckets = {}
+    for n in lengths:
+        T_pad = max(bucket, _round_up(int(n), bucket))
+        buckets.setdefault(T_pad, []).append(n)
+    plan = []
+    for T_pad, items in sorted(buckets.items()):
+        for chunk_start in range(0, len(items), max_batch):
+            B = len(items[chunk_start : chunk_start + max_batch])
+            plan.append((T_pad, _chunk_b_pad(B, max_batch, n_dev, batch_pad)))
+    return sorted(set(plan))
+
+
+@torch.inference_mode()
+def warmup(pipe, lengths, bucket=512, max_batch=64, mesh=None, style_jobs=None, all_pow2=False,
+           deadline=None, log=None, batch_pad="auto"):
+    """Capture the rollout programs for clips of the given lengths before
+    traffic arrives.
+
+    Runs each planned (T_pad, B_pad) chunk once on zero inputs, the speech
+    encoder and the rollout, through the path `generate_batch` takes (with
+    a ``mesh``, on each of its replicas, a block's slot each), so that every
+    program that chunk needs is captured: one at a time, checking
+    ``deadline`` (a ``time.monotonic`` value) between chunks.
+
+    all_pow2: also every power-of-two batch size up to ``max_batch`` per
+    length bucket, the shapes a micro-batching daemon's partial drains give
+    under "pow2"; a no-op under "full". style_jobs: optional list of
+    (example_len, count) to run the batched style encoder on. batch_pad:
+    the policy `generate_batch` and the daemon will run with.
+
+    Returns {"compiled": [(T_pad, B_pad), ...], "skipped": [...],
+    "seconds": total, "complete": bool}: ``skipped`` names the shapes the
+    deadline cut off, whose programs will be captured at their first use."""
+    n_dev = mesh.size if mesh is not None else 1
+    batch_pad = resolve_batch_pad(batch_pad)
+    plan = plan_programs(lengths, bucket=bucket, max_batch=max_batch, n_dev=n_dev,
+                         batch_pad=batch_pad)
+    if all_pow2 and batch_pad == "pow2":
+        pow2s, b = [], max(1, n_dev)
+        while b <= max_batch:
+            pow2s.append(b)
+            b *= 2
+        extra = [(t, b) for t in sorted({t for t, _ in plan}) for b in pow2s]
+        # the plan first (it serves the known traffic), then the daemon's
+        # partial-drain shapes, smallest first
+        plan = plan + sorted(set(extra) - set(plan))
+
+    dev, J = pipe.device, pipe.njoints
+    n_audio = pipe.stats["audio_input_mean"].shape[0]
+    replicas = None if mesh is None else [pipe.replica(d) for d in mesh.devices]
+    t_start = time.monotonic()
+    compiled, skipped = [], []
+
+    def expired():
+        return deadline is not None and time.monotonic() >= deadline
+
+    with ThreadPoolExecutor(max_workers=n_dev, thread_name_prefix=SHARD_THREADS) as shards:
+        for T_pad, B_pad in plan:
+            if expired():
+                skipped.append((T_pad, B_pad))
+                continue
+            t0 = time.monotonic()
+            state0 = [torch.zeros((B_pad, *s), device=dev)
+                      for s in ((3,), (4,), (3,), (3,), (J, 3), (J, 2, 3), (J, 3), (J, 3))]
+            state0[1][:, 0] = 1.0  # identity root rotation
+            state0[5][..., 0, 0] = state0[5][..., 1, 1] = 1.0  # identity joint rotations
+            _run_chunk(pipe, replicas, mesh, shards, tuple(state0),
+                       torch.zeros((B_pad, T_pad, 3), device=dev),
+                       torch.zeros((B_pad, T_pad, n_audio), device=dev),
+                       torch.zeros((B_pad, T_pad, pipe.style_encoding_size), device=dev))
+            if log:
+                log(f"warm rollout T={T_pad} B={B_pad}: {time.monotonic() - t0:.1f}s")
+            compiled.append((T_pad, B_pad))
+
+    for L, count in style_jobs or []:
+        if expired():
+            # recorded, so that "complete" does not claim the style encoder
+            # ran when the deadline fell between the two loops
+            skipped.append(("style", int(L), int(count)))
+            continue
+        t0 = time.monotonic()
+        generator = torch.Generator(device=dev)
+        # an example vector is the pose input with its zeroed gaze slot
+        pipe.encode_styles_batch([(torch.zeros((int(L), 6 + J * 15 + 3), device=dev), 1.0,
+                                   generator) for _ in range(int(count))])
+        if log:
+            log(f"warm style-encode L={L} N={count}: {time.monotonic() - t0:.1f}s")
+
+    return {"compiled": compiled, "skipped": skipped,
+            "seconds": round(time.monotonic() - t_start, 1), "complete": not skipped}
+
+
 def _pad_time(x, T_pad):
     """(n, ...) -> (T_pad, ...), repeating the last frame."""
     return torch.cat([x, x[-1:].expand(T_pad - x.shape[0], *x.shape[1:])])
 
 
-def _shard_on(replica, rows, quantize_int8):
+def _pad_rows(x, pad):
+    """(B, ...) -> (B + pad, ...), zero rows appended."""
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else x
+
+
+def _assemble(chunk, T_pad, B_pad):
+    """A chunk's (state0, gaze, audio features, style) at T_pad frames and
+    B_pad rows: pad rows repeat the last frame-0 state and get zero audio,
+    gaze and style (`zeggs_tpu`'s `generate_batch`)."""
+    pad = B_pad - len(chunk)
+    state0 = tuple(torch.stack([c[4][j] for c in chunk] + [chunk[-1][4][j]] * pad)
+                   for j in range(len(_STATE0)))
+    audio = torch.stack([_pad_time(af[:n], T_pad) for (_, af, n, *_) in chunk])
+    gaze = torch.stack([gz.expand(T_pad, 3) for (*_, gz) in chunk])
+    style = torch.stack([_pad_time(se[:n], T_pad) if se.ndim == 2 else se.expand(T_pad, -1)
+                         for (_, _, n, se, _, _) in chunk])
+    return state0, _pad_rows(gaze, pad), _pad_rows(audio, pad), _pad_rows(style, pad)
+
+
+def _shard_on(replica, rows, quantize_int8, slot):
     dev = replica.device
     *state0, gaze, audio, style = (t.to(dev, non_blocking=True) for t in rows)
     speech = replica.encode_speech_batched(audio)
-    out = replica.rollout_eager(tuple(state0), gaze, speech, style.contiguous(), quantize_int8)
+    out = replica.rollout(tuple(state0), gaze, speech, style.contiguous(), quantize_int8, slot)
     return [o.float().cpu() for o in out]
 
 
-def _rollout_shard(replica, ready, rows, quantize_int8):
-    """One block of a chunk on ``replica``, in a worker thread -> host
-    trajectories. ``rows``: the block's 8 frame-0 state tensors, gaze,
-    audio features and style, on the pipeline's device, written before the
-    CUDA event ``ready`` (None when that device is the CPU). On a card the
-    block runs on a stream of its own, which is idle when this returns."""
+def _rollout_shard(replica, ready, rows, quantize_int8, slot):
+    """One block of a chunk on ``replica``, in a worker thread, through the
+    programs of ``slot`` (the block's index) -> host trajectories.
+    ``rows``: the block's 8 frame-0 state tensors, gaze, audio features and
+    style, on the pipeline's device, written before the CUDA event
+    ``ready`` (None when that device is the CPU). On a card the block runs
+    on a stream of its own, which is idle when this returns."""
     dev = replica.device
     with torch.inference_mode():  # grad mode is per thread
         if dev.type != "cuda":
             if ready is not None:
                 ready.synchronize()
-            return _shard_on(replica, rows, quantize_int8)
+            return _shard_on(replica, rows, quantize_int8, slot)
         stream = torch.cuda.Stream(dev)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
-            host = _shard_on(replica, rows, quantize_int8)
+            host = _shard_on(replica, rows, quantize_int8, slot)
             stream.synchronize()
         return host
 
 
 def _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio, style):
-    """A chunk's rows over the mesh, one task of the pool ``shards`` a
-    non-empty block -> host trajectories of the whole chunk, in row order.
-    The int8 decision is the chunk's."""
+    """A padded chunk's rows over the mesh, one task of the pool ``shards``
+    a block -> host trajectories of the whole chunk, in row order. The int8
+    decision is the chunk's."""
     ready = None
     if pipe.device.type == "cuda":
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(pipe.device))
     blocks = zip(*(shard_rows(t, mesh) for t in (*state0, gaze, audio, style)))
     quantize_int8 = pipe.quantize_batched(audio.shape[0])
-    futures = [shards.submit(_rollout_shard, replica, ready, rows, quantize_int8)
-               for replica, rows in zip(replicas, blocks) if rows[0].shape[0]]
+    futures = [shards.submit(_rollout_shard, replica, ready, rows, quantize_int8, slot)
+               for slot, (replica, rows) in enumerate(zip(replicas, blocks))]
     outs = [f.result() for f in futures]
     return [torch.cat(parts) for parts in zip(*outs)]
 
 
+def _run_chunk(pipe, replicas, mesh, shards, state0, gaze, audio, style):
+    """One padded chunk: speech encoder and rollout on ``pipe.device``, or
+    over the ``mesh`` -> host trajectories (B_pad, T_pad, ...)."""
+    if mesh is None:
+        speech = pipe.encode_speech_batched(audio)
+        out = pipe.rollout_batch(state0, gaze, speech, style.contiguous())
+        return [o.float().cpu() for o in out]
+    return _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio, style)
+
+
 @torch.inference_mode()
 def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=None,
-                   write_workers=4):
+                   write_workers=4, batch_pad="auto"):
     """Run many requests as bucketed batched rollouts on ``pipe.device``, or
     with a ``mesh`` (`parallel.create_mesh`) each chunk's rows split over
     its devices.
 
-    pipe: GesturePipeline. Writes <file_name>.bvh (and the .wav) of every
+    pipe: GesturePipeline. batch_pad: the chunk batch-padding policy
+    (`resolve_batch_pad`). Writes <file_name>.bvh (and the .wav) of every
     request under ``results_path``; returns the written BVH paths, in the
     order of the requests' buckets and chunks. Returns once every block
     has finished."""
+    batch_pad = resolve_batch_pad(batch_pad)
     results_path = Path(results_path)
     results_path.mkdir(parents=True, exist_ok=True)
 
@@ -192,28 +355,16 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
         item = (req, af, n, style, state, feats.gaze_pos[0])
         buckets.setdefault(max(bucket, _round_up(n, bucket)), []).append(item)
 
+    n_dev = 1 if mesh is None else mesh.size
     replicas = None if mesh is None else [pipe.replica(d) for d in mesh.devices]
     with ThreadPoolExecutor(max_workers=write_workers) as pool, \
-            ThreadPoolExecutor(max_workers=1 if mesh is None else mesh.size,
-                               thread_name_prefix=SHARD_THREADS) as shards:
+            ThreadPoolExecutor(max_workers=n_dev, thread_name_prefix=SHARD_THREADS) as shards:
         futures = []
         for T_pad, items in sorted(buckets.items()):
             for start in range(0, len(items), max_batch):
                 chunk = items[start : start + max_batch]
-                state0 = tuple(torch.stack([c[4][j] for c in chunk]) for j in range(len(_STATE0)))
-                audio = torch.stack([_pad_time(af[:n], T_pad) for (_, af, n, *_) in chunk])
-                gaze = torch.stack([gz.expand(T_pad, 3) for (*_, gz) in chunk])
-                style = torch.stack([
-                    _pad_time(se[:n], T_pad) if se.ndim == 2 else se.expand(T_pad, -1)
-                    for (_, _, n, se, _, _) in chunk
-                ])
-                if mesh is None:
-                    speech = pipe.encode_speech_batched(audio)
-                    out = pipe.rollout_batch(state0, gaze, speech, style.contiguous())
-                    host = [o.float().cpu() for o in out]
-                else:
-                    host = _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio,
-                                            style)
+                B_pad = _chunk_b_pad(len(chunk), max_batch, n_dev, batch_pad)
+                host = _run_chunk(pipe, replicas, mesh, shards, *_assemble(chunk, T_pad, B_pad))
                 for i, (req, _, n, *_) in enumerate(chunk):
                     futures.append(pool.submit(
                         pipe.write_result, results_path, req.file_name,

@@ -6,10 +6,13 @@ styles blend by a weighted sum ("add") or by per-frame ranges ("stitch");
 a first pose may be given; the VAE temperature and the seed control the
 style draw. `GesturePipeline` loads networks and statistics once onto one
 device and serves requests there; at B=1 on a card the decoder rollout is
-one launch of the CUDA kernel. The batched entry points used by
-`infer/batch.py` (`encode_speech_batched`, `encode_styles_batch`,
-`rollout_batch`) live here too, with `GesturePipeline.replica`, which puts
-the speech encoder and the decoder on another device of a mesh, and
+one launch of the CUDA kernel, and larger batches replay CUDA graphs of the
+decoder step from the pipeline's program cache (`infer/programs.py`, the
+counterpart of `zeggs_tpu`'s ``_rollout_fn`` cache). The batched entry
+points used by `infer/batch.py` (`encode_speech_batched`,
+`encode_styles_batch`, `rollout_batch`) live here too, with
+`GesturePipeline.replica`, which puts the speech encoder and the decoder
+(with a program cache of its own) on another device of a mesh, and
 `streaming_session` opens an `infer/streaming.py` session.
 """
 
@@ -35,6 +38,7 @@ from ..models.style_encoder import StyleEncoder
 from ..ops import quat, xform
 from ..ops.kernels import build
 from ..utils import split_by_ratio, write_bvh
+from .programs import ProgramCache
 from .streaming import StreamingSession
 
 _ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
@@ -83,29 +87,38 @@ def _with_quaternions(out):
 @dataclasses.dataclass(frozen=True)
 class Replica:
     """What a batched rollout runs on one device: the speech encoder and the
-    decoder (``networks``), the statistics, and the frame time."""
+    decoder (``networks``), the statistics, the frame time and the
+    decoder's program cache (None for the ``film`` cell, which has none)."""
 
     device: torch.device
     networks: dict
     stats: dict
     dt: float
+    programs: ProgramCache | None
 
     def encode_speech_batched(self, audio_features):
         """(B, T, n_features) -> (B, T, S) speech encodings."""
         x = (audio_features - self.stats["audio_input_mean"]) / self.stats["audio_input_std"]
         return self.networks["speech_encoder"](x)
 
-    def rollout_eager(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False):
-        """The eager rollout of B clips (see `GesturePipeline.rollout_batch`),
-        GRU1 of every step through the GRU-cell kernel on a card; products
-        on int8 values with ``quantize_int8``."""
-        s = self.stats
-        out = decoder.rollout(
-            self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
-            s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
-            s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
-            quantize_int8=quantize_int8,
-        )
+    def rollout(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False, slot=0):
+        """The rollout of B clips (see `GesturePipeline.rollout_batch`)
+        through the program cache: on a card the decoder steps replay CUDA
+        graphs, GRU1 of every step through the GRU-cell kernel, and the
+        programs of ``slot`` are used by this call alone (a mesh gives each
+        block its own); products on int8 values with ``quantize_int8``. The
+        ``film`` cell has no programs and runs the eager `decoder.rollout`."""
+        if self.programs is not None:
+            out = self.programs.rollout(state0, gaze_pos, speech_enc, style_enc, quantize_int8,
+                                        slot)
+        else:
+            s = self.stats
+            out = decoder.rollout(
+                self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
+                s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
+                s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
+                quantize_int8=quantize_int8,
+            )
         return _with_quaternions(out)
 
 
@@ -155,8 +168,11 @@ class GesturePipeline:
                 for k in stats.files
             }
         self.networks = self._load_networks(network_path)
+        self.style_encoding_size = (len(self.label_names) if style_encoding_type == "label"
+                                    else self.opts.net.style_encoder.style_encoding_size)
         self._style_cache = {}
         self._replicas = {}
+        self.programs = self._program_cache(self.networks["decoder"], self.stats)
 
         dec_cfg = self.opts.net.decoder
         self.rollout_weights = rollout_weights
@@ -171,6 +187,9 @@ class GesturePipeline:
                 self.stats["anim_input_std"], self.stats["anim_output_mean"],
                 self.stats["anim_output_std"], self.dt, weights_dtype=weights_dtype,
             )
+
+    def _program_cache(self, dec, stats):
+        return ProgramCache(dec, stats, self.dt) if dec.rnn_cond == "normal" else None
 
     # -- loading ----------------------------------------------------------
 
@@ -310,26 +329,29 @@ class GesturePipeline:
         """Rollout of B clips from their frame-0 states (8 tensors (B, ...),
         the order of `decoder.rollout`) under (B, T, ...) conditioning ->
         (root_pos, root_rot, lpos, lrot) trajectories (B, T, ...). B=1 takes
-        the decoder kernel where the pipeline has one; larger batches run
-        the eager rollout, with GRU1 through the GRU-cell kernel on a card."""
+        the decoder kernel where the pipeline has one, as `zeggs_tpu`'s
+        ``_rollout_fn`` takes its fused kernel at ``shape[0] == 1``; every
+        other chunk runs the decoder step from the pipeline's program cache
+        (CUDA graphs on a card, GRU1 through the GRU-cell kernel)."""
         B = speech_enc.shape[0]
         if self._fused_fn is not None and B == 1:
             out = self._fused_fn(state0, gaze_pos, speech_enc, style_enc)
             return _with_quaternions(tuple(out[i] for i in (0, 1, 4, 5)))
-        return self.replica(self.device).rollout_eager(
+        return self.replica(self.device).rollout(
             state0, gaze_pos, speech_enc, style_enc, quantize_int8=self.quantize_batched(B))
 
     def replica(self, device):
         """The speech encoder, the decoder and the statistics on ``device``
-        (a card by its index, as a mesh names it; a `Replica`): on the
-        pipeline's own device its own modules, else a copy made at the first
-        call and kept. A replica runs only the eager rollout; the B=1 decoder
-        kernel's packing stays with the pipeline."""
+        (a card by its index, as a mesh names it, or without one for the
+        pipeline's; a `Replica`): on the pipeline's own device its own
+        modules and program cache, else a copy made at the first
+        call and kept, with a program cache of its own. A replica runs no
+        B=1 decoder kernel: its packing stays with the pipeline."""
         device = torch.device(device)
         own = self.stats["anim_input_mean"].device
-        if device == own:
+        if device == own or (device.type == own.type and device.index is None):
             return Replica(own, {n: self.networks[n] for n in ("speech_encoder", "decoder")},
-                           self.stats, self.dt)
+                           self.stats, self.dt, self.programs)
         if device not in self._replicas:
             require_device(device)
             # plain tensors, also when called under inference mode: the copy
@@ -338,7 +360,8 @@ class GesturePipeline:
                 nets = {n: copy.deepcopy(self.networks[n]).to(device)
                         for n in ("speech_encoder", "decoder")}
                 stats = {k: v.to(device) for k, v in self.stats.items()}
-            self._replicas[device] = Replica(device, nets, stats, self.dt)
+            self._replicas[device] = Replica(device, nets, stats, self.dt,
+                                             self._program_cache(nets["decoder"], stats))
         return self._replicas[device]
 
     def streaming_session(self, styles, first_pose=None, blend_ratio=(0.5, 0.5),

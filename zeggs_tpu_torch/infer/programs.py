@@ -1,0 +1,269 @@
+"""Rollout programs: the decoder's batched and streamed chunks replayed from
+CUDA graphs (counterpart of `zeggs_tpu`'s compiled rollout programs,
+`infer/generate.py::_rollout_fn` and the streaming session's `_dec_fn`).
+
+`zeggs_tpu` runs every batched rollout and every streamed decoder chunk as
+a jitted program kept in a cache by shape. A CUDA graph is the PyTorch
+counterpart on a card: fixed shapes and addresses, captured once, replayed
+with one launch. A `RolloutProgram` is one graph of ``steps`` decoder steps
+of the ``normal`` cell for B rows (`models.decoder.chunk_step`, GRU1
+through the GRU-cell kernel), with static buffers for its inputs (the
+carry, and ``steps`` columns of the gaze and of the hoisted speech/style
+products ``pre_l0`` / ``pre_g0``) and for its outputs (root_pos, root_rot,
+lpos, ltxy of each step). `ProgramCache.rollout_chunk` runs n steps as a
+ladder of grains, ``n // 16`` replays of the 16-step program and then the
+4- and 1-step ones for the rest (the streaming session's decoder ladder),
+so a length needs at most three graphs for each B. The speech/style
+products are computed once for the whole chunk, as `rollout_chunk` computes
+them, and copied in a grain at a time: a replayed chunk equals the eager
+one bit for bit.
+
+A program is keyed by (device, slot, B, steps, int8). The slot keeps
+callers that run at once apart: each block of a mesh (`infer/batch.py`)
+has its own, and streaming sessions share ``"stream"``.
+
+Captures run on one high-priority stream a device, in ``thread_local``
+capture mode, so that other threads keep working on the card (a mesh's
+other block, a daemon's handler threads) while one thread captures. Each
+capture first runs one eager step on that stream (loading every kernel and
+the products' workspace before the capture); its GRU-cell launch counts as
+a launch. The graphs that one thread captures share its cuBLAS workspace
+on the capture stream, so the graph work of a device is serialised: one
+lock a device orders the captures and the runs' copies and replays on the
+host, and one event a device orders them on the card, whatever stream
+each caller runs on. A run holds the lock only while it enqueues, so one
+caller enqueues while the card runs another's replays. Each replay counts
+the launches its graph captured (`ops/kernels/gru_cell.py`). A capture or
+replay that fails raises: there is no eager fall-back on a card.
+
+On the CPU a program runs its steps eagerly: the plain version, which the
+tests hold to `models.decoder.rollout_chunk`.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import torch
+
+from ..models import decoder
+from ..ops.kernels import gru_cell as GC
+
+#: the grains a chunk is cut into, largest first (JAX's decoder grain of 16
+#: and the streaming ladder's 4 and 1)
+GRAINS = (16, 4, 1)
+#: the pose-state entries a chunk emits: root_pos, root_rot, lpos, ltxy
+OUTPUTS = (0, 1, 4, 5)
+_STATS = ("anim_input_mean", "anim_input_std", "anim_output_mean", "anim_output_std")
+
+
+class _DeviceSite:
+    """A device's capture stream, and the lock and event that order every
+    capture and replay on the device (see the module's docstring). The
+    stream comes from the high-priority pool, which no other code of the
+    port draws from, so no other thread's work can land on it while it
+    captures."""
+
+    def __init__(self, device):
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()  # the end of the device's last graph work
+        self.device = device
+        self._stream = None
+
+    @property
+    def stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device, priority=-1)
+        return self._stream
+
+
+_sites = {}
+_sites_lock = threading.Lock()
+
+
+def _device_site(device):
+    with _sites_lock:
+        if device not in _sites:
+            _sites[device] = _DeviceSite(device)
+        return _sites[device]
+
+
+class RolloutProgram:
+    """``steps`` decoder steps of B rows as one CUDA graph on a card (an
+    eager loop on the CPU). ``step`` is `decoder.chunk_step`'s step,
+    ``state`` the 10 state tensors it takes (h0, h1, root_pos, root_rot,
+    root_vel, root_vrt, lpos, ltxy, lvel, lvrt; shapes and dtypes are
+    copied, not the values) and ``widths`` the last dimensions of the gaze,
+    pre_l0 and pre_g0 columns."""
+
+    def __init__(self, step, state, widths, steps):
+        self.step, self.steps = step, int(steps)
+        self.device = state[0].device
+        self.rows = state[0].shape[0]
+        self.capture_seconds = 0.0
+        self.graph_bytes = 0  # static buffers and the graph's memory pool
+        self.launches = 0  # GRU-cell launches a replay runs
+        if self.device.type != "cuda":
+            return
+        self._site = _device_site(self.device)
+        with torch.cuda.device(self.device):
+            self._state = tuple(torch.zeros_like(s, memory_format=torch.contiguous_format)
+                                for s in state)
+            self._cond = tuple(torch.zeros((self.rows, self.steps, w), device=self.device)
+                               for w in widths)
+            self.graph_bytes = sum(t.numel() * t.element_size() for t in self._state + self._cond)
+            self._capture()
+
+    def _body(self, steps):
+        """``steps`` steps from the static state over the static conditioning
+        -> the stacked outputs (B, steps, ...); the new state is written back
+        into the static state."""
+        state = self._state
+        emitted = [[] for _ in OUTPUTS]
+        for t in range(steps):
+            state = self.step(*(c[:, t] for c in self._cond), *state)
+            for e, i in zip(emitted, OUTPUTS):
+                e.append(state[2 + i])
+        outs = tuple(torch.stack(e, dim=1) for e in emitted)
+        for dst, src in zip(self._state, state):
+            dst.copy_(src)
+        return outs
+
+    def _capture(self):
+        site = self._site
+        with site.lock:
+            t0 = time.perf_counter()
+            side = site.stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            side.wait_event(site.done)
+            with torch.cuda.stream(side):
+                self._body(1)  # warm-up, eager: every kernel loaded on this stream
+                reserved = torch.cuda.memory_reserved(self.device)
+                captured = GC.captured_launches()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outs = self._body(self.steps)
+                except Exception as e:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was invalidated: the error above says why
+                    raise RuntimeError(f"capturing the rollout program of {self.rows} rows and "
+                                       f"{self.steps} steps on {self.device} failed") from e
+                graph.capture_end()
+            site.done.record(side)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.launches = GC.captured_launches() - captured
+            self.graph_bytes += torch.cuda.memory_reserved(self.device) - reserved
+            self.capture_seconds = time.perf_counter() - t0
+        self._graph, self._outs = graph, outs
+
+    def run(self, state, gaze, pre_l0, pre_g0, outs, start, reps):
+        """``reps`` x ``steps`` steps from ``state`` over the columns
+        [start, start + reps * steps) of the (B, n, ...) conditioning; each
+        step's outputs go to those columns of ``outs`` (root_pos, root_rot,
+        lpos, ltxy, each (B, n, ...)). Returns the new state (tensors of the
+        caller's)."""
+        stop = start + reps * self.steps
+        if self.device.type != "cuda":
+            for t in range(start, stop):
+                state = self.step(gaze[:, t], pre_l0[:, t], pre_g0[:, t], *state)
+                for o, i in zip(outs, OUTPUTS):
+                    o[:, t] = state[2 + i]
+            return state
+        with self._site.lock, torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._site.done)  # the device's last graph work
+            for dst, src in zip(self._state, state):
+                dst.copy_(src)
+            for t in range(start, stop, self.steps):
+                for dst, src in zip(self._cond, (gaze, pre_l0, pre_g0)):
+                    dst.copy_(src[:, t : t + self.steps])
+                self._graph.replay()
+                for o, s in zip(outs, self._outs):
+                    o[:, t : t + self.steps].copy_(s)
+                GC.count_replay(self.launches)
+            state = tuple(s.clone() for s in self._state)
+            self._site.done.record(stream)
+        return state
+
+
+class ProgramCache:
+    """The rollout programs of one decoder on its device (counterpart of
+    `zeggs_tpu`'s ``_rollout_cache`` and ``pipe._stream_fn_cache``), keyed
+    by (device, slot, B, steps, int8) and made at their first use or by
+    `infer.batch.warmup`. ``stats``: the decoder's pose statistics on the
+    same device; ``dt``: the frame time."""
+
+    def __init__(self, dec, stats, dt):
+        if dec.rnn_cond != "normal":
+            raise ValueError("rollout programs run the 'normal' decoder cell")
+        self.dec, self.dt = dec, dt
+        self.stats = tuple(stats[k] for k in _STATS)
+        self.device = dec.cell.out.weight.device
+        self._programs = {}
+        self._steps = {}
+        self._lock = threading.RLock()
+
+    def _chunk_step(self, njoints, quantize_int8):
+        key = (njoints, bool(quantize_int8))
+        with self._lock:
+            if key not in self._steps:
+                conditioning, step, plain = decoder.chunk_step(self.dec, *self.stats, self.dt,
+                                                               njoints, quantize_int8)
+                if plain:
+                    raise RuntimeError("rollout programs are inference only: call under "
+                                       "torch.inference_mode()")
+                self._steps[key] = conditioning, step
+            return self._steps[key]
+
+    def program(self, state, steps, quantize_int8=False, slot=0):
+        """The program of ``steps`` steps for the shapes of ``state`` (the
+        10 step-state tensors), made on first use."""
+        key = (self.device, slot, state[0].shape[0], int(steps), bool(quantize_int8))
+        with self._lock:
+            if key not in self._programs:
+                _, step = self._chunk_step(state[6].shape[1], quantize_int8)
+                H = state[0].shape[1]
+                self._programs[key] = RolloutProgram(step, state, (3, H, 3 * H), steps)
+            return self._programs[key]
+
+    def programs(self):
+        """(key, program) of every program made so far."""
+        with self._lock:
+            return list(self._programs.items())
+
+    def rollout_chunk(self, carry, gaze_pos, speech_encoding, style_encoding, quantize_int8=False,
+                      slot=0):
+        """`decoder.rollout_chunk` with ``output_indices=(0, 1, 4, 5)``: n =
+        ``speech_encoding.shape[1]`` steps from ``carry``, the speech/style
+        products hoisted over all n, then the programs' grains. Returns
+        (new_carry, (root_pos, root_rot, lpos, ltxy) (B, n, ...))."""
+        B, n = speech_encoding.shape[:2]
+        conditioning, _ = self._chunk_step(carry[5].shape[1], quantize_int8)
+        pre_l0, pre_g0 = conditioning(speech_encoding, style_encoding)
+        h, *pose_state = carry
+        state = (h[0], h[1].contiguous(), *pose_state)
+        outs = tuple(torch.empty((B, n) + tuple(state[2 + i].shape[1:]), dtype=state[2 + i].dtype,
+                                 device=state[2 + i].device) for i in OUTPUTS)
+        t = 0
+        while t < n:
+            steps = next(g for g in GRAINS if g <= n - t)
+            reps = (n - t) // steps
+            program = self.program(state, steps, quantize_int8, slot)
+            state = program.run(state, gaze_pos, pre_l0, pre_g0, outs, t, reps)
+            t += reps * steps
+        return (torch.stack(state[:2]),) + tuple(state[2:]), outs
+
+    def rollout(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False, slot=0):
+        """`decoder.rollout` with ``output_indices=(0, 1, 4, 5)``: the
+        cell-state encoder from frame 0, then `rollout_chunk` over frames
+        1..T-1. Returns (root_pos, root_rot, lpos, ltxy) (B, T, ...), frame 0
+        equal to the inputs."""
+        carry0 = decoder.init_carry(self.dec, *state0, gaze_pos[:, 0], style_enc[:, 0],
+                                    *self.stats[:2])
+        _, ys = self.rollout_chunk(carry0, gaze_pos[:, 1:], speech_enc[:, 1:], style_enc[:, 1:],
+                                   quantize_int8, slot)
+        return tuple(torch.cat([state0[i][:, None], y], dim=1) for i, y in zip(OUTPUTS, ys))

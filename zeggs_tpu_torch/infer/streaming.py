@@ -20,14 +20,18 @@ Stages, each with its own lookahead:
     -> normalised audio features
     -> speech encoder (k=31 conv: 15 future frames), a valid convolution
        over the index-clamped window
-    -> decoder chunks through `models.decoder.rollout_chunk`, with GRU1
-       of every step on the GRU-cell kernel
+    -> decoder chunks through the pipeline's program cache
+       (`infer/programs.py`, shared by its sessions as `zeggs_tpu` shares
+       ``pipe._stream_fn_cache``): CUDA graphs of the decoder step on a
+       card, GRU1 of every step on the GRU-cell kernel
     -> gesture frames (root_pos, root_rot, lpos, ltxy)
 
 The bucket ladders, grains and ``quantum`` of the JAX session are kept, so
-a push emits as many frames as the JAX session's does. At finish() a tail
-shorter than the grain runs at its own size: the JAX session pads it to the
-grain only to bound XLA's set of compiled programs.
+a push emits as many frames as the JAX session's does. At finish() a
+decoder tail shorter than the grain is padded to the grain with zero
+speech rows and sliced, as the JAX session does: the step is causal, so
+the padded steps change only the frames that are dropped and the carry,
+which is dead after finish(), and a quantum-16 session runs one program.
 
 Loudness normalisation (BS.1770) is a global transform and cannot be
 streamed exactly; a session takes a fixed ``gain`` instead.
@@ -369,7 +373,7 @@ class StreamingSession:
                                          self.style, s["anim_input_mean"], s["anim_input_std"])
         self._speech_rows = None  # (n, S) encodings on the device; row 0 unused
         self._steps_done = 0
-        self.decoder_steps = 0  # steps run, tails included
+        self.decoder_steps = 0  # steps run, padded tails included
         self._out = [{k: state0[i].cpu().numpy() for k, i in zip(_KEYS, (0, 1, 4, 5))}]
         self.frames_emitted = 1
 
@@ -403,22 +407,22 @@ class StreamingSession:
 
     # -- decoder chunks ------------------------------------------------------
 
-    def _run_decoder(self, n):
-        """n decoder steps from the carry -> the 4 emitted (1, n, ...) tensors."""
-        pipe = self.pipe
-        s = pipe.stats
+    def _run_decoder(self, n, steps=None):
+        """n decoder steps from the carry -> the 4 emitted (1, n, ...)
+        tensors. ``steps`` > n pads the chunk with zero speech rows and runs
+        that many steps (the finish tail)."""
+        steps = steps or n
         lo = 1 + self._steps_done  # step t consumes speech row 1 + t
-        speech = self._speech_rows[lo : lo + n][None]
-        gaze = self._gaze0[:, None].expand(1, n, 3)
-        style = self.style[:, None].expand(1, n, self.style.shape[-1])
-        self._carry, out = decoder.rollout_chunk(
-            pipe.networks["decoder"], self._carry, gaze, speech, style,
-            s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
-            s["anim_output_std"], pipe.dt, output_indices=(0, 1, 4, 5),
-        )
+        speech = self._speech_rows[lo : lo + n]
+        if steps > n:
+            speech = torch.cat([speech, speech.new_zeros((steps - n, speech.shape[1]))])
+        gaze = self._gaze0[:, None].expand(1, steps, 3)
+        style = self.style[:, None].expand(1, steps, self.style.shape[-1])
+        self._carry, out = self.pipe.programs.rollout_chunk(self._carry, gaze, speech[None], style,
+                                                            slot="stream")
         self._steps_done += n
-        self.decoder_steps += n
-        return out
+        self.decoder_steps += steps
+        return tuple(o[:, :n] for o in out)
 
     def _advance_decoder(self, flush=False):
         if self._speech_rows is None:
@@ -427,11 +431,12 @@ class StreamingSession:
         while True:
             avail = (self._speech_rows.shape[0] - 1) - self._steps_done
             if flush and 0 < avail < self._grain_dec:
-                n = avail
-            else:
-                n = _largest_bucket(_DECODER_BUCKETS, avail)
-                if n == 0 or (not flush and n < self.quantum):
-                    break
+                # pad the tail to the grain and slice it (JAX's pad-and-slice)
+                emitted.append(self._run_decoder(avail, self._grain_dec))
+                break
+            n = _largest_bucket(_DECODER_BUCKETS, avail)
+            if n == 0 or (not flush and n < self.quantum):
+                break
             emitted.append(self._run_decoder(n))
         if emitted:
             entry = {k: torch.cat([o[i] for o in emitted], dim=1)[0].cpu().numpy()

@@ -14,7 +14,8 @@ devectorize_output and feeds the integrated pose back.
   ``quantize_int8`` runs the step's products on int8 values instead. Where
   autograd records (a training step), every step is the plain
   differentiable math over the live parameters, with the products in
-  ``compute_dtype``.
+  ``compute_dtype``. `chunk_step` gives that step and the hoisted
+  products; `infer/programs.py` replays the step from CUDA graphs.
 ``film``: style enters only through per-layer (gamma, beta) modulation and
   the GRU input is [hidden | pose | speech]; always the eager plain step,
   at every batch size, as in the reference.
@@ -145,28 +146,22 @@ def _qdot(xq_sx, wq_sw):
     return (xq @ wq.T) * (sx * sw)
 
 
-def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding,
-                  anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
-                  output_indices=None, quantize_int8=False, compute_dtype=torch.float32,
-                  remat=False):
-    """Advance ``speech_encoding.shape[1]`` frames of the ``normal`` cell
-    from ``carry``; each column of the (B, n, ...) conditioning is one step.
-    Returns (new_carry, trajectories (B, n, ...)).
+def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, anim_output_std,
+               dt, njoints, quantize_int8=False, compute_dtype=torch.float32):
+    """The ``normal`` cell's frame step as `rollout_chunk` runs it ->
+    (conditioning, step, plain).
 
-    Where autograd records on the decoder's parameters, or ``compute_dtype``
-    is not float32, every step is the differentiable plain math of the
-    reference's scan: products in ``compute_dtype`` over the live
-    parameters, states and pose integration in float32. ``remat``
-    recomputes each step in the backward pass instead of storing it.
-    Otherwise (inference) GRU1 runs through the GRU-cell kernel.
-
-    quantize_int8 (inference): the in-step products run on symmetric int8
-    weights with one scale per output row and activations quantized
-    dynamically with one scale per batch row (floors 1e-12), as the JAX
-    package's batched int8 path does; the speech/style projections stay
-    float32."""
+    ``conditioning(speech (B, n, S), style (B, n, C))`` gives the hoisted
+    speech/style part of layer0's and of GRU0's input product for all n
+    frames, (pre_l0 (B, n, H), pre_g0 (B, n, 3H)). ``step(gaze_t, l0_t,
+    g0_t, h0, h1, root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lvel,
+    lvrt)`` advances one frame from one column of each and returns the new
+    state in the same order. ``plain`` says whether the step is the
+    differentiable plain math (autograd records, or ``compute_dtype`` is
+    not float32); otherwise GRU1 runs through the GRU-cell kernel. The
+    weights are derived once, here, so a caller that keeps the step (a
+    CUDA graph of it) keeps them."""
     cp = dec.cell
-    njoints = carry[5].shape[1]
     pose_dim = anim_input_mean.shape[-1]
     H = cp.gru1.weight_hh.shape[1]
     plain = _records_grad(dec) or compute_dtype != torch.float32
@@ -177,10 +172,11 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
     w0 = cp.layer0.weight.to(cd)
     wg = cp.gru0.weight_ih.to(cd)
     w0_pose, wg_h, wg_pose = w0[:, :pose_dim], wg[:, :H], wg[:, H : H + pose_dim]
-    # speech/style part of layer0 and of GRU0's input product, for all frames
-    cond = torch.cat([speech_encoding, style_encoding], dim=-1).to(cd)
-    pre_l0 = F.linear(cond, w0[:, pose_dim:], cp.layer0.bias.to(cd))
-    pre_g0 = F.linear(cond, wg[:, H + pose_dim :], cp.gru0.bias_ih.to(cd))
+
+    def conditioning(speech_encoding, style_encoding):
+        cond = torch.cat([speech_encoding, style_encoding], dim=-1).to(cd)
+        return (F.linear(cond, w0[:, pose_dim:], cp.layer0.bias.to(cd)),
+                F.linear(cond, wg[:, H + pose_dim :], cp.gru0.bias_ih.to(cd)))
 
     if quantize_int8:
         q_w0_pose, q_wg_h, q_wg_pose = (_quantize_weight(w) for w in (w0_pose, wg_h, wg_pose))
@@ -209,7 +205,7 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
             def gru1_step(x, h):
                 return L.gru_gates(F.linear(x, g1[0], g1[1]), F.linear(h, g1[2], g1[3]), h)
         else:
-            packed = GC.pack_gru(cp.gru1)  # biases folded once per rollout, not per step
+            packed = GC.pack_gru(cp.gru1)  # biases folded once, not per step
 
             def gru1_step(x, h):
                 return GC.fused_gru_cell(packed, x, h)
@@ -229,6 +225,35 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
         return (h0, h1) + P.devectorize_output(out, rp, rr, njoints, dt, anim_output_mean,
                                                anim_output_std)
 
+    return conditioning, step, plain
+
+
+def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding,
+                  anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
+                  output_indices=None, quantize_int8=False, compute_dtype=torch.float32,
+                  remat=False):
+    """Advance ``speech_encoding.shape[1]`` frames of the ``normal`` cell
+    from ``carry``; each column of the (B, n, ...) conditioning is one step.
+    Returns (new_carry, trajectories (B, n, ...)).
+
+    Where autograd records on the decoder's parameters, or ``compute_dtype``
+    is not float32, every step is the differentiable plain math of the
+    reference's scan: products in ``compute_dtype`` over the live
+    parameters, states and pose integration in float32. ``remat``
+    recomputes each step in the backward pass instead of storing it.
+    Otherwise (inference) GRU1 runs through the GRU-cell kernel, one eager
+    launch a step; `infer/programs.py` replays the same step from CUDA
+    graphs.
+
+    quantize_int8 (inference): the in-step products run on symmetric int8
+    weights with one scale per output row and activations quantized
+    dynamically with one scale per batch row (floors 1e-12), as the JAX
+    package's batched int8 path does; the speech/style projections stay
+    float32."""
+    conditioning, step, plain = chunk_step(
+        dec, anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
+        carry[5].shape[1], quantize_int8, compute_dtype)
+    pre_l0, pre_g0 = conditioning(speech_encoding, style_encoding)
     h, *pose_state = carry
     # the cell-state encoder's h is a transposed view
     state = (h[0], h[1].contiguous(), *pose_state)

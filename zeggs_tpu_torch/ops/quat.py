@@ -44,8 +44,10 @@ def mul_vec(q, v):
 
 
 def inv(x):
-    """Conjugate (the inverse of a unit quaternion)."""
-    return x * x.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """Conjugate (the inverse of a unit quaternion). Negates the vector part
+    on the device, with no host-to-device copy of a sign vector: the
+    decoder step calls this, and a CUDA graph captures that step."""
+    return torch.cat([x[..., :1], -x[..., 1:]], dim=-1)
 
 
 def inv_mul(x, y):

@@ -5,9 +5,10 @@
 leading axis over it. Here a mesh is an ordered tuple of torch devices:
 `shard_rows` cuts a batch into one contiguous block of rows a device, as
 ``PartitionSpec('data')`` lays them out, and `infer/batch.py` runs each
-block on its device from a host thread of its own. Eager PyTorch compiles
-nothing, so blocks are near-equal (`torch.tensor_split`) and the batch is
-not padded to a multiple of the mesh.
+block on its device from a host thread of its own. `generate_batch` pads
+a chunk's rows to a multiple of the mesh's size, as `zeggs_tpu` does, so
+its blocks are equal; `shard_rows` itself takes any batch (near-equal
+blocks, `torch.tensor_split`).
 
 A mesh may name one device more than once: each entry is then its own
 replica, with its own thread and stream, over the same weights.

@@ -13,7 +13,12 @@ Design:
   * one scheduler thread owns all device work, inside
     `torch.inference_mode` (which is thread-local); HTTP handler threads
     only validate, enqueue, and wait on per-request futures, so the
-    device's stream of work stays single-threaded. With a ``mesh``,
+    device's stream of work stays single-threaded, and no handler touches
+    the card while the scheduler captures a rollout program (a CUDA graph,
+    `infer/programs.py`, captured in thread-local mode on a stream of its
+    own). Drains run through `generate_batch`, whose chunks are padded
+    to the "pow2" batch sizes, so a few programs serve every drain. With a
+    ``mesh``,
     `generate_batch` spreads a batch's rows over its devices from worker
     threads of its own and returns once all are done, so a session push
     (which runs on the pipeline's device) never overlaps a sharded
