@@ -71,19 +71,30 @@ and 12 s) under build/chip_smoke/, then:
      (TF32 off); then a raw corpus of 4 clips of 20 s (75 joints, the last
      one validation) through `python -m zeggs_tpu_torch.cli.pipeline` (one
      mel launch a clip and stretch; data_info.html and two normalised BVHs
-     a clip and stretch), `cli.train` at full v1 width for 6
-     steps (a checkpoint and sample synthesis at iteration 0: one GRU-cell
-     launch a decoder step; no kernel launch in a train step; every
-     parameter a finite nonzero gradient in the first step) and a resume
-     for one more step that must restore the whole training state; prints
-     the step's time, launches and peak memory and the pipeline's seconds a
+     a clip and stretch), `cli.train` at full v1 width for 6 steps, the
+     trainer's program (`train/programs.py`: an eager warm-up step, then
+     the captured step replayed from a CUDA graph; its capture seconds,
+     kernels and pool memory), a checkpoint and sample synthesis at
+     iteration 0 (rollout programs: one GRU-cell launch a decoder step and
+     one a capture; no kernel launch in a train step; every parameter a
+     finite nonzero gradient in the first step) and a resume for one more
+     step that must restore the whole training state; then the captured
+     step against the eager step on a copy of the same state, in turns on
+     the same inputs (5 rounds: parameters, RAdam moments and losses after
+     3 within rtol 2e-5 / atol 1e-6, a second eager copy's distance
+     reported; medians), the card's busy share over 3 replays
+     (torch.profiler), sample synthesis through the programs and eagerly
+     in turns (BVHs within 1e-6) and the eager step's breakdown; prints the
+     steps' times, launches and peak memory and the pipeline's seconds a
      clip;
   9. trains over two processes sharing the card (`cli.train` with the
      multi-process flags, gloo; this script re-run as `--ddp-worker`), v1
-     width, B=32, window 64, 3 steps, on both data paths: the parameters
-     must equal one process's; rank 0's sample synthesis launches the GRU
-     cell; then one NCCL process for one step, joined from torchrun's
-     environment variables (no flags);
+     width, B=32, window 64, 3 steps, on both data paths, each process
+     replaying graphs A (gather, forward, backward) and B (RAdam) around
+     the eager all-reduce: the parameters must equal one process's (one
+     graph); rank 0's sample synthesis launches the GRU cell; then one
+     NCCL process for two steps (the second captured), joined from
+     torchrun's environment variables (no flags);
  10. runs the v2 model (configs/configs_v2.json: the v1 widths with label
      styles, a decoder styled by the one-hot of 19 labels, no style
      encoder): the generate CLI with `-se label` over the three clips (CSV
@@ -97,15 +108,18 @@ and 12 s) under build/chip_smoke/, then:
      steps, with sample synthesis from one-hot styles;
  11. trains at v1 width, B=32, for 2 steps under each training option
      (none, bfloat16 compute, remat, the gru style body, FiLM,
-     `--host-batches`; finite losses, step times), then holds remat's
+     `--host-batches`; finite losses, step times, each option's capture
+     seconds, kernels and graph pool memory), then holds remat's
      gradients to the step without it (rtol 1e-5, atol 1e-6) and a
      bfloat16 step to the float32 step and, over one decoder step, to the
      CPU's bfloat16 step (4e-2 of max(1, max|g|));
  12. evaluates the training phase's checkpoint with `cli.eval_checkpoint`
      on the card and on the CPU (the reports agree within the quality
-     test's tolerances, the gate verdicts are equal, one GRU-cell launch a
-     decoder step of the validation rollouts) and checks that the v2
-     checkpoint is refused;
+     test's tolerances, the gate verdicts are equal; the card's rollouts
+     replay the rollout programs: one GRU-cell launch a decoder step of
+     the validation rollouts and one a capture), on the card also through
+     the eager rollout in turns (seconds; rollouts within 1e-6), and
+     checks that the v2 checkpoint is refused;
  13. prints times, each beside the card's name and power limit, a JSON
      line of launch counts, one of training results, one of the
      checkpoint, multi-process and Griffin-Lim phases' results, one of the
@@ -194,6 +208,12 @@ GRAPH_MAE = 1e-6
 # training: a raw corpus of 4 clips of 20 s (the last one validation),
 # the v1 widths, a handful of steps and one more after the resume
 TRAIN_CLIPS, TRAIN_SECONDS, TRAIN_STEPS = 4, 20.0, 6
+# the train step replayed from CUDA graphs against the eager step on a copy
+# of the same state, in turns: GRAPH_ROUNDS rounds (timed; medians), the
+# states compared after TRAIN_COMPARED (the multi-process bound); the card's
+# busy share over BUSY_REPLAYS replays
+GRAPH_ROUNDS, TRAIN_COMPARED, BUSY_REPLAYS = 5, 3, 3
+TRAIN_RTOL, TRAIN_ATOL = 2e-5, 1e-6
 # gradients of one small-width step on the card against the CPU, per leaf,
 # relative to max(1, max|g|) (TF32 off on the card)
 GRAD_TOL = 1e-4
@@ -1304,6 +1324,40 @@ class EagerPrograms:
                                     output_indices=(0, 1, 4, 5), quantize_int8=quantize_int8)
 
 
+class EagerRollouts(EagerPrograms):
+    """`EagerPrograms` made as a `ProgramCache` is made, from (decoder,
+    statistics, dt): it takes the cache's place in `Trainer.generate_samples`
+    and `eval_checkpoint.evaluate`, which make their caches themselves
+    (``train.loop.ProgramCache``, ``cli.eval_checkpoint.ProgramCache``), for
+    comparison only."""
+
+    def __init__(self, dec, stats, dt):
+        from zeggs_tpu_torch.models import decoder
+
+        self.decoder, self.dec = decoder, dec
+        self.stats = (stats["anim_input_mean"], stats["anim_input_std"],
+                      stats["anim_output_mean"], stats["anim_output_std"], dt)
+
+    def programs(self):
+        return []
+
+
+def ladder_programs(lengths):
+    """The rollout programs that `ProgramCache.rollout_chunk` captures for
+    chunks of ``lengths`` decoder steps of one batch size: one a grain of
+    the ladder that some chunk uses."""
+    from zeggs_tpu_torch.infer.programs import GRAINS
+
+    used = set()
+    for n in lengths:
+        t = 0
+        while t < n:
+            grain = next(g for g in GRAINS if g <= n - t)
+            used.add(grain)
+            t += (n - t) // grain * grain
+    return len(used)
+
+
 def counted_run(torch, run, label, expected):
     """``run()`` with every count reset just before and read just after ->
     (result, wall seconds, counts); fails unless each kernel launched as
@@ -1611,6 +1665,17 @@ def write_train_corpus():
     return root
 
 
+def synth_counted(synth, eager=False):
+    """Whether a sample synthesis ran decoder steps and launched the GRU
+    cell once a step replayed and once a program's capture (its eager
+    warm-up step), or, ``eager`` (the FiLM cell), none."""
+    if not synth or not synth.get("steps"):
+        return False
+    if eager:
+        return synth["gru_cell"] == synth["programs"] == 0
+    return 0 < synth["programs"] <= 3 and synth["gru_cell"] == synth["steps"] + synth["programs"]
+
+
 def instrumented_trainer(torch, base):
     """The CLI's Trainer with each train step timed and its launches counted,
     the first step's gradients checked, and the launches of sample synthesis
@@ -1643,11 +1708,12 @@ def instrumented_trainer(torch, base):
         def generate_samples(self, n=3, length_s=30):
             g0 = GC.launches
             t0 = time.perf_counter()
-            steps = super().generate_samples(n, length_s)
+            steps, programs = super().generate_samples(n, length_s)
             torch.cuda.synchronize()
-            SmokeTrainer.synthesis.append(dict(steps=steps, gru_cell=GC.launches - g0,
+            SmokeTrainer.synthesis.append(dict(steps=steps, programs=programs,
+                                               gru_cell=GC.launches - g0,
                                                s=time.perf_counter() - t0))
-            return steps
+            return steps, programs
 
     return SmokeTrainer
 
@@ -1731,7 +1797,7 @@ def train_phase(torch, card):
           f"gradient in the first step; losses {[round(s['loss'], 4) for s in steps]}")
     if any(sum(s["launches"].values()) for s in steps):
         fail(f"a train step launched a kernel: {[s['launches'] for s in steps]}")
-    if len(synth) != 1 or synth[0]["gru_cell"] != synth[0]["steps"] or not synth[0]["steps"]:
+    if len(synth) != 1 or not synth_counted(synth[0]):
         fail(f"sample synthesis: {synth}")
     samples = sorted((root / "run" / "logs" / "samples").glob("*.bvh"))
     for path in samples:
@@ -1739,13 +1805,17 @@ def train_phase(torch, card):
         if not (np.isfinite(anim["positions"]).all() and np.isfinite(anim["rotations"]).all()):
             fail(f"sample {path.name} is not finite")
     ms = [s["ms"] for s in steps]
-    print(f"time train step (v1 width, eager, wall with a cuda.synchronize): first "
-          f"{ms[0]:.1f} ms, median of the next {len(ms) - 1} {np.median(ms[1:]):.1f} ms "
-          f"({', '.join(f'{m:.1f}' for m in ms[1:])}); launches a step {steps[1]['launches']}; "
-          f"peak device memory {peak:.1f} MiB, {card}")
-    print(f"time sample synthesis: {len(samples)} BVHs, {synth[0]['steps']} decoder steps, "
-          f"{synth[0]['gru_cell']} GRU-cell launches (one a decoder step), "
-          f"{synth[0]['s']:.3f} s, {card}")
+    graph = graph_stats(first.program)
+    print(f"time train step through the CLI (v1 width, wall with a cuda.synchronize): the eager "
+          f"warm-up {ms[0]:.1f} ms, the capture and first replay {ms[1]:.1f} ms, median of the "
+          f"next {len(ms) - 2} replays {np.median(ms[2:]):.1f} ms "
+          f"({', '.join(f'{m:.1f}' for m in ms[2:])}); launches a step {steps[1]['launches']}; "
+          f"capture {graph['capture_s']:.3f} s, {graph['kernels'][0]} kernels of "
+          f"{graph['nodes'][0]} nodes, graph pool {graph['graph_mib']:.1f} MiB; peak device "
+          f"memory {peak:.1f} MiB, {card}")
+    print(f"time sample synthesis at iteration 0: {len(samples)} BVHs, {synth[0]['steps']} decoder "
+          f"steps, {synth[0]['gru_cell']} GRU-cell launches ({synth[0]['programs']} program "
+          f"captures), {synth[0]['s']:.3f} s, {card}")
 
     # resume for one more step: every piece of the loop state comes back
     options = json.loads((root / "options.json").read_text())
@@ -1773,28 +1843,229 @@ def train_phase(torch, card):
     if not restored:
         fail("the resumed checkpoint did not restore the training state")
     cli_train.Trainer = base
-    breakdown = step_breakdown(torch, second, card)
-    return dict(breakdown=breakdown, pipeline_mel=pipe_counts["mel_spectrogram"],
+    del second
+    graphed = graphed_vs_eager(torch, first, card)
+    synthesis = synthesis_turns(torch, first, card)
+    breakdown = step_breakdown(torch, first, card)
+    return dict(breakdown=breakdown, graphed=graphed, synthesis=synthesis,
+                pipeline_mel=pipe_counts["mel_spectrogram"],
                 pipeline_mel_err=mel_err, pipeline_s_per_clip=pipe_s / TRAIN_CLIPS,
-                step_ms=float(np.median(ms[1:])), first_step_ms=ms[0],
-                launches_per_step=steps[1]["launches"], peak_mib=peak,
-                synthesis_gru=synth[0]["gru_cell"], synthesis_steps=synth[0]["steps"])
+                step_ms=float(np.median(ms[2:])), first_step_ms=ms[0], capture_step_ms=ms[1],
+                launches_per_step=steps[1]["launches"], peak_mib=peak, graph=graph,
+                synthesis_gru=synth[0]["gru_cell"], synthesis_steps=synth[0]["steps"],
+                synthesis_programs=synth[0]["programs"])
+
+
+def graph_kernels(graph):
+    """(kernel nodes, all nodes) of a captured `torch.cuda.CUDAGraph` kept
+    with its graph (``keep_graph=True``), read through libcuda's
+    `cuGraphGetNodes` and `cuGraphNodeGetType`."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(0), 0
+    for node in nodes:
+        cuda.cuGraphNodeGetType(node, ctypes.byref(kind))
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, n.value
+
+
+def graph_stats(program):
+    """A train program's capture: seconds, its graphs' pool memory and
+    their kernel and node counts."""
+    counts = [graph_kernels(g) for g in program.graphs]
+    return dict(capture_s=program.capture_seconds, graph_mib=program.graph_bytes / 2**20,
+                graphs=len(counts), kernels=[k for k, _ in counts], nodes=[n for _, n in counts])
+
+
+def device_batch(torch, trainer, inputs):
+    """The batch a trainer's program gathers (or copies) from ``inputs``,
+    built eagerly for the plain step."""
+    if trainer.device_corpus is None:
+        return {k: torch.as_tensor(v, device=trainer.device) for k, v in inputs.items()}
+    x = {k: torch.as_tensor(np.asarray(v), device=trainer.device) for k, v in inputs.items()}
+    if "labels" in x:
+        return trainer.device_corpus.gather_batch(x["window_starts"], labels=x["labels"],
+                                                  nlabels=trainer.ds.nlabels)
+    return trainer.device_corpus.gather_batch(x["window_starts"], x["ex_idx"], x["ex_lengths"])
+
+
+def graphed_vs_eager(torch, trainer, card):
+    """The trainer's captured program against the plain eager step
+    (`train.loop.make_train_step`) on a copy of the same state (networks,
+    RAdam state, noise generator), in turns on the same inputs: one replay,
+    then one eager step, GRAPH_ROUNDS times. After TRAIN_COMPARED rounds the
+    parameters, RAdam moments, losses and generator states must be equal
+    bit for bit, or within TRAIN_RTOL / TRAIN_ATOL with the difference
+    named; then the card's busy share over BUSY_REPLAYS more replays,
+    from torch.profiler."""
+    import copy
+
+    from torch.autograd import DeviceType
+
+    from zeggs_tpu_torch.train import loop
+
+    program, ds, opts = trainer.program, trainer.ds, trainer.opts
+    if len(program.graphs) != 1:
+        fail(f"the trainer's program holds {len(program.graphs)} graphs, expected 1")
+
+    def eager_copy():
+        nets = copy.deepcopy(trainer.nets)
+        optimizer, plain = loop.make_train_step(opts, ds.stats, ds.parents, ds.dt, nets)
+        optimizer.load_state(*trainer.optimizer.state())
+        generator = torch.Generator(device=trainer.device)
+        generator.set_state(trainer.generator.get_state())
+        return optimizer, plain, generator
+
+    # a second eager copy for the first TRAIN_COMPARED rounds: how far two
+    # eager runs from one state lie apart
+    (optimizer, plain, generator), (optimizer2, plain2, generator2) = eager_copy(), eager_copy()
+    rng = np.random.default_rng(SEED + 21)
+    graphed_ms, eager_ms, losses, compared = [], [], [], None
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()["total_loss"]
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def pairs():
+        out = [(p, optimizer.params[k]) for k, p in trainer.optimizer.params.items()]
+        out += [(m, optimizer.exp_avg[k]) for k, m in trainer.optimizer.exp_avg.items()]
+        out += [(v, optimizer.exp_avg_sq[k]) for k, v in trainer.optimizer.exp_avg_sq.items()]
+        return out + losses
+
+    def draw():
+        idx = rng.permutation(len(ds))[: opts.train.batchsize]
+        return trainer._batch(idx, ds.sample_example_length(rng))
+
+    for i in range(GRAPH_ROUNDS):
+        inputs, it = draw(), trainer.iteration + i
+        loss_g, ms_g = timed(lambda: program.run(inputs, it))
+        loss_e, ms_e = timed(lambda: plain(device_batch(torch, trainer, inputs), it, generator))
+        graphed_ms.append(ms_g)
+        eager_ms.append(ms_e)
+        losses.append((loss_g, loss_e))
+        if i < TRAIN_COMPARED:
+            plain2(device_batch(torch, trainer, inputs), it, generator2)
+        if i + 1 == TRAIN_COMPARED:
+            both = pairs()
+            worst = max((a - b).abs().max().item() for a, b in both)
+            excess = max(((a - b).abs() - (TRAIN_ATOL + TRAIN_RTOL * b.abs())).max().item()
+                         for a, b in both)
+            eager_worst = max((optimizer2.params[k] - p).abs().max().item()
+                              for k, p in optimizer.params.items())
+            compared = dict(bitwise=all(torch.equal(a, b) for a, b in both), worst_abs_diff=worst,
+                            worst_excess=excess, eager_vs_eager_params=eager_worst,
+                            generator_state_equal=bool(torch.equal(
+                                trainer.generator.get_state(), generator.get_state())))
+            del optimizer2, plain2
+    print(f"train graphed against eager (v1 width, B={opts.train.batchsize}, window "
+          f"{opts.train.window}, examples {ds.max_example_length} wide; the same inputs and noise "
+          f"from one state): after {TRAIN_COMPARED} steps parameters, RAdam moments and losses "
+          f"bit for bit equal {compared['bitwise']}, worst |diff| {compared['worst_abs_diff']:.3e}, "
+          f"worst excess over atol {TRAIN_ATOL:g} + rtol {TRAIN_RTOL:g} * |eager| "
+          f"{compared['worst_excess']:.3e} (must be <= 0); generator states equal "
+          f"{compared['generator_state_equal']}; a second eager copy's parameters against the "
+          f"first's worst |diff| {compared['eager_vs_eager_params']:.3e} (cuDNN's default "
+          f"algorithms)")
+    if not (compared["worst_excess"] <= 0 and compared["generator_state_equal"]):
+        fail(f"the graphed train step differs from the eager step: {compared}")
+    g, e = float(np.median(graphed_ms)), float(np.median(eager_ms))
+    print(f"time train step (v1 width, B={opts.train.batchsize}, window {opts.train.window}; host "
+          f"clock closed by a cuda.synchronize, in turns on the same inputs): graphed median "
+          f"{g:.1f} ms of {len(graphed_ms)} replays ({', '.join(f'{m:.1f}' for m in graphed_ms)}), "
+          f"eager median {e:.1f} ms of {len(eager_ms)} steps "
+          f"({', '.join(f'{m:.1f}' for m in eager_ms)}); {e / g:.2f}x, {card}")
+
+    replays = [draw() for _ in range(BUSY_REPLAYS)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, inputs in enumerate(replays):
+            program.run(inputs, trainer.iteration + GRAPH_ROUNDS + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in device if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    busy = dict(replays=BUSY_REPLAYS, wall_ms=wall, device_busy_ms=busy_ms,
+                busy_share=busy_ms / wall, kernels_per_replay=(len(device) - len(copies))
+                / BUSY_REPLAYS, copies_per_replay=len(copies) / BUSY_REPLAYS)
+    print(f"train step replays under torch.profiler: {BUSY_REPLAYS} replays in {wall:.1f} ms wall, "
+          f"{busy['kernels_per_replay']:.0f} kernels and {busy['copies_per_replay']:.0f} copies "
+          f"or sets a replay, card busy {busy_ms:.1f} ms ({busy_ms / wall:.1%}), {card}")
+    return dict(compared=compared, graphed_ms=graphed_ms, eager_ms=eager_ms, graphed_median_ms=g,
+                eager_median_ms=e, busy=busy, graph=graph_stats(program))
+
+
+def synthesis_turns(torch, trainer, card):
+    """`Trainer.generate_samples` through the rollout programs and through
+    the eager rollout (`EagerRollouts` in the cache's place), in turns G E
+    G, each into its own directory: seconds, launches, and the graphed
+    BVHs against the eager ones (GRAPH_MAE)."""
+    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+    from zeggs_tpu_torch.train import loop
+
+    base, out = trainer.samples_dir, {"graphed": [], "eager": []}
+    cache = loop.ProgramCache
+    try:
+        for i, how in enumerate(("graphed", "eager", "graphed")):
+            trainer.samples_dir = base.parent / f"samples_{how}_{i}"
+            trainer.samples_dir.mkdir()
+            loop.ProgramCache = cache if how == "graphed" else EagerRollouts
+            g0 = GC.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps, programs = trainer.generate_samples(3)
+            torch.cuda.synchronize()
+            out[how].append(dict(s=time.perf_counter() - t0, steps=steps, programs=programs,
+                                 gru_cell=GC.launches - g0, dir=trainer.samples_dir))
+    finally:
+        loop.ProgramCache, trainer.samples_dir = cache, base
+    g, e = out["graphed"][0], out["eager"][0]
+    maes = [bvh_mae(torch, a, g["dir"] / a.name) for a in sorted(e["dir"].glob("*predict*.bvh"))]
+    print(f"time sample synthesis ({g['steps']} decoder steps, 12 BVHs): graphed "
+          f"{', '.join(f'{r['s']:.3f}' for r in out['graphed'])} s ({g['gru_cell']} GRU-cell "
+          f"launches: {g['steps']} replayed, {g['programs']} captures), eager {e['s']:.3f} s "
+          f"({e['gru_cell']} launches); graphed against eager predictions BVH MAE max "
+          f"{max(maes):.3e} (bound {GRAPH_MAE:g}), {card}")
+    if not (synth_counted(g) and e["gru_cell"] == e["steps"] == g["steps"]
+            and len(maes) == 6 and max(maes) <= GRAPH_MAE):
+        fail(f"sample synthesis graphed against eager: {out}, MAEs {maes}")
+    return dict(graphed_s=[r["s"] for r in out["graphed"]], eager_s=e["s"], steps=g["steps"],
+                programs=g["programs"], gru_cell=g["gru_cell"], max_bvh_mae=float(max(maes)))
 
 
 def step_breakdown(torch, trainer, card):
-    """Where one v1-width train step's time goes, on a batch of the corpus:
-    the loss's forward (encoders, rollout, the 18 terms; the terms alone
-    timed apart), the backward and the RAdam update, each closed by a
-    cuda.synchronize; then one step under torch.profiler: kernel launches,
-    host-to-device copies and the card's busy share (kernel time over the
-    step's wall time)."""
+    """Where one v1-width eager train step's time goes (the plain step that
+    the trainer's program replaces), on a batch of the corpus: the loss's
+    forward (encoders, rollout, the 18 terms; the terms alone timed apart),
+    the backward and the RAdam update, each closed by a cuda.synchronize;
+    then one eager step under torch.profiler: kernel launches, host-to-
+    device copies and the card's busy share (kernel time over the step's
+    wall time). First one step as the program runs it, eagerly, under
+    `torch.cuda.set_sync_debug_mode("error")`: it must not synchronise.
+    Runs last on ``trainer``: the eager steps rebind the
+    gradients its program captured."""
     from torch.autograd import DeviceType
 
     from zeggs_tpu_torch.train import loop, loss as L
 
     ds = trainer.ds
     idx = np.random.default_rng(SEED).permutation(len(ds))[: trainer.opts.train.batchsize]
-    batch = trainer._batch(idx, ds.max_example_length)
+    batch = device_batch(torch, trainer, trainer._batch(idx, ds.max_example_length))
     loss_fn = loop.make_loss_fn(trainer.opts, ds.stats, ds.parents, ds.dt)
     nets, opt, gen = trainer.nets, trainer.optimizer, trainer.generator
 
@@ -1812,7 +2083,24 @@ def step_breakdown(torch, trainer, card):
         loss.backward()
         opt.step()
 
-    step()  # warm
+    step()  # warm: the loss's statistics and the positional table reach the card
+    # the step as the program runs it (the iteration and RAdam's scalars on
+    # the card) synchronises nowhere: nothing that a capture would refuse
+    scalars = torch.from_numpy(opt.scalars()).to(trainer.device)
+    iteration = torch.tensor(float(trainer.iteration), device=trainer.device)
+    for p in opt.params.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss_fn(nets, batch, iteration, gen)[0].backward()
+        opt.apply(scalars)
+    except RuntimeError as e:
+        fail(f"the train step synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    opt.step_count += 1
+    print("train step: no host sync under torch.cuda.set_sync_debug_mode('error') (v1 width)")
     rows = []
     for _ in range(3):
         for p in opt.params.values():
@@ -1839,7 +2127,7 @@ def step_breakdown(torch, trainer, card):
     report = dict(forward_ms=fwd, loss_terms_ms=terms, backward_ms=bwd, optimizer_ms=upd,
                   profiled_step_ms=wall, kernels=kernels, copies=len(copies),
                   device_busy_ms=busy_ms, busy_share=busy_ms / wall)
-    print(f"time train step breakdown (v1 width, B={len(idx)}, example {ds.max_example_length} "
+    print(f"time eager train step breakdown (v1 width, B={len(idx)}, example {ds.max_example_length} "
           f"frames; medians of 3, each phase closed by a cuda.synchronize): forward {fwd:.1f} ms "
           f"(of which the 18 loss terms {terms:.1f} ms), backward {bwd:.1f} ms, RAdam "
           f"{upd:.1f} ms; one profiled step {wall:.1f} ms: {kernels} kernels, {len(copies)} "
@@ -1999,11 +2287,12 @@ def short_trainer(torch, base):
 
         def generate_samples(self, n=3, length_s=30):
             g0 = GC.launches
-            steps = super().generate_samples(DDP_SAMPLES, DDP_SAMPLE_S)
+            steps, programs = super().generate_samples(DDP_SAMPLES, DDP_SAMPLE_S)
             torch.cuda.synchronize()
             if distributed.process_index() == 0:
-                ShortTrainer.record["synthesis"] = dict(steps=steps, gru_cell=GC.launches - g0)
-            return steps
+                ShortTrainer.record["synthesis"] = dict(steps=steps, programs=programs,
+                                                        gru_cell=GC.launches - g0)
+            return steps, programs
 
     return ShortTrainer
 
@@ -2024,7 +2313,8 @@ def ddp_worker(argv):
          "--dist-backend", "gloo"] + (["--host-batches"] if int(host_batches) else []))
     print("DDP_WORKER " + json.dumps({**Trainer.record, "rank": int(rank),
                                       "device": str(trainer.device),
-                                      "iteration": trainer.iteration}), flush=True)
+                                      "iteration": trainer.iteration,
+                                      "graph": graph_stats(trainer.program)}), flush=True)
 
 
 def ddp_phase(torch, card, train_root):
@@ -2066,8 +2356,10 @@ def ddp_phase(torch, card, train_root):
 
             cli_train.Trainer = Single = short_trainer(torch, base)
             single = ddp_options(train_root, f"single_{path}")
-            cli_train.main(["-o", str(single), "--device", "cuda", "--max-iterations",
-                            str(DDP_STEPS)] + (["--host-batches"] if host else []))
+            one = cli_train.main(["-o", str(single), "--device", "cuda", "--max-iterations",
+                                  str(DDP_STEPS)] + (["--host-batches"] if host else []))
+            one_graphs = len(one.program.graphs)
+            del one
             cli_train.Trainer = base
             a, _, meta_a = checkpoint.load_train_state(train_root / f"ddp_{path}" / "saved_models")
             b, _, meta_b = checkpoint.load_train_state(train_root / f"single_{path}" /
@@ -2079,31 +2371,37 @@ def ddp_phase(torch, card, train_root):
             state = (meta_a["np_rng_state"] == meta_b["np_rng_state"]
                      and meta_a["torch_generator_state"] == meta_b["torch_generator_state"])
             synth = rank0["synthesis"] or {}
-            two = float(np.median(rank0["steps_ms"][1:]))
-            one = float(np.median(Single.record["steps_ms"][1:]))
+            # the last step is a replay: the first is the eager warm-up, the
+            # second the capture and its first replay
+            two, one = rank0["steps_ms"][-1], Single.record["steps_ms"][-1]
+            graphs = [r["graph"]["graphs"] for r in recs]
             print(f"ddp {path}: 2 processes on one card (gloo; {[r['device'] for r in recs]}), "
                   f"B={DDP_BATCH} ({DDP_BATCH // 2} rows a process), window {DDP_WINDOW}, "
-                  f"{DDP_STEPS} steps, against 1 process: worst |diff| {worst:.3e} (rtol "
+                  f"{DDP_STEPS} steps (an eager warm-up, then graphs A and B replayed around the "
+                  f"eager all-reduce: {graphs} graphs a process, kernels "
+                  f"{rank0['graph']['kernels']}; one process {one_graphs} graph), "
+                  f"against 1 process: worst |diff| {worst:.3e} (rtol "
                   f"{DDP_RTOL:g}, atol {DDP_ATOL:g}), generator states equal {state}; rank 0's "
                   f"sample synthesis {synth.get('steps')} decoder steps, {synth.get('gru_cell')} "
                   f"GRU-cell launches; all-reduce of (1, 2) {rank0['all_reduce']}")
-            print(f"time ddp {path} step (v1 width, B={DDP_BATCH}, window {DDP_WINDOW}; median "
-                  f"after the first): 2 processes on one card {two:.1f} ms "
+            print(f"time ddp {path} step (v1 width, B={DDP_BATCH}, window {DDP_WINDOW}; the last "
+                  f"step, a replay): 2 processes on one card {two:.1f} ms "
                   f"({', '.join(f'{m:.1f}' for m in rank0['steps_ms'])}), 1 process {one:.1f} ms "
                   f"({', '.join(f'{m:.1f}' for m in Single.record['steps_ms'])}); the pair's "
                   f"wall {wall:.1f} s with start-up, {card}")
-            if len(recs) != 2 or any(r["iteration"] != DDP_STEPS for r in recs):
-                fail(f"ddp {path}: {recs}")
+            if (len(recs) != 2 or any(r["iteration"] != DDP_STEPS for r in recs)
+                    or graphs != [2, 2] or one_graphs != 1):
+                fail(f"ddp {path}: {recs}, one process's graphs {one_graphs}")
             if not (close and state):
                 fail(f"ddp {path}: 2 processes differ from 1: worst {worst}, states {state}")
-            if rank0["all_reduce"] != 3.0 or not synth.get("steps") or (
-                    synth["gru_cell"] != synth["steps"]):
+            if rank0["all_reduce"] != 3.0 or not synth_counted(synth):
                 fail(f"ddp {path}: all-reduce {rank0['all_reduce']}, synthesis {synth}")
             report[path] = dict(worst_abs_diff=worst, step_ms_2proc=two, step_ms_1proc=one,
-                                synthesis=synth)
+                                synthesis=synth, graph=rank0["graph"])
 
-        # one NCCL process (the default backend on a card) for one step, joined
-        # as torchrun joins it: its variables set and none of the three flags
+        # one NCCL process (the default backend on a card) for two steps (the
+        # eager warm-up, then the captured step), joined as torchrun joins it:
+        # its variables set and none of the three flags
         cli_train.Trainer = Nccl = short_trainer(torch, base)
         nccl = ddp_options(train_root, "ddp_nccl")
         torchrun_env = dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
@@ -2111,24 +2409,26 @@ def ddp_phase(torch, card, train_root):
         saved = {k: os.environ.get(k) for k in torchrun_env}
         os.environ.update(torchrun_env)
         try:
-            trainer = cli_train.main(["-o", str(nccl), "--device", "cuda", "--max-iterations", "1"])
+            trainer = cli_train.main(["-o", str(nccl), "--device", "cuda", "--max-iterations", "2"])
         finally:
             for k, v in saved.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        rec = Nccl.record
+        rec, graphs = Nccl.record, len(trainer.program.graphs)
         print(f"ddp nccl: 1 process from torchrun's variables on {trainer.device}, backend "
-              f"{rec['backend']}, all-reduce {rec['all_reduce']}; time one step "
-              f"{rec['steps_ms'][0]:.1f} ms (v1 width, B={DDP_BATCH}, window {DDP_WINDOW}, the "
-              f"first step), {card}")
-        if (rec["backend"] != "nccl" or rec["all_reduce"] != 1.0 or len(rec["steps_ms"]) != 1
-                or trainer.device != torch.device("cuda", 0)):
-            fail(f"ddp nccl: {rec}, device {trainer.device}")
+              f"{rec['backend']}, all-reduce {rec['all_reduce']}, {graphs} graph; time the eager "
+              f"warm-up step {rec['steps_ms'][0]:.1f} ms, the captured step (capture and replay) "
+              f"{rec['steps_ms'][1]:.1f} ms (v1 width, B={DDP_BATCH}, window {DDP_WINDOW}), {card}")
+        if (rec["backend"] != "nccl" or rec["all_reduce"] != 1.0 or len(rec["steps_ms"]) != 2
+                or trainer.device != torch.device("cuda", 0) or graphs != 1
+                or not all(rec["finite"])):
+            fail(f"ddp nccl: {rec}, device {trainer.device}, graphs {graphs}")
+        del trainer
         if torch.distributed.is_initialized():
             fail("ddp nccl: the CLI left its process group")
-        report["nccl"] = dict(step_ms=rec["steps_ms"][0], backend=rec["backend"])
+        report["nccl"] = dict(steps_ms=rec["steps_ms"], backend=rec["backend"], graphs=graphs)
     finally:
         cli_train.Trainer = base
     return report
@@ -2357,7 +2657,7 @@ def v2_training(torch, card, train_root):
                                   "--max-iterations", str(V2_TRAIN_STEPS)])
     finally:
         cli_train.Trainer = base
-    rec = Short.record
+    rec, graph = Short.record, graph_stats(trainer.program)
     _, _, meta = checkpoint.load_train_state(train_root / "v2_run" / "saved_models")
     saved = sorted(p.stem for p in (train_root / "v2_run" / "saved_models").glob("*.npz"))
     style_in = trainer.nets["decoder"].cell_state_encoder.l0.in_features - trainer.ds.get_shapes()[
@@ -2370,16 +2670,19 @@ def v2_training(torch, card, train_root):
           f"{trainer.opts.train.batchsize}, window {trainer.opts.train.window}: losses "
           f"{[round(x, 4) for x in rec['losses']]}; checkpoint {saved} at step {meta['step']}; "
           f"sample synthesis {synth.get('steps')} decoder steps, {synth.get('gru_cell')} GRU-cell "
-          f"launches, {len(samples)} BVHs finite {finite}; time step "
-          f"{', '.join(f'{m:.1f}' for m in rec['steps_ms'])} ms, {card}")
+          f"launches ({synth.get('programs')} captures), {len(samples)} BVHs finite {finite}; "
+          f"time step {', '.join(f'{m:.1f}' for m in rec['steps_ms'])} ms (eager warm-up, "
+          f"capture and replay, replay); capture {graph['capture_s']:.3f} s, {graph['kernels']} "
+          f"kernels, graph pool {graph['graph_mib']:.1f} MiB, {card}")
     if not (trainer.iteration == V2_TRAIN_STEPS and all(rec["finite"])
             and len(rec["steps_ms"]) == V2_TRAIN_STEPS and style_in == len(labels)
             and "style_encoder" not in trainer.nets and meta["step"] == V2_TRAIN_STEPS
             and saved == ["decoder", "opt_state", "speech_encoder"] and samples and finite
-            and synth.get("steps") and synth["gru_cell"] == synth["steps"]):
-        fail(f"v2 train: {rec}, saved {saved}, style input {style_in}")
+            and synth_counted(synth) and graph["graphs"] == 1):
+        fail(f"v2 train: {rec}, saved {saved}, style input {style_in}, {graph}")
+    del trainer
     return dict(labels=labels, pipeline_mel=pipe_counts["mel_spectrogram"], pipeline_s=pipe_s,
-                losses=rec["losses"], steps_ms=rec["steps_ms"], synthesis=synth)
+                losses=rec["losses"], steps_ms=rec["steps_ms"], synthesis=synth, graph=graph)
 
 
 def corpus_batch(torch, opts, processed, device, rows=None, frames=None):
@@ -2503,24 +2806,28 @@ def train_options(torch, card, train_root):
             wall = time.perf_counter() - t0
             rec, synth = Short.record, Short.record["synthesis"] or {}
             t, net = trainer.opts.train, trainer.opts.net
-            in_effect = {"none": True, "bfloat16": t.compute_dtype == "bfloat16",
-                         "remat": t.remat,
-                         "gru_style_body": net.style_encoder.type == "gru",
-                         "film": trainer.nets["decoder"].rnn_cond == "film",
-                         "host_batches": trainer.device_corpus is None}[name]
+            in_effect = trainer.iteration == OPTION_STEPS and {
+                "none": True, "bfloat16": t.compute_dtype == "bfloat16", "remat": t.remat,
+                "gru_style_body": net.style_encoder.type == "gru",
+                "film": trainer.nets["decoder"].rnn_cond == "film",
+                "host_batches": trainer.device_corpus is None}[name]
             film = name == "film"
+            graph = graph_stats(trainer.program)
+            del trainer
             print(f"time train option {name}: {OPTION_STEPS} steps at v1 width, B={t.batchsize}, "
                   f"window {t.window}: {', '.join(f'{m:.1f}' for m in rec['steps_ms'])} ms "
-                  f"(the first includes warm-up), losses {[round(x, 4) for x in rec['losses']]}, "
-                  f"all finite {all(rec['finite'])}; sample synthesis {synth.get('steps')} decoder "
-                  f"steps, {synth.get('gru_cell')} GRU-cell launches; run {wall:.1f} s with "
-                  f"set-up, {card}")
-            if not (in_effect and trainer.iteration == OPTION_STEPS and all(rec["finite"])
-                    and len(rec["steps_ms"]) == OPTION_STEPS and synth.get("steps")
-                    and synth["gru_cell"] == (0 if film else synth["steps"])):
-                fail(f"train option {name}: in effect {in_effect}, {rec}")
+                  f"(the eager warm-up, then the capture and its replay), losses "
+                  f"{[round(x, 4) for x in rec['losses']]}, all finite {all(rec['finite'])}; "
+                  f"capture {graph['capture_s']:.3f} s, {graph['kernels']} kernels of "
+                  f"{graph['nodes']} nodes, graph pool {graph['graph_mib']:.1f} MiB; sample "
+                  f"synthesis {synth.get('steps')} decoder steps, {synth.get('gru_cell')} GRU-cell "
+                  f"launches ({synth.get('programs')} captures); run {wall:.1f} s with set-up, "
+                  f"{card}")
+            if not (in_effect and all(rec["finite"]) and len(rec["steps_ms"]) == OPTION_STEPS
+                    and synth_counted(synth, film) and graph["graphs"] == 1):
+                fail(f"train option {name}: in effect {in_effect}, {rec}, {graph}")
             report[name] = dict(steps_ms=rec["steps_ms"], losses=rec["losses"], synthesis=synth,
-                                wall_s=wall)
+                                wall_s=wall, graph=graph)
     finally:
         cli_train.Trainer = base
     report["gradients"] = option_gradients(torch, train_root)
@@ -2584,12 +2891,15 @@ def quality(torch, card, train_root):
     """Phase quality: `cli.eval_checkpoint.evaluate` on the training phase's
     checkpoint (iteration TRAIN_STEPS) on the card and on the CPU: the
     reports agree, the gate verdicts are equal (not their value: 6 steps do
-    not train a model), and the card launches the GRU cell once a decoder
-    step of the validation rollouts; the v2 run's checkpoint is refused
-    (label styles, no style encoder)."""
+    not train a model), and the card's rollouts replay the rollout
+    programs, one GRU-cell launch a decoder step of the validation
+    rollouts and one a program's capture; on the card in turns through the
+    programs and through the eager rollout (`EagerRollouts`), whose report
+    must be the same; the v2 run's checkpoint is refused (label styles, no
+    style encoder)."""
     from zeggs_tpu_torch.cli import eval_checkpoint as E
     from zeggs_tpu_torch.data.dataset import WindowedDataset
-    from zeggs_tpu_torch.models import decoder as D
+    from zeggs_tpu_torch.infer.programs import ProgramCache
 
     def run_root(name, processed, models):
         root = WORK / name
@@ -2600,31 +2910,42 @@ def quality(torch, card, train_root):
 
     root = run_root("eval", train_root / "processed", train_root / "run" / "saved_models")
     rollouts, reports, seconds, counts = {}, {}, {}, {}
-    original = D.rollout
+    original = ProgramCache.rollout
 
-    def recording(*args, **kw):
-        out = original(*args, **kw)
-        rollouts[device].append(tuple(o[0].float().cpu().numpy() for o in out))
+    def recording(self, *args, **kw):
+        out = original(self, *args, **kw)  # root_pos, root_rot, lpos, ltxy
+        rollouts[run].append(tuple(out[i][0].float().cpu().numpy() for i in (0, 2)))
         return out
 
-    D.rollout = recording
+    class RecordedEager(EagerRollouts):
+        def rollout(self, *args, **kw):
+            out = super().rollout(*args, **kw)
+            rollouts[run].append(tuple(out[i][0].float().cpu().numpy() for i in (0, 2)))
+            return out
+
+    ProgramCache.rollout = recording
     try:
-        for device in ("cuda", "cpu"):
-            rollouts[device] = []
+        for run, device in (("cuda", "cuda"), ("cpu", "cpu"), ("cuda_eager", "cuda"),
+                            ("cuda_again", "cuda")):
+            rollouts[run] = []
+            E.ProgramCache = RecordedEager if run == "cuda_eager" else ProgramCache
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            reports[device] = E.evaluate(root, TRAIN_STEPS, device=device)
+            reports[run] = E.evaluate(root, TRAIN_STEPS, device=device)
             torch.cuda.synchronize()
-            seconds[device], counts[device] = time.perf_counter() - t0, read_counts()
+            seconds[run], counts[run] = time.perf_counter() - t0, read_counts()
     finally:
-        D.rollout = original
+        ProgramCache.rollout, E.ProgramCache = original, ProgramCache
     a, b = reports["cuda"], reports["cpu"]
     ds = WindowedDataset(root / "processed" / "data_definition.json",
                          root / "processed" / "processed_data.npz", 256)
     bounds = eval_bounds(ds, rollouts["cuda"], rollouts["cpu"])
     bad = reports_agree(a, b, bounds)
-    steps = sum(len(r[0]) - 1 for r in rollouts["cuda"])
+    lengths = [len(r[0]) - 1 for r in rollouts["cuda"]]
+    steps, programs = sum(lengths), ladder_programs(lengths)
+    graphed_vs_eager = max(float(np.abs(x - y).max()) for r, q in zip(
+        rollouts["cuda"], rollouts["cuda_eager"], strict=True) for x, y in zip(r, q))
     gates = (E.gate(a), E.gate(b))
     keys = ("lpos_mae_mean", "vel_ratio_mean", "jerk_ratio_mean", "motion_var_ratio_median")
     print(f"quality: eval_checkpoint at iteration {TRAIN_STEPS}, {a['n_valid_clips']} validation "
@@ -2632,14 +2953,21 @@ def quality(torch, card, train_root):
           f"{[b[k] for k in keys]} ({', '.join(keys)}); largest lpos difference "
           f"{max(x[0] for x in bounds):.3e}, derived bounds jerk {[round(x[1], 5) for x in bounds]}, "
           f"variance {[x[2] for x in bounds]}; gate {gates}; launches {counts['cuda']} for {steps} "
-          f"decoder steps (CPU {counts['cpu']})")
-    print(f"time quality: evaluate on the card {seconds['cuda']:.3f} s, on the CPU "
+          f"decoder steps and {programs} program captures (CPU {counts['cpu']}; eager on the card "
+          f"{counts['cuda_eager']}); on the card the programs' rollouts against the eager "
+          f"ones max|diff| {graphed_vs_eager:.3e} (bound {GRAPH_MAE:g}), reports equal "
+          f"{reports['cuda_eager'] == a == reports['cuda_again']}")
+    print(f"time quality: evaluate on the card through the programs {seconds['cuda']:.3f}, "
+          f"{seconds['cuda_again']:.3f} s, eager {seconds['cuda_eager']:.3f} s, on the CPU "
           f"{seconds['cpu']:.3f} s, {card}")
     if bad or gates[0] != gates[1]:
         fail(f"quality: the card's report differs from the CPU's: {bad}, gates {gates}")
-    if counts["cuda"] != {"decoder_rollout": 0, "gru_cell": steps, "mel_spectrogram": 0} or any(
-            counts["cpu"].values()):
-        fail(f"quality: launches {counts} for {steps} decoder steps")
+    expected = {"decoder_rollout": 0, "gru_cell": steps + programs, "mel_spectrogram": 0}
+    if (counts["cuda"] != expected or counts["cuda_again"] != expected or any(
+            counts["cpu"].values()) or counts["cuda_eager"]["gru_cell"] != steps
+            or graphed_vs_eager > GRAPH_MAE or reports["cuda_again"] != a):
+        fail(f"quality: launches {counts} for {steps} decoder steps and {programs} programs, "
+             f"graphed against eager {graphed_vs_eager}")
     label_root = run_root("eval_v2", train_root / "processed_v2",
                           train_root / "v2_run" / "saved_models")
     try:
@@ -2648,7 +2976,8 @@ def quality(torch, card, train_root):
     except ValueError as e:
         print(f"quality: the v2 (label-style) checkpoint is refused: {e}")
     return dict(report={k: a[k] for k in keys}, report_cpu={k: b[k] for k in keys},
-                gate=gates[0], launches=counts["cuda"], decoder_steps=steps,
+                gate=gates[0], launches=counts["cuda"], decoder_steps=steps, programs=programs,
+                graphed_vs_eager=graphed_vs_eager,
                 max_lpos_diff=max(x[0] for x in bounds), seconds=seconds)
 
 

@@ -21,7 +21,13 @@ card where there are several) stays within the pose MAE budget of the
 unsharded run. The rollout programs (CUDA graphs of the decoder step)
 equal the eager chunk within 1e-6, count their replays' launches, raise
 where the step cannot be captured, and give the single-thread result when
-two threads replay at once. Generation from the reference's `.pt` pickles writes the same BVH
+two threads replay at once. The train program (CUDA graphs of the train
+step) equals the plain step over three steps under every training option
+(bit for bit with cuDNN's deterministic algorithms, within rtol 2e-5 /
+atol 1e-6 with its default ones), draws fresh noise at each replay from
+the registered generator, resumes losslessly and raises where the step
+cannot be captured; sample synthesis after a train step replays the new
+weights. Generation from the reference's `.pt` pickles writes the same BVH
 text as from the `.npz` files; Griffin-Lim on the card against the CPU from
 the same first signal: relative L2 error 1e-4 (tests/test_torch_misc.py's
 bound); one NCCL process comes up on the card.
@@ -799,34 +805,292 @@ def small_run(device, tmp_path_factory):
 
 
 def test_evaluate_on_the_card_matches_the_cpu(small_run, monkeypatch):
-    """`cli.eval_checkpoint.evaluate` on the card against the CPU: one
-    GRU-cell launch a decoder step of the validation rollouts; the
+    """`cli.eval_checkpoint.evaluate` on the card against the CPU: its
+    rollouts replay the rollout programs, one GRU-cell launch a decoder
+    step of the validation rollouts and one a program's capture; the
     tolerances of tests/test_torch_quality.py (`chip_smoke.reports_agree`:
     rtol 1e-3 and a rounding quantum; the jerk and variance ratios within
     the bounds derived from the two rollouts' difference); equal gate
     verdicts."""
-    from chip_smoke import eval_bounds, reports_agree
+    from chip_smoke import eval_bounds, ladder_programs, reports_agree
     from zeggs_tpu_torch.cli import eval_checkpoint as E
+    from zeggs_tpu_torch.infer.programs import ProgramCache
 
     rollouts = {"cuda": [], "cpu": []}
-    original = D.rollout
+    original = ProgramCache.rollout
 
     def recording(*args, **kw):
-        out = original(*args, **kw)
-        rollouts[out[1].device.type].append(tuple(o[0].float().cpu().numpy() for o in out))
+        out = original(*args, **kw)  # root_pos, root_rot, lpos, ltxy
+        rollouts[out[1].device.type].append(tuple(out[i][0].cpu().numpy() for i in (0, 2)))
         return out
 
-    monkeypatch.setattr(D, "rollout", recording)
+    monkeypatch.setattr(ProgramCache, "rollout", recording)
     root, ds = small_run["root"], small_run["ds"]
     before = (DR.launches, GC.launches, MK.launches)
     card = E.evaluate(root, 0, device="cuda")
     torch.cuda.synchronize()
     launched = tuple(n - b for n, b in zip((DR.launches, GC.launches, MK.launches), before))
     cpu = E.evaluate(root, 0, device="cpu")
-    assert launched == (0, sum(len(r[1]) - 1 for r in rollouts["cuda"]), 0)
+    steps = [len(r[1]) - 1 for r in rollouts["cuda"]]
+    # every decoder step replayed, and one eager warm-up step a program
+    assert launched == (0, sum(steps) + ladder_programs(steps), 0)
     assert card["n_valid_clips"] == cpu["n_valid_clips"] == len(rollouts["cpu"]) == 1
     assert reports_agree(card, cpu, eval_bounds(ds, rollouts["cuda"], rollouts["cpu"])) == []
     assert E.gate(card) == E.gate(cpu)
+
+
+# -- the train program (CUDA graphs of the train step) ----------------------
+
+#: (train options, network options, device corpus) of each training option
+TRAIN_OPTIONS = {
+    "float32": ({}, {}, True),
+    "bfloat16": ({"compute_dtype": "bfloat16"}, {}, True),
+    "remat": ({"remat": True}, {}, True),
+    "gru_style_body": ({}, {"style_encoder": {"type": "gru"}}, True),
+    "film": ({}, {"decoder": {"rnn_cond": "film"}}, True),
+    "label": ({"style_encoding_type": "label"}, {}, True),
+    "host_batches": ({}, {}, False),
+}
+
+
+def _small_trainer(small_run, tmp_path, train_opt=None, net_opt=None, device_corpus=True,
+                   device="cuda"):
+    """A `Trainer` at small width (decoder H=64, B=4, window 32, examples of
+    32-64 frames) over the small run's corpus, from seed 9."""
+    from zeggs_tpu_torch.config import Options
+    from zeggs_tpu_torch.train.loop import Trainer
+
+    od = {"net_opt": {"decoder": {"nhidden": 64},
+                      "speech_encoder": {"nhidden": 16, "speech_encoding_size": 16},
+                      "style_encoder": {"nhidden": 24, "style_encoding_size": 8,
+                                        "example_length": 32}},
+          "train_opt": {"batchsize": 4, "window": 32, "seed": 9, "generate_samples_step": 10_000,
+                        "use_tensorboard": False, **(train_opt or {})}}
+    for block, values in (net_opt or {}).items():
+        od["net_opt"][block].update(values)
+    processed = small_run["root"] / "processed"
+    return Trainer(Options.from_options_dict(od), tmp_path / "models", tmp_path / "logs",
+                   processed / "processed_data.npz", processed / "data_definition.json",
+                   device_corpus=device_corpus, device=device)
+
+
+def _draws(trainer, n, seed=4):
+    rng = np.random.default_rng(seed)
+    label = trainer.opts.train.style_encoding_type == "label"
+    return [(rng.permutation(len(trainer.ds))[: trainer.opts.train.batchsize],
+             None if label else trainer.ds.sample_example_length(rng)) for _ in range(n)]
+
+
+def _device_batch(trainer, inputs):
+    """The batch the program gathers (or copies) from ``inputs``, built
+    eagerly for the plain step."""
+    dev = trainer.device
+    if trainer.device_corpus is None:
+        return {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}
+    x = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in inputs.items()}
+    if "labels" in x:
+        return trainer.device_corpus.gather_batch(x["window_starts"], labels=x["labels"],
+                                                  nlabels=trainer.ds.nlabels)
+    return trainer.device_corpus.gather_batch(x["window_starts"], x["ex_idx"], x["ex_lengths"])
+
+
+def _worst(a, b):
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def _graphed_and_eager(small_run, tmp_path, option, eager_option=None):
+    """Three steps of the trainer's program (one eager warm-up, a capture,
+    then replays) under ``option`` and three steps of the plain
+    `make_train_step` under ``eager_option`` (default the same) from the
+    same seed, inputs and noise generator -> (pairs of tensors that must
+    agree: parameters, RAdam moments, losses; the two generators)."""
+    from zeggs_tpu_torch.train.loop import make_train_step
+
+    train_opt, net_opt, device_corpus = TRAIN_OPTIONS[option]
+    graphed = _small_trainer(small_run, tmp_path / "g", train_opt, net_opt, device_corpus)
+    eager = _small_trainer(small_run, tmp_path / "e", *TRAIN_OPTIONS[eager_option or option])
+    optimizer, plain = make_train_step(eager.opts, eager.ds.stats, eager.ds.parents, eager.ds.dt,
+                                       eager.nets)
+    losses = []
+    for i, (idx, ewl) in enumerate(_draws(graphed, 3)):
+        inputs = graphed._batch(idx, ewl)
+        a = graphed.train_step(inputs)
+        b = plain(_device_batch(eager, inputs), i, eager.generator)
+        losses.append((a["total_loss"], b["total_loss"]))
+    torch.cuda.synchronize()
+    assert len(graphed.program.graphs) == 1 and graphed.program.steps == 3
+    pairs = [(p, optimizer.params[k]) for k, p in graphed.optimizer.params.items()]
+    pairs += [(m, optimizer.exp_avg[k]) for k, m in graphed.optimizer.exp_avg.items()]
+    pairs += [(v, optimizer.exp_avg_sq[k]) for k, v in graphed.optimizer.exp_avg_sq.items()]
+    return pairs + losses, (graphed.generator, eager.generator)
+
+
+@pytest.mark.parametrize("option", list(TRAIN_OPTIONS))
+def test_graphed_train_steps_equal_eager_steps(small_run, tmp_path, option):
+    """The program against the plain step over three steps from one state
+    (`_graphed_and_eager`), for each training option. With cuDNN's
+    deterministic algorithms they are equal bit for bit. With its default
+    algorithms (what a run uses) the backward of the style encoder's
+    convolutions may sum in another order from run to run, eager against
+    eager too: parameters, RAdam moments and losses within rtol 2e-5 /
+    atol 1e-6, the multi-process bound. The generators' states are equal
+    either way."""
+    for deterministic in (True, False):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, allow_tf32=False,
+                                        deterministic=deterministic):
+            pairs, (g, e) = _graphed_and_eager(small_run, tmp_path / str(deterministic), option)
+        bitwise = all(torch.equal(x, y) for x, y in pairs)
+        print(f"train option {option}, cuDNN deterministic {deterministic}: graphed against "
+              f"eager over 3 steps, worst |diff| {_worst(*zip(*pairs)):.3e}, bitwise {bitwise}")
+        assert torch.equal(g.get_state(), e.get_state())
+        if deterministic:
+            assert bitwise
+        for x, y in pairs:
+            torch.testing.assert_close(x, y, rtol=2e-5, atol=1e-6)
+
+
+def test_graphed_remat_steps_equal_eager_steps_without_remat(small_run, tmp_path):
+    """remat recomputes each decoder step inside the captured backward:
+    three graphed remat steps against three eager steps without remat from
+    one state, within rtol 2e-5 / atol 1e-6 (deterministic cuDNN; the sums
+    of a recomputed step may round differently)."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, allow_tf32=False,
+                                    deterministic=True):
+        pairs, (g, e) = _graphed_and_eager(small_run, tmp_path, "remat", "float32")
+    print(f"graphed remat against eager without remat over 3 steps: worst |diff| "
+          f"{_worst(*zip(*pairs)):.3e}")
+    assert torch.equal(g.get_state(), e.get_state())
+    for x, y in pairs:
+        torch.testing.assert_close(x, y, rtol=2e-5, atol=1e-6)
+
+
+def test_a_graphed_run_resumes_losslessly(small_run, tmp_path):
+    """An epoch of graphed steps (B=32), a checkpoint, a new trainer
+    resumed from it for a second epoch (its own warm-up and capture):
+    parameters, RAdam moments and the noise generator bit for bit those of
+    two uninterrupted graphed epochs (cuDNN's deterministic algorithms)."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, allow_tf32=False,
+                                    deterministic=True):
+        first = _small_trainer(small_run, tmp_path / "a", {"batchsize": 32})
+        bpe = len(first.ds) // 32
+        first.run(max_iterations=bpe)
+        first.save_checkpoint()
+        resumed = _small_trainer(small_run, tmp_path / "a", {"batchsize": 32, "resume": True})
+        assert resumed.iteration == bpe >= 3
+        resumed.run(max_iterations=2 * bpe)
+        whole = _small_trainer(small_run, tmp_path / "b", {"batchsize": 32})
+        whole.run(max_iterations=2 * bpe)
+    assert [len(t.program.graphs) for t in (first, resumed, whole)] == [1, 1, 1]
+    assert torch.equal(resumed.generator.get_state(), whole.generator.get_state())
+    for k, p in whole.optimizer.params.items():
+        assert torch.equal(resumed.optimizer.params[k], p), k
+        assert torch.equal(resumed.optimizer.exp_avg[k], whole.optimizer.exp_avg[k]), k
+        assert torch.equal(resumed.optimizer.exp_avg_sq[k], whole.optimizer.exp_avg_sq[k]), k
+
+
+def test_replays_draw_fresh_noise(small_run, tmp_path):
+    """At learning rate 0 and on the same inputs every step, the losses of
+    the replays differ only by their dropout and VAE noise: they are
+    pairwise different and equal the eager steps' from the same generator,
+    the generator's offset moves on as the eager one's, and the default
+    generator is never drawn from."""
+    from zeggs_tpu_torch.train.loop import make_train_step
+
+    graphed = _small_trainer(small_run, tmp_path / "g", {"learning_rate": 0.0})
+    eager = _small_trainer(small_run, tmp_path / "e", {"learning_rate": 0.0})
+    _, plain = make_train_step(eager.opts, eager.ds.stats, eager.ds.parents, eager.ds.dt,
+                               eager.nets)
+    default = torch.cuda.default_generators[graphed.device.index or 0]
+    offset = default.get_offset()
+    inputs = graphed._batch(*_draws(graphed, 1)[0])
+    ours, ref = [], []
+    for i in range(5):
+        ours.append(graphed.train_step(inputs)["total_loss"].item())
+        ref.append(plain(_device_batch(eager, inputs), i, eager.generator)["total_loss"].item())
+        assert graphed.generator.get_offset() == eager.generator.get_offset()
+    assert len(set(ours[1:])) == 4  # the replays
+    np.testing.assert_allclose(ours, ref, rtol=2e-5)
+    assert default.get_offset() == offset
+
+
+def test_a_train_step_that_cannot_be_captured_raises(small_run, tmp_path, monkeypatch):
+    """A host sync injected into the loss: the eager first step runs, the
+    capture of the second raises instead of falling back, and a new
+    trainer captures afterwards."""
+    from zeggs_tpu_torch.train import loop
+
+    compute_loss = loop.compute_loss
+
+    def syncing(*args, **kw):
+        loss, metrics = compute_loss(*args, **kw)
+        loss.item()  # waits for the card: not allowed while capturing
+        return loss, metrics
+
+    monkeypatch.setattr(loop, "compute_loss", syncing)
+    trainer = _small_trainer(small_run, tmp_path / "a")
+    draws = _draws(trainer, 2)
+    trainer.train_step(trainer._batch(*draws[0]))
+    with pytest.raises(RuntimeError, match="capturing the train step"):
+        trainer.train_step(trainer._batch(*draws[1]))
+    monkeypatch.undo()
+    trainer = _small_trainer(small_run, tmp_path / "b")
+    for idx, ewl in draws:
+        metrics = trainer.train_step(trainer._batch(idx, ewl))
+    assert len(trainer.program.graphs) == 1 and np.isfinite(metrics["total_loss"].item())
+
+
+def test_synthesis_after_a_train_step_uses_the_new_weights(small_run, tmp_path, monkeypatch):
+    """Sample synthesis, one graphed train step, synthesis again: the second
+    synthesis's rollouts differ from the first and equal the eager rollout
+    of the updated weights within 1e-6 (each synthesis makes its own
+    programs); the first launches the GRU cell once a decoder step and once
+    a program's capture."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+    from zeggs_tpu_torch.train import loop
+
+    trainer = _small_trainer(small_run, tmp_path)
+    for idx, ewl in _draws(trainer, 2):  # past the capture
+        trainer.train_step(trainer._batch(idx, ewl))
+    recorded, original = [], ProgramCache.rollout
+
+    def recording(self, *args, **kw):
+        out = original(self, *args, **kw)
+        recorded.append(out[2].cpu())  # lpos
+        return out
+
+    class Eager:
+        """The eager `decoder.rollout` in `ProgramCache`'s place."""
+
+        def __init__(self, dec, stats, dt):
+            self.dec, self.dt = dec, dt
+            self.stats = [stats[k] for k in ("anim_input_mean", "anim_input_std",
+                                             "anim_output_mean", "anim_output_std")]
+
+        def rollout(self, state0, gaze, speech, style):
+            out = D.rollout(self.dec, *state0, gaze, speech, style, *self.stats, self.dt,
+                            output_indices=(0, 1, 4, 5))
+            recorded.append(out[2].cpu())
+            return out
+
+        def programs(self):
+            return []
+
+    monkeypatch.setattr(ProgramCache, "rollout", recording)
+    before = GC.launches
+    steps, programs = trainer.generate_samples(1, 2)
+    torch.cuda.synchronize()
+    assert GC.launches - before == steps + programs and programs > 0
+    first = list(recorded)
+    trainer.train_step(trainer._batch(*_draws(trainer, 1, seed=5)[0]))
+    recorded.clear()
+    trainer.generate_samples(1, 2)
+    second = list(recorded)
+    recorded.clear()
+    monkeypatch.setattr(loop, "ProgramCache", Eager)
+    trainer.generate_samples(1, 2)
+    assert len(first) == len(second) == len(recorded) == 2
+    assert all(not torch.equal(a, b) for a, b in zip(first, second))
+    assert _worst(second, recorded) <= 1e-6
 
 
 def test_griffin_lim_on_the_card_matches_the_cpu(device):

@@ -7,9 +7,10 @@ pipeline; the last one validation, 180 frames) and narrow networks (decoder
 H=32 with 2 GRU layers and the ``normal`` cell, speech 16/16, ``attn``
 style body 24 wide with a 64-wide VAE embedding, the width the scripts'
 default options read). Both evaluations run their own rollouts; the test
-records them (a wrapper around each package's ``decoder.rollout``) to
-measure how far the two rollouts lie apart, and derives the tolerances of
-the statistics that amplify that difference from it.
+records them (a wrapper around JAX's ``decoder.rollout`` and the port's
+``ProgramCache.rollout``, the rollout programs a float32 evaluation
+replays) to measure how far the two rollouts lie apart, and derives the
+tolerances of the statistics that amplify that difference from it.
 
 Tolerances, per clip and for the aggregates:
 * ``lpos_mae``, ``root_pos_mae`` and ``vel_ratio``: rtol 1e-3, with an
@@ -53,7 +54,7 @@ from zeggs_tpu_torch.cli import eval_checkpoint as port_eval
 from zeggs_tpu_torch.data.dataset import WindowedDataset
 from zeggs_tpu_torch.data.pipeline import data_pipeline
 from zeggs_tpu_torch.io import checkpoint, weights
-from zeggs_tpu_torch.models import decoder as tdec
+from zeggs_tpu_torch.infer.programs import ProgramCache
 from zeggs_tpu_torch.train import loop as tloop
 from tests.synthetic import write_raw_corpus
 
@@ -101,7 +102,7 @@ def record_rollouts(monkeypatch):
     """From now on in the test, each package's decoder rollouts, as
     (root_pos, lpos) numpy arrays of one clip."""
     rec = {"jax": [], "port": []}
-    jax_rollout, port_rollout = jdec.rollout, tdec.rollout
+    jax_rollout, port_rollout = jdec.rollout, ProgramCache.rollout
 
     def jax_recording(*args, **kw):
         out = jax_rollout(*args, **kw)
@@ -109,13 +110,12 @@ def record_rollouts(monkeypatch):
         return out
 
     def port_recording(*args, **kw):
-        out = port_rollout(*args, **kw)
-        assert kw["output_indices"] == (0, 4)
-        rec["port"].append(tuple(o[0].float().cpu().numpy() for o in out))
+        out = port_rollout(*args, **kw)  # root_pos, root_rot, lpos, ltxy
+        rec["port"].append((out[0][0].float().cpu().numpy(), out[2][0].float().cpu().numpy()))
         return out
 
     monkeypatch.setattr(jdec, "rollout", jax_recording)
-    monkeypatch.setattr(tdec, "rollout", port_recording)
+    monkeypatch.setattr(ProgramCache, "rollout", port_recording)
     return rec
 
 

@@ -23,8 +23,14 @@ reads it: ``root/processed/{data_definition.json, processed_data.npz}`` and
 Only example-style runs are evaluated: a label-style run has no style
 encoder, and `evaluate` raises ValueError on it.
 
-Rollouts go through `models.decoder.rollout`; on a card GRU1 of every
-decoder step is one launch of the GRU-cell kernel. The default device is
+The rollouts of a float32 evaluation replay the rollout programs of
+`infer/programs.py` (the counterpart of the JAX script's jitted rollout),
+from a cache made for the evaluated checkpoint and dropped with it; on a
+card GRU1 of every decoder step is one GRU-cell launch inside their CUDA
+graphs (a replay counts its graph's launches, a capture's eager warm-up
+step one). A bfloat16 evaluation (``--dtype bfloat16``) runs the eager
+`models.decoder.rollout`: the programs are keyed without the compute
+type and run float32 only. The default device is
 the card (``--device cuda``), and without one the run raises; ``--device
 cpu`` replaces the JAX script's ``--cpu``. The JAX script writes its JSON
 under the repository's docs/ by default; this one writes
@@ -48,6 +54,7 @@ from ..config import Options
 from ..data.dataset import WindowedDataset
 from ..device import require_device
 from ..infer.generate import build_network
+from ..infer.programs import ProgramCache
 from ..io import checkpoint
 from ..models import decoder
 from ..train.loop import POSE_KEYS
@@ -136,6 +143,7 @@ def evaluate(root, iteration, dtype="float32", device="cuda"):
     nets = _load_networks(root / "models" / str(iteration), opts, pose_in, device)
     s = {k: torch.as_tensor(v, device=device) for k, v in ds.stats.items()}
     compute_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    programs = ProgramCache(nets["decoder"], s, ds.dt) if dtype != "bfloat16" else None
 
     def on_device(a):
         return torch.as_tensor(a, device=device)
@@ -152,12 +160,16 @@ def evaluate(root, iteration, dtype="float32", device="cuda"):
         ex = (on_device(vec[None]) - s["anim_input_mean"]) / s["anim_input_std"]
         style = nets["style_encoder"](ex)[0]
         T = speech.shape[1]
-        out = decoder.rollout(
-            nets["decoder"], *(on_device(sample[k][:, 0]) for k in POSE_KEYS),
-            on_device(sample["gaze_pos"]), speech, style[:, None].expand(-1, T, -1),
-            s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
-            s["anim_output_std"], ds.dt, output_indices=(0, 4), compute_dtype=compute_dtype,
-        )
+        state0 = tuple(on_device(sample[k][:, 0]) for k in POSE_KEYS)
+        gaze, style_t = on_device(sample["gaze_pos"]), style[:, None].expand(-1, T, -1)
+        if programs is not None:
+            out = programs.rollout(state0, gaze, speech, style_t)
+            out = (out[0], out[2])  # root_pos, lpos
+        else:
+            out = decoder.rollout(
+                nets["decoder"], *state0, gaze, speech, style_t, s["anim_input_mean"],
+                s["anim_input_std"], s["anim_output_mean"], s["anim_output_std"], ds.dt,
+                output_indices=(0, 4), compute_dtype=compute_dtype)
         p_root, p_lpos = (o[0].float().cpu().numpy() for o in out)
         per_clip.append(_clip_report(p_root, p_lpos, sample["root_pos"][0], sample["lpos"][0],
                                      ds.dt, ds.label_names[label], e - a))

@@ -214,3 +214,24 @@ class WindowedDataset:
             k: np.asarray(self.arrays[k][s:e], np.float32)[None] for k in _FEATURE_KEYS
         }
         return out, label, (int(s), int(e)), range_index
+
+
+def dataset_stats_table(ds: WindowedDataset):
+    """Per-style frame and second counts as an ASCII table (the reference's
+    dataset summary; counts are halved because the corpus stores mirrored
+    versions)."""
+    from ..utils.logs import ascii_table
+
+    rows = []
+    total = 0.0
+    for i, label in enumerate(ds.label_names):
+        tr = ds.ranges_train[ds.ranges_train_labels == i]
+        va = ds.ranges_valid[ds.ranges_valid_labels == i]
+        n_tr = float(np.sum(tr[:, 1] - tr[:, 0])) / 2 if len(tr) else 0.0
+        n_va = float(np.sum(va[:, 1] - va[:, 0])) / 2 if len(va) else 0.0
+        rows.append([label, f"{n_tr:.0f} ({n_tr / 60:.1f}s)", f"{n_va:.0f} ({n_va / 60:.1f}s)",
+                     f"{n_tr + n_va:.0f} ({(n_tr + n_va) / 60:.1f}s)"])
+        total += n_tr + n_va
+    rows.append(["TOTAL", "", "", f"{total:.0f} ({total / 60:.1f}s)"])
+    return ascii_table(["Style", "Train frames", "Valid frames", "Total"], rows,
+                       title="Data Info")

@@ -58,7 +58,7 @@ OUTPUTS = (0, 1, 4, 5)
 _STATS = ("anim_input_mean", "anim_input_std", "anim_output_mean", "anim_output_std")
 
 
-class _DeviceSite:
+class DeviceSite:
     """A device's capture stream, and the lock and event that order every
     capture and replay on the device (see the module's docstring). The
     stream comes from the high-priority pool, which no other code of the
@@ -82,10 +82,10 @@ _sites = {}
 _sites_lock = threading.Lock()
 
 
-def _device_site(device):
+def device_site(device):
     with _sites_lock:
         if device not in _sites:
-            _sites[device] = _DeviceSite(device)
+            _sites[device] = DeviceSite(device)
         return _sites[device]
 
 
@@ -106,7 +106,7 @@ class RolloutProgram:
         self.launches = 0  # GRU-cell launches a replay runs
         if self.device.type != "cuda":
             return
-        self._site = _device_site(self.device)
+        self._site = device_site(self.device)
         with torch.cuda.device(self.device):
             self._state = tuple(torch.zeros_like(s, memory_format=torch.contiguous_format)
                                 for s in state)

@@ -81,6 +81,18 @@ class AttnBody(nn.Module):
         self.ff_conv0 = _xavier(nn.Conv1d(output_size, output_size, 3, device=device), "relu")
         self.ff_conv1 = _xavier(nn.Conv1d(output_size, output_size, 3, device=device), "linear")
         self.ff_ln = nn.LayerNorm(output_size, device=device)
+        self._pos_enc = {}  # (T, device) -> the sinusoidal table there
+
+    def pos_enc(self, T, E, device):
+        """The (T, E) sinusoidal table on ``device``, copied there once: a
+        captured train step copies nothing from the host. Made outside
+        inference mode, so that a table first made for inference serves a
+        training step too."""
+        key = (T, E, torch.device(device))
+        if key not in self._pos_enc:
+            with torch.inference_mode(False):
+                self._pos_enc[key] = torch.as_tensor(sinusoidal_pos_enc(T, E), device=device)
+        return self._pos_enc[key]
 
     def forward(self, x, lengths=None, generator=None):
         """x: (B, T, input_size) normalised example features; lengths: (B,)
@@ -101,7 +113,7 @@ class AttnBody(nn.Module):
         h = masked(drop(L.layer_norm(torch.relu(L.conv1d(h, self.conv0)), self.ln0), 0.2))
         h = masked(drop(L.layer_norm(torch.relu(L.conv1d(h, self.conv1)), self.ln1), 0.2))
         E = h.shape[-1]
-        h = masked(h + torch.as_tensor(sinusoidal_pos_enc(T, E), device=x.device))
+        h = masked(h + self.pos_enc(T, E, x.device))
 
         # self-attention + residual + LayerNorm
         qkv = torch.nn.functional.linear(h, self.mha.in_proj_weight, self.mha.in_proj_bias)

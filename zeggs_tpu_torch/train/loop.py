@@ -4,10 +4,15 @@ processes (counterpart of `zeggs_tpu/train/loop.py`).
 RAdam with lr = base * 0.995^floor(step / 1000), the 18-term loss,
 checkpoints at ``generate_samples_step`` (the latest at the models
 directory's root and one a checkpointed iteration) and ground/predict BVH
-sample pairs. A train step is eager PyTorch: the decoder rollout runs the
-differentiable plain step (`models.decoder.rollout_chunk` under autograd)
-and launches no CUDA kernel of the port; the GRU-cell kernel runs only in
-sample synthesis, which is inference.
+sample pairs. `make_train_step` is the plain eager step; `Trainer` runs the
+same step as a `train.programs.TrainProgram`, replayed from CUDA graphs on
+a card. Either way the decoder rollout runs the differentiable plain step
+(`models.decoder.rollout_chunk` under autograd) and launches no CUDA kernel
+of the port; the GRU-cell kernel runs only in sample synthesis, which is
+inference: the ``normal`` cell's rollouts there replay the rollout programs
+of `infer/programs.py` (a cache of them made for each synthesis, so that
+none outlives a weight update), the FiLM cell's run eagerly (programs run
+the ``normal`` cell only).
 
 Randomness: the batch order and example lengths come from a numpy
 Generator seeded with ``train.seed`` (the JAX package's draws, in its
@@ -31,6 +36,7 @@ from ..config import Options
 from ..data.dataset import WindowedDataset
 from ..data.device_dataset import DeviceCorpus
 from ..device import require_device
+from ..infer.programs import ProgramCache
 from ..io import checkpoint, weights
 from ..models import decoder
 from ..models.decoder import Decoder
@@ -41,6 +47,7 @@ from ..ops import quat, xform
 from ..parallel import distributed
 from ..utils import write_bvh
 from .loss import compute_loss
+from .programs import TrainProgram
 from .radam import RAdam, exponential_step_schedule
 
 POSE_KEYS = ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy", "lvel", "lvrt")
@@ -98,7 +105,8 @@ def make_loss_fn(opts: Options, stats, parents, dt, deterministic=False):
     """``loss_fn(nets, batch, iteration, generator)`` -> (loss, metrics) on
     the batch's device. ``deterministic=True`` draws nothing: no dropout,
     style = mu (the parity tests' mode); otherwise dropout masks and the VAE
-    noise come from ``generator``."""
+    noise come from ``generator``. ``iteration``: a number, or a float32
+    tensor on the batch's device (`loss.kl_divergence`)."""
     net = opts.net
     label = opts.train.style_encoding_type == "label"
     compute_dtype = getattr(torch, opts.train.compute_dtype)
@@ -136,13 +144,14 @@ def make_loss_fn(opts: Options, stats, parents, dt, deterministic=False):
 
 
 def make_train_step(opts: Options, stats, parents, dt, nets, deterministic=False):
-    """(optimizer, step): ``step(batch, iteration, generator)`` computes the
-    loss, its gradients (left in the parameters' .grad) and one RAdam update
-    in place, and returns the metrics as 0-d tensors. Over several
-    processes each holds its rows of the batch; the gradients and the
-    metrics are averaged over the processes before the update, which makes
-    them the single process's over the whole batch (every loss term is a
-    mean over rows)."""
+    """(optimizer, step), the plain eager train step: ``step(batch,
+    iteration, generator)`` computes the loss, its gradients (left in the
+    parameters' .grad) and one RAdam update in place, and returns the
+    metrics as 0-d tensors. Over several processes each holds its rows of
+    the batch; the gradients and the metrics are averaged over the
+    processes before the update, which makes them the single process's over
+    the whole batch (every loss term is a mean over rows). `TrainProgram`
+    runs the same step from CUDA graphs; the tests hold it to this one."""
     optimizer = make_optimizer(opts, nets)
     loss_fn = make_loss_fn(opts, stats, parents, dt, deterministic)
 
@@ -165,10 +174,16 @@ def _seed_of(*words):
 
 
 class Trainer:
-    """Host loop: epochs, logging, checkpoints, sample synthesis.
-    ``device_corpus`` (the default) uploads the corpus once and gathers each
-    batch on the device; otherwise batches are assembled on the host and
-    copied (for corpora larger than the card).
+    """Host loop: epochs, logging, checkpoints, sample synthesis. Each
+    step is one run of the trainer's `TrainProgram` (CUDA graphs on a card,
+    after one eager warm-up step a run). ``device_corpus`` (the default)
+    uploads the corpus once, and each step copies in only the window
+    starts and example rows (or labels) and gathers the batch inside the
+    program; otherwise batches are assembled on the host and copied into
+    the program's batch buffers (for corpora larger than the card). Every
+    example is ``ds.max_example_length`` frames wide, masked past its
+    drawn length, so the dropout and VAE noise of the style encoder is
+    drawn at that width.
 
     Several processes (`parallel.distributed.initialize` first): every
     process builds the same Trainer from the same options and seed over a
@@ -211,9 +226,15 @@ class Trainer:
         self.nets = init_networks(opts, self.ds.get_shapes(), self.ds.nlabels, t.seed,
                                   self.device)
         self.stats = {k: v.to(self.device) for k, v in _stats_tensors(self.ds.stats).items()}
-        self.optimizer, self._step = make_train_step(opts, self.ds.stats, self.ds.parents,
-                                                     self.ds.dt, self.nets)
+        self.optimizer = make_optimizer(opts, self.nets)
         self.device_corpus = DeviceCorpus(self.ds, self.device) if device_corpus else None
+        generator = self.generator
+        if self.world > 1:
+            generator = RowShard(generator, t.batchsize, distributed.local_batch_slice(
+                t.batchsize)[0])
+        self.program = TrainProgram(
+            make_loss_fn(opts, self.ds.stats, self.ds.parents, self.ds.dt), self.nets,
+            self.optimizer, generator, self.device_corpus, self.ds.nlabels)
         self.iteration = 0
         self.epoch = 0
         self.writer = writer
@@ -257,14 +278,10 @@ class Trainer:
         print(f"trained to iteration {self.iteration} in {datetime.datetime.now() - start_time}")
         return self.nets
 
-    def train_step(self, batch):
-        """One step on a device batch (this process's rows) -> metrics (0-d
+    def train_step(self, inputs):
+        """One step on this process's inputs (`_batch`) -> metrics (0-d
         tensors, over the whole batch)."""
-        generator = self.generator
-        if self.world > 1:
-            B = self.opts.train.batchsize
-            generator = RowShard(generator, B, distributed.local_batch_slice(B)[0])
-        return self._step(batch, self.iteration, generator)
+        return self.program.run(inputs, self.iteration)
 
     def _post_step(self, metrics, log_every, on_step):
         if self.writer is not None and self.rank == 0 and self.iteration % log_every == 0:
@@ -295,20 +312,18 @@ class Trainer:
             self.epoch += 1
 
     def _batch(self, idx, ewl):
-        """The batch of window indices ``idx`` on the device. Every example
-        of a batch has ``ewl`` frames, so the examples are cut to ``ewl``
-        columns: the masked encoder gives the same values at either width."""
+        """The program's inputs for window indices ``idx`` with examples of
+        ``ewl`` frames (None: label styles), host arrays: the batch itself
+        without a device corpus (examples ``ds.max_example_length`` wide,
+        with their lengths); else the window starts and the example rows
+        and lengths (`DeviceCorpus.sample_indices`), or the labels."""
         ds, corpus = self.ds, self.device_corpus
         if corpus is None:
-            batch = ds.make_batch(idx, example_window_length=ewl)
-            if ewl is not None:
-                batch["example"] = batch["example"][:, :ewl]
-            return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+            return ds.make_batch(idx, example_window_length=ewl)
         if ewl is None:
-            return corpus.gather_batch(ds.window_starts[idx], labels=ds.window_labels[idx],
-                                       nlabels=ds.nlabels)
+            return {"window_starts": ds.window_starts[idx], "labels": ds.window_labels[idx]}
         starts, ex_idx, ex_len = corpus.sample_indices(idx, ewl)
-        return corpus.gather_batch(starts, ex_idx[:, :ewl], ex_len)
+        return {"window_starts": starts, "ex_idx": ex_idx, "ex_lengths": ex_len}
 
     # ------------------------------------------------------------------
 
@@ -341,13 +356,18 @@ class Trainer:
         """Ground/predict BVH pairs of ``n`` train and ``n`` validation clips
         (at most ``length_s`` seconds each), the style from an example of the
         clip (mu) or its label. Draws come from a generator of their own,
-        never the data order's. Returns the decoder steps run; rank 0 only
+        never the data order's. The ``normal`` cell's rollouts replay
+        rollout programs from a cache made here and dropped on return (its
+        graphs hold the weights' derived tensors); the FiLM cell's run
+        eagerly. Returns (decoder steps run, programs captured); rank 0 only
         (other processes run none)."""
         if self.rank != 0:
-            return 0
+            return 0, 0
         rng = np.random.default_rng([self.opts.train.seed, 0x5A11, self.iteration])
         ds, s, dev = self.ds, self.stats, self.device
         nets = self.nets
+        programs = (ProgramCache(nets["decoder"], s, ds.dt)
+                    if nets["decoder"].rnn_cond == "normal" else None)
         steps = 0
         for which in ("train", "valid"):
             if not len(ds.ranges_train if which == "train" else ds.ranges_valid):
@@ -366,14 +386,16 @@ class Trainer:
                     style = torch.zeros((1, ds.nlabels), device=dev)
                     style[0, label] = 1.0
                 T = speech.shape[1]
-                out = decoder.rollout(
-                    nets["decoder"], *(torch.as_tensor(sample[k][:, 0], device=dev)
-                                       for k in POSE_KEYS),
-                    torch.as_tensor(sample["gaze_pos"], device=dev), speech,
-                    style[:, None].expand(-1, T, -1), s["anim_input_mean"], s["anim_input_std"],
-                    s["anim_output_mean"], s["anim_output_std"], ds.dt,
-                    output_indices=(0, 1, 4, 5),
-                )
+                state0 = tuple(torch.as_tensor(sample[k][:, 0], device=dev) for k in POSE_KEYS)
+                gaze = torch.as_tensor(sample["gaze_pos"], device=dev)
+                style_t = style[:, None].expand(-1, T, -1)
+                if programs is not None:
+                    out = programs.rollout(state0, gaze, speech, style_t)
+                else:
+                    out = decoder.rollout(
+                        nets["decoder"], *state0, gaze, speech, style_t, s["anim_input_mean"],
+                        s["anim_input_std"], s["anim_output_mean"], s["anim_output_std"], ds.dt,
+                        output_indices=(0, 1, 4, 5))
                 steps += T - 1
                 pairs = {
                     "ground": (sample["root_pos"][0], sample["root_rot"][0], sample["lpos"][0],
@@ -388,4 +410,4 @@ class Trainer:
                         rp, rr, lp, lrot, parents=ds.parents, names=ds.bone_names, order="zyx",
                         dt=ds.dt,
                     )
-        return steps
+        return steps, len(programs.programs()) if programs is not None else 0

@@ -60,9 +60,14 @@ def generalized_logistic_function(x, center=0.0, growth=1.0, lower=0.0, upper=1.
 
 
 def kl_divergence(mu, logvar, iteration, center=7500.0, growth=0.005, cap=0.2):
-    """VAE KL and its annealed weight -> (kl, weight)."""
+    """VAE KL and its annealed weight -> (kl, weight). ``iteration`` is a
+    number, or a float32 tensor on mu's device (a captured train step reads
+    it from a buffer: no host copy)."""
     kl = torch.mean(-0.5 * torch.mean(1 + logvar - mu**2 - torch.exp(logvar), dim=1))
-    x = torch.tensor(float(iteration), dtype=torch.float32, device=mu.device)
+    if torch.is_tensor(iteration):
+        x = iteration.to(torch.float32)
+    else:
+        x = torch.tensor(float(iteration), dtype=torch.float32, device=mu.device)
     w = generalized_logistic_function(x, center=center, growth=growth)
     return kl, torch.clamp(w, max=cap)
 
@@ -90,7 +95,8 @@ def compute_loss(outputs, targets, gaze_pos, parents, dt, mu=None, logvar=None, 
 
     outputs / targets: dicts with keys root_pos, root_rot, root_vel,
     root_vrt, lpos, ltxy, lvel, lvrt, each (B, T, ...); gaze_pos (B, T, 3)
-    is the ground-truth gaze, used for both sides. Returns (loss, metrics),
+    is the ground-truth gaze, used for both sides; ``iteration`` as in
+    `kl_divergence`. Returns (loss, metrics),
     the metrics the 18 terms and ``total_loss`` as 0-d tensors."""
     O, W = outputs, targets
     o_lmat, o_lpos, o_lvel, o_lvrt, o_rvel_w, o_rvrt_w = world_space_reexpression(

@@ -7,6 +7,16 @@ the integer step, so no per-step cache is kept.
 The state is the JAX package's leaf for leaf: a step count and the two
 moments of every parameter, which the checkpoints in both directions need
 (`io.weights.opt_state_to_jax`).
+
+An update is split so that a CUDA graph can hold it (`train/programs.py`):
+`RAdam.scalars` computes the step's scalars on the host, in float32 and in
+the reference's order, and `RAdam.apply` runs the update over the tensor
+lists with those scalars read from a device tensor, with no host sync and
+no branch. Both branches are one formula, p += a * m / (sqrt(v) + eps) +
+c * m: the rectified steps have (a, c) = (-lr * rect, 0), the SGD steps
+(N_sma < 5, steps 1-5) (0, -lr / bias1), so one graph runs every step.
+`RAdam.step` is the eager update: the same scalars through the same
+`apply`.
 """
 
 from __future__ import annotations
@@ -32,6 +42,10 @@ class RAdam:
     float or a schedule of the step count before the update."""
 
     def __init__(self, params, learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+        if not eps > 0.0:
+            # the SGD steps compute the rectified quotient m / (sqrt(v) + eps)
+            # too, and zero it: it must stay finite
+            raise ValueError(f"RAdam needs eps > 0, got {eps}")
         self.params = dict(params)
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
@@ -39,53 +53,75 @@ class RAdam:
         self.exp_avg = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.exp_avg_sq = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
-    def lr(self):
+    def scalars(self, step=None):
+        """The scalars of update number ``step`` (default: the next one,
+        ``step_count + 1``) as float32 (3,): (a, c, d), where the update is
+        p += a * m / (sqrt(v) + eps) + c * m + d * p_old. Computed on the
+        host in float32, in the reference's order of operations: N_sma is a
+        difference of numbers near 2000, and its float32 rounding shows in
+        the first rectified steps."""
+        t = self.step_count + 1 if step is None else int(step)
         lr = self.learning_rate
-        return lr(self.step_count) if callable(lr) else lr
+        lr = lr(t - 1) if callable(lr) else lr  # the schedule of the count before the update
+        f32 = np.float32
+        b1, b2 = self.b1, self.b2
+        lr, stepf = f32(lr), f32(t)
+        beta2_t = f32(b2) ** stepf
+        n_sma_max = f32(2.0 / (1.0 - b2) - 1.0)
+        n_sma = n_sma_max - f32(2.0) * stepf * beta2_t / (f32(1.0) - beta2_t)
+        bias1 = f32(1.0) - f32(b1) ** stepf
+        a = c = f32(0.0)
+        if n_sma >= 5.0:
+            rect = np.sqrt(np.maximum(
+                (f32(1.0) - beta2_t) * (n_sma - f32(4.0)) / (n_sma_max - f32(4.0))
+                * (n_sma - f32(2.0)) / n_sma * n_sma_max / (n_sma_max - f32(2.0)), f32(0.0)
+            )) / bias1
+            a = -lr * rect
+        else:
+            c = -lr * (f32(1.0) / bias1)
+        d = -lr * f32(self.weight_decay)
+        return np.array([a, c, d], np.float32)
 
     @torch.no_grad()
-    def step(self, grads=None):
-        """One update from ``grads`` ({name: tensor}; the parameters' .grad
-        by default). The moment updates and the step are one fused list
-        operation each over all parameters."""
+    def apply(self, scalars, grads=None):
+        """The update with ``scalars`` (a (3,) float32 tensor on the
+        parameters' device, `scalars`'s values) and ``grads`` ({name:
+        tensor}; the parameters' .grad by default). Every operation is a
+        fused list operation over all parameters; the scalars are read on
+        the device, so the update can be captured in a CUDA graph. The step
+        count is the caller's to advance."""
         b1, b2 = self.b1, self.b2
         names = list(self.params)
         params = [self.params[k] for k in names]
         g = [grads[k] for k in names] if grads is not None else [p.grad for p in params]
         m = [self.exp_avg[k] for k in names]
         v = [self.exp_avg_sq[k] for k in names]
-        lr = self.lr()
-        self.step_count += 1
-        t = self.step_count
 
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, g, alpha=1 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, g, g, value=1 - b2)
-
-        # the step's scalars in float32, in the reference's order of operations:
-        # N_sma is a difference of numbers near 2000, and its float32 rounding
-        # shows in the first rectified steps
-        f32 = np.float32
-        lr, stepf = f32(lr), f32(t)
-        beta2_t = f32(b2) ** stepf
-        n_sma_max = f32(2.0 / (1.0 - b2) - 1.0)
-        n_sma = n_sma_max - f32(2.0) * stepf * beta2_t / (f32(1.0) - beta2_t)
-        bias1 = f32(1.0) - f32(b1) ** stepf
         if self.weight_decay != 0.0:
-            decayed = torch._foreach_mul(params, -lr * self.weight_decay)
-        if n_sma >= 5.0:
-            rect = np.sqrt(np.maximum(
-                (f32(1.0) - beta2_t) * (n_sma - f32(4.0)) / (n_sma_max - f32(4.0))
-                * (n_sma - f32(2.0)) / n_sma * n_sma_max / (n_sma_max - f32(2.0)), f32(0.0)
-            )) / bias1
-            denom = torch._foreach_sqrt(v)
-            torch._foreach_add_(denom, self.eps)
-            torch._foreach_addcdiv_(params, m, denom, value=float(-lr * rect))
-        else:
-            torch._foreach_add_(params, m, alpha=float(-lr * (f32(1.0) / bias1)))
+            decayed = torch._foreach_mul(params, scalars[2])
+        # the list operations with a tensor scalar that run on the device
+        # without a sync are the products, so the branch is a sum of two
+        # products: one of them is zero
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(m, denom)
+        torch._foreach_mul_(update, scalars[0])
+        torch._foreach_add_(params, update)
+        sgd = torch._foreach_mul(m, scalars[1])
+        torch._foreach_add_(params, sgd)
         if self.weight_decay != 0.0:
             torch._foreach_add_(params, decayed)
+
+    def step(self, grads=None):
+        """One eager update from ``grads`` ({name: tensor}; the parameters'
+        .grad by default)."""
+        device = next(iter(self.params.values())).device
+        self.apply(torch.from_numpy(self.scalars()).to(device), grads)
+        self.step_count += 1
 
     def state(self):
         """(step, exp_avg, exp_avg_sq)."""
