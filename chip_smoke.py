@@ -52,12 +52,27 @@ and 12 s) under build/chip_smoke/, then:
      and four concurrent /synthesize to a daemon with the mesh against
      `generate_batch` without one (BVH MAE < 1e-3 both); with several
      cards, the 64-clip batch over every card (skipped on one card); then
-     the programs phase: `warmup` over the fixture's plan (18 graphs:
+     the programs phase: `warmup` over the fixture's plan (18 rollout
+     graphs and 12 finish graphs, one a planned shape of more than one row:
      their capture times and memory, peak memory), and the `-b` requests,
      the 64-clip batch, a 10 s session and four concurrent /synthesize
      each through the CUDA graphs and through the eager step they replace,
      in turns (frames/s, rollout stage, push p50 / p99, realtime factor,
      client p50; launch counts; graphed against eager within 1e-6 BVH MAE);
+     then the output_stage phase: a float32-transfer and a float16-transfer
+     pipeline, each warmed first, run the 64-clip batch and a CSV of 64
+     copies of each clip (three chunks of 64 at T_pad 512, 1024, 1024;
+     2,557 GRU-cell launches, 192 mel launches), recording the bytes
+     pulled a chunk (twice as many at float32), every float16 BVH against
+     its float32 one (median Euler-angle difference < 0.05 degrees,
+     positions 0.5 cm, the angle between the rotations < 0.2 degrees; the
+     largest Euler-angle difference reported), the float32 CSV at pipeline
+     depth 2, then 0 (wall seconds, report only; the BVHs equal), the
+     float16 64-clip batch under torch.profiler (after the chunk's last
+     graph launch nothing but `aten::copy_` launches work), the stage's
+     cost on one 64 x 1024 chunk in turns (the rollout programs alone, with
+     the finish graph, with the stage eager; device time) and one daemon
+     /synthesize at float16 against float32;
      and, after the last phase, a host sync injected into the step, whose
      capture must raise;
   7. writes the fixture's networks as the reference's whole-module .pt
@@ -120,11 +135,19 @@ and 12 s) under build/chip_smoke/, then:
      the validation rollouts and one a capture), on the card also through
      the eager rollout in turns (seconds; rollouts within 1e-6), and
      checks that the v2 checkpoint is refused;
- 13. prints times, each beside the card's name and power limit, a JSON
+ 13. runs the full-recipe CLI (`cli.train_full`): its corpus (6 clips of
+     8 s) through the pipeline on the card, 60 steps at v1 width in
+     float32 (a checkpoint and samples every 50), first stopped by a 15 s
+     `--max-hours` budget (a checkpoint, the curve marked partial), then
+     resumed: the merged curve holds every logged iteration once; then
+     `cli.eval_checkpoint` of the last checkpoint through the rollout
+     programs;
+ 14. prints times, each beside the card's name and power limit, a JSON
      line of launch counts, one of training results, one of the
      checkpoint, multi-process and Griffin-Lim phases' results, one of the
      v2, training-option and quality phases' results, one of the mesh
-     phase's, one of the programs phase's, one of each phase's wall
+     phase's, one of the programs phase's, one of the output_stage and
+     recipe phases', one of each phase's wall
      seconds, one of the barrier floor, one of kernel results and, last,
      {"ok": true, "device": {...}}.
 
@@ -138,6 +161,7 @@ import base64
 import contextlib
 import csv
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -258,6 +282,30 @@ REMAT_RTOL, REMAT_ATOL = 1e-5, 1e-6
 # for a whole bfloat16 step (B=32, window 256) against the float32 step on
 # the card
 BF16_LOSS_RTOL, BF16_GRAD_TOL, BF16_BATCH = 1e-4, 4e-2, 4
+# the output stage: the float16 transfer against float32: the median
+# Euler-angle difference (degrees, modulo 360) and the positions (cm) within
+# the bounds of tests/test_batch_infer.py's float16 test, and the angle
+# between the written rotations within F16_ROTATION_DEG (float16 rounds a
+# unit quaternion's components by at most ~2.4e-4, which turns its rotation
+# by at most ~0.06 degrees; the root joint's BVH rotation composes three
+# such quaternions; the quaternions are normalised on the host). That
+# test's largest Euler-angle difference (3 degrees) is reported, not
+# bounded: near gimbal lock (a middle angle near +-90 degrees) the outer
+# angles of one rotation move by tens of degrees for a 0.05-degree
+# rotation. A CSV of STAGE_COPIES requests of each clip: one chunk of 64 at
+# T_pad 512 (4 s) and two at 1024 (10, 12 s)
+F16_ANGLE_MEDIAN, F16_POS_ATOL, F16_ROTATION_DEG = 0.05, 0.5, 0.2
+F16_EULER_REPORTED = 3.0
+STAGE_COPIES = 64
+# the output stage's cost on one 64 x 1024 chunk: rounds of the paths in turns
+STAGE_TURNS = 5
+# the recipe (`cli.train_full`): its corpus (6 clips of 8 s), RECIPE_STEPS
+# steps at v1 width in float32, checkpoints and samples every
+# RECIPE_CKPT_EVERY, the loss logged every RECIPE_LOG_EVERY; the first run
+# stopped by a budget of RECIPE_BUDGET_S seconds, then resumed (depth cut
+# from 200 steps, checkpoints every 100 and a 30 s budget, for the script's
+# time)
+RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_LOG_EVERY, RECIPE_BUDGET_S = 60, 50, 10, 15.0
 # the evaluation on the card against the CPU: the tolerances of
 # tests/test_torch_quality.py (rtol 1e-3 and one rounding quantum; jerk
 # and variance ratios within bounds derived from the rollouts' difference)
@@ -1149,6 +1197,7 @@ def mesh_phase(torch, card, results):
     def timed_block(*args):  # a block's thread: rows in, rollout, host copies out
         t0 = time.perf_counter()
         result = shard(*args)
+        result[1].synchronize()  # the block's copies to the host
         with lock:
             stage.setdefault("blocks", []).append(time.perf_counter() - t0)
         return result
@@ -1319,9 +1368,13 @@ class EagerPrograms:
         return self.decoder.rollout_chunk(self.dec, carry, gaze, speech, style, *self.stats,
                                           output_indices=(0, 1, 4, 5), quantize_int8=quantize_int8)
 
-    def rollout(self, state0, gaze, speech, style, quantize_int8=False, slot=0):
-        return self.decoder.rollout(self.dec, *state0, gaze, speech, style, *self.stats,
-                                    output_indices=(0, 1, 4, 5), quantize_int8=quantize_int8)
+    def rollout(self, state0, gaze, speech, style, quantize_int8=False, slot=0,
+                output_dtype=None):
+        from zeggs_tpu_torch.infer.programs import output_stage
+
+        out = self.decoder.rollout(self.dec, *state0, gaze, speech, style, *self.stats,
+                                   output_indices=(0, 1, 4, 5), quantize_int8=quantize_int8)
+        return out if output_dtype is None else output_stage(out, output_dtype)
 
 
 class EagerRollouts(EagerPrograms):
@@ -1409,22 +1462,37 @@ def programs_phase(torch, card, results):
     made = pipe.programs.programs()
     graphs = [{"B": key[2], "steps": key[3], "capture_s": p.capture_seconds,
                "bytes": p.graph_bytes, "launches": p.launches} for key, p in made]
+    finishes = [{"B": key[1], "T": key[2], "capture_s": p.capture_seconds,
+                 "bytes": p.graph_bytes} for key, p in pipe.programs.finishes()]
     report["warmup"] = {**warm, "wall_s": warm_wall, "launches": warm_counts,
                         "graphs": len(graphs), "graph_bytes": sum(g["bytes"] for g in graphs),
                         "capture_s": sum(g["capture_s"] for g in graphs),
-                        "peak_bytes": torch.cuda.max_memory_allocated(), "by_graph": graphs}
+                        "finish_graphs": len(finishes),
+                        "finish_bytes": sum(f["bytes"] for f in finishes),
+                        "finish_capture_s": sum(f["capture_s"] for f in finishes),
+                        "peak_bytes": torch.cuda.max_memory_allocated(), "by_graph": graphs,
+                        "by_finish": finishes}
     w = report["warmup"]
     print(f"programs: warmup of {len(warm['compiled'])} shapes {warm['compiled']}: "
-          f"{warm['seconds']} s ({warm_wall:.3f} s wall), {w['graphs']} graphs captured in "
-          f"{w['capture_s']:.3f} s, graph memory {w['graph_bytes'] / 2**20:.1f} MiB, peak device "
-          f"memory {w['peak_bytes'] / 2**20:.1f} MiB, launches {warm_counts}, {card}")
+          f"{warm['seconds']} s ({warm_wall:.3f} s wall), {w['graphs']} rollout graphs captured "
+          f"in {w['capture_s']:.3f} s, graph memory {w['graph_bytes'] / 2**20:.1f} MiB; "
+          f"{w['finish_graphs']} finish graphs in {w['finish_capture_s']:.3f} s, "
+          f"{w['finish_bytes'] / 2**20:.1f} MiB; peak device memory "
+          f"{w['peak_bytes'] / 2**20:.1f} MiB, launches {warm_counts}, {card}")
     for g in graphs:
         print(f"programs: graph B={g['B']} steps={g['steps']}: capture "
               f"{g['capture_s'] * 1e3:.1f} ms, {g['bytes'] / 2**20:.2f} MiB, {g['launches']} "
               "GRU-cell launches a replay")
+    for f in finishes:
+        print(f"programs: finish graph B={f['B']} T={f['T']}: capture "
+              f"{f['capture_s'] * 1e3:.1f} ms, {f['bytes'] / 2**20:.2f} MiB")
+    # every planned shape of more than one row replays programs and its finish
+    # (one row takes the decoder kernel)
+    batched = sorted((b, t) for t, b in warm["compiled"] if b > 1)
     if not (warm["complete"] and len(graphs) == 6 * 3
-            and all(g["launches"] == g["steps"] for g in graphs)):
-        fail(f"programs: warmup {warm}, graphs {graphs}")
+            and all(g["launches"] == g["steps"] for g in graphs)
+            and sorted((f["B"], f["T"]) for f in finishes) == batched):
+        fail(f"programs: warmup {warm}, graphs {graphs}, finish graphs {finishes}")
 
     # the -b requests: one B=1 decoder launch and the chunk of two clips
     with open(WORK / "requests.csv", newline="") as f:
@@ -1564,6 +1632,375 @@ def programs_phase(torch, card, results):
     worst = max(max(b_mae.values()), batch_mae, s_mae, d_mae)
     if not (worst <= GRAPH_MAE and s_err <= GRAPH_MAE):
         fail(f"programs: graphed against eager BVH MAE {worst}, session frames {s_err}")
+    return report
+
+
+def float16_errors(torch, a_path, b_path):
+    """Between two BVHs of one request: (largest and median Euler-angle
+    difference in degrees, modulo 360; largest position difference in cm;
+    largest angle between their rotations in degrees; Euler channels more
+    than F16_EULER_REPORTED degrees apart)."""
+    from zeggs_tpu_torch.io import bvh
+    from zeggs_tpu_torch.ops import quat
+
+    a, b = bvh.load(a_path), bvh.load(b_path)
+    if a["rotations"].shape != b["rotations"].shape:
+        fail(f"{a_path.name}: {a['rotations'].shape} against {b['rotations'].shape}")
+    dr = np.abs((a["rotations"] - b["rotations"] + 180.0) % 360.0 - 180.0)
+    qa, qb = (quat.from_euler(torch.deg2rad(torch.as_tensor(x["rotations"], dtype=torch.float64)),
+                              x["order"]) for x in (a, b))
+    cos = torch.clamp((qa * qb).sum(-1).abs(), max=1.0)
+    return (float(dr.max()), float(np.median(dr)),
+            float(np.abs(a["positions"] - b["positions"]).max()),
+            float(torch.rad2deg(2 * torch.acos(cos)).max()), int((dr > F16_EULER_REPORTED).sum()))
+
+
+def float16_within(errors):
+    return (errors[1] < F16_ANGLE_MEDIAN and errors[2] <= F16_POS_ATOL
+            and errors[3] < F16_ROTATION_DEG)
+
+
+def launches_after_last_replay(prof):
+    """From a torch.profiler run: the CUDA runtime calls on the host that
+    launch work (kernels, copies, sets) after its last graph launch, each
+    with the innermost aten op around it on its thread (None: launched
+    outside any) -> (graph launches, [(call, op), ...]). The device's own
+    records (a graph's kernels, copies and sets run after its launch call)
+    are not calls."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    graphs = [e for e in events if "GraphLaunch" in e.name]
+    if not graphs:
+        return 0, []
+    last = max(e.time_range.start for e in graphs)
+    ops = [e for e in events if e.name.startswith("aten::")]
+    after = []
+    for e in events:
+        if e.time_range.start <= last or "GraphLaunch" in e.name or not any(
+                w in e.name for w in ("Launch", "Memcpy", "Memset")):
+            continue
+        around = [o for o in ops if o.thread == e.thread
+                  and o.time_range.start <= e.time_range.start
+                  and o.time_range.end >= e.time_range.end]
+        op = max(around, key=lambda o: o.time_range.start).name if around else None
+        after.append((e.name, op))
+    return len(graphs), after
+
+
+def output_stage_phase(torch, card, results):
+    """Phase output_stage: batched chunks convert rotations and cast to the
+    transfer dtype in a CUDA graph (each chunk's finish program, replayed
+    after its rollout programs), and `generate_batch` pipelines
+    its chunks (`infer.batch.PIPELINE_DEPTH`, copies to pinned memory on a
+    copy stream). At float32 and at float16 transfer, each pipeline warmed
+    first: the 64-clip batch (one chunk) and a CSV of 64 copies of each
+    clip (three chunks: T_pad 512, 1024, 1024), with launch counts and the
+    bytes pulled a chunk; every float16 BVH against its float32 one within
+    the float16 bounds; the float32 CSV at depth 2, then at depth 0 (wall
+    seconds, report only; the BVHs equal); the float16 64-clip batch under
+    torch.profiler: after the chunk's last graph launch only copies; one
+    daemon /synthesize on the float16 pipeline against float32."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer import batch as batch_mod
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch, warmup
+    from zeggs_tpu_torch.serve import GestureServer
+
+    out = results / "output_stage"
+    report = {"card": card}
+    n10 = round(60 * CLIPS["clip_10s"])
+    style = [(WORK / "style.bvh", None)]
+    batch64 = [Request(audio=WORK / "clip_10s.wav", styles=style, file_name=f"copy_{i}",
+                       seed=SEED + i) for i in range(BATCH_COPIES)]
+    csv3 = [Request(audio=WORK / f"{clip}.wav", styles=style, file_name=f"{clip}_{i}",
+                    seed=SEED + i) for clip in CLIPS for i in range(STAGE_COPIES)]
+    lengths = [round(60 * s) for s in CLIPS.values()]
+    dtypes = ("float32", "float16")
+    pipes = {d: GesturePipeline(WORK / "models", WORK / "processed", device="cuda",
+                                transfer_dtype=d) for d in dtypes}
+    for pipe in pipes.values():
+        warmup(pipe, lengths * STAGE_COPIES + [n10] * BATCH_COPIES)
+    pulled, pull = [], batch_mod._pull
+
+    def recorded_pull(out_tensors):
+        pulled.append((tuple(out_tensors[0].shape[:2]), sum(o.numel() * o.element_size()
+                                                             for o in out_tensors)))
+        return pull(out_tensors)
+
+    # the CSV runs' timeline: each chunk's dispatch on the host, the first write
+    timeline, run_chunk = {}, batch_mod._run_chunk
+
+    def timed_chunk(*args):
+        t = time.perf_counter()
+        blocks = run_chunk(*args)
+        timeline.setdefault("dispatch_s", []).append(time.perf_counter() - t)
+        timeline["last_inputs"] = args[4:]  # state0, gaze, audio, style
+        return blocks
+
+    def first_write(write):
+        def timed(*args):
+            if "t0" in timeline:  # a CSV run
+                timeline.setdefault("first_write_s", time.perf_counter() - timeline["t0"])
+            return write(*args)
+        return timed
+
+    # the CSV's chunks: 64 x 4 s at T_pad 512, then 64 x 10 s and 64 x 12 s at 1024
+    expect = {"batch64": {"gru_cell": 1023, "mel_spectrogram": BATCH_COPIES},
+              "csv3": {"gru_cell": 511 + 2 * 1023, "mel_spectrogram": STAGE_COPIES * len(CLIPS)}}
+    runs = {}
+    batch_mod._pull, batch_mod._run_chunk = recorded_pull, timed_chunk
+    for pipe in pipes.values():
+        pipe.write_result = first_write(pipe.write_result)
+    try:
+        # the float16 run under torch.profiler: after the chunk's last graph
+        # launch, only copies (its wall is the profiled one)
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        for dtype in dtypes:
+            pulled.clear()
+            with prof if dtype == "float16" else contextlib.nullcontext():
+                _, wall, counts = counted_run(
+                    torch, lambda: generate_batch(pipes[dtype], batch64, out / f"batch64_{dtype}"),
+                    f"output stage batch of {BATCH_COPIES} {dtype}", expect["batch64"])
+            runs[f"batch64_{dtype}"] = {"wall_s": wall, "launches": counts,
+                                        "pulled": list(pulled)}
+        # the CSV at depth 2 and at depth 0 in turns (float32), and at depth 2 (float16)
+        for dtype, depth in (("float32", 2), ("float32", 0), ("float16", 2)):
+            pulled.clear()
+            timeline.clear()
+            batch_mod.PIPELINE_DEPTH = depth
+            timeline["t0"] = time.perf_counter()
+            _, wall, counts = counted_run(
+                torch, lambda: generate_batch(pipes[dtype], csv3, out / f"csv3_{dtype}_{depth}"),
+                f"output stage CSV {dtype} depth {depth}", expect["csv3"])
+            runs[f"csv3_{dtype}_depth{depth}"] = {
+                "wall_s": wall, "launches": counts, "pulled": list(pulled),
+                "dispatch_s": timeline["dispatch_s"], "first_write_s": timeline["first_write_s"]}
+    finally:
+        batch_mod._pull, batch_mod._run_chunk, batch_mod.PIPELINE_DEPTH = pull, run_chunk, 2
+        for pipe in pipes.values():
+            del pipe.write_result
+    report["runs"] = runs
+    by_chunk = {d: runs[f"csv3_{d}_depth2"]["pulled"] for d in dtypes}
+    print(f"output stage: bytes pulled a chunk (B_pad, T_pad): float32 {by_chunk['float32']}, "
+          f"float16 {by_chunk['float16']}; launches {runs['csv3_float16_depth2']['launches']}")
+    if [len(v) for v in by_chunk.values()] != [3, 3] or any(
+            b32 != 2 * b16 for (_, b32), (_, b16) in zip(*by_chunk.values())):
+        fail(f"output stage: chunks pulled {by_chunk}")
+    report["bytes_a_chunk"] = by_chunk
+
+    # float16 against float32, every file; depth 0 against depth 2, text
+    worst, errors = (0.0,) * 5, {}
+    for label, reqs, dirs in (("batch64", batch64, ("batch64_float32", "batch64_float16")),
+                              ("csv3", csv3, ("csv3_float32_2", "csv3_float16_2"))):
+        errs = [float16_errors(torch, out / dirs[0] / f"{r.file_name}.bvh",
+                               out / dirs[1] / f"{r.file_name}.bvh") for r in reqs]
+        errors[label] = [max(e[i] for e in errs) for i in range(4)] + [sum(e[4] for e in errs)]
+        worst = tuple(max(a, b) for a, b in zip(worst, errors[label]))
+    same_depths = all(
+        (out / "csv3_float32_2" / f"{r.file_name}.bvh").read_text()
+        == (out / "csv3_float32_0" / f"{r.file_name}.bvh").read_text()
+        for r in csv3[:: STAGE_COPIES // 4])
+    report["float16_errors"] = errors
+    print(f"output stage: float16 against float32 transfer, largest Euler angle / median Euler "
+          f"angle (degrees) / position (cm) / rotation angle (degrees) differences, Euler "
+          f"channels over {F16_EULER_REPORTED:g} degrees: batch of {BATCH_COPIES} "
+          f"{errors['batch64']}, CSV of {len(csv3)} {errors['csv3']} (bounds: median "
+          f"{F16_ANGLE_MEDIAN}, positions {F16_POS_ATOL}, rotation {F16_ROTATION_DEG}); depth 0 "
+          f"and depth 2 write the same BVHs: {same_depths}")
+    if not float16_within(worst) or not same_depths:
+        fail(f"output stage: float16 against float32 {errors}, depths equal {same_depths}")
+    csv_runs = ("float32_depth2", "float32_depth0", "float16_depth2")
+    walls = {k: runs[f"csv3_{k}"]["wall_s"] for k in csv_runs}
+    print(f"time output stage CSV of {len(csv3)} requests (3 chunks of 64), wall: float32 "
+          f"pipelined (depth 2) {walls['float32_depth2']:.3f} s, then depth 0 "
+          f"{walls['float32_depth0']:.3f} s, then float16 at depth 2 "
+          f"{walls['float16_depth2']:.3f} s; batch of {BATCH_COPIES} "
+          f"{runs['batch64_float32']['wall_s']:.3f} s float32, "
+          f"{runs['batch64_float16']['wall_s']:.3f} s float16 (profiled), {card}")
+    for k in csv_runs:
+        r = runs[f"csv3_{k}"]
+        print(f"time output stage CSV {k}: each chunk's dispatch on the host "
+              f"{', '.join(f'{t:.3f}' for t in r['dispatch_s'])} s, first BVH write at "
+              f"{r['first_write_s']:.3f} s of {r['wall_s']:.3f} s, {card}")
+    report["csv3_wall_s"] = walls
+
+    graphs, after = launches_after_last_replay(prof)
+    eager = [a for a in after if a[1] != "aten::copy_"]
+    replays = 1023 // 16 + 1023 % 16 // 4 + 1023 % 4 + 1  # the ladder's 63 + 3 + 3, the finish
+    report["profile"] = {"graph_launches": graphs, "after_last_replay": len(after),
+                         "eager_not_copies": eager}
+    print(f"output stage: the batch of {BATCH_COPIES} at float16, profiled: {graphs} graph "
+          f"launches ({replays} expected); after the last one {len(after)} launches, "
+          f"{sorted(set(after), key=str)}; eager kernels other than copies: {len(eager)}")
+    if graphs != replays or not after or eager:
+        names = sorted({e.name for e in prof.events() if not e.name.startswith("aten::")})
+        fail(f"output stage: {graphs} graph launches, after the last {after}; the profile's "
+             f"other events: {names[:80]}")
+
+    report["stage_turns"] = stage_turns(torch, card, pipes["float32"], timeline["last_inputs"])
+
+    # the daemon at float16: one /synthesize against the float32 pipeline
+    req = Request(audio=WORK / "clip_10s.wav", styles=style, file_name="daemon", seed=SEED)
+    generate_batch(pipes["float32"], [req], out / "daemon_float32")
+    srv = GestureServer(pipes["float16"], max_batch=4, max_wait_ms=50)
+    port = srv.start()
+    try:
+        reset_counts()
+        reply = post(port, "/synthesize", {
+            "audio_wav_b64": base64.b64encode((WORK / "clip_10s.wav").read_bytes()).decode(),
+            "styles": [{"bvh_b64": base64.b64encode((WORK / "style.bvh").read_bytes()).decode()}],
+            "seed": SEED, "file_name": "daemon"})
+        counts = read_counts()
+    finally:
+        srv.stop()
+    (out / "daemon_float16").mkdir(parents=True, exist_ok=True)
+    (out / "daemon_float16" / "daemon.bvh").write_text(reply["bvh"])
+    d_err = float16_errors(torch, out / "daemon_float32" / "daemon.bvh",
+                           out / "daemon_float16" / "daemon.bvh")
+    report["daemon"] = {"launches": counts, "float16_errors": d_err}
+    print(f"output stage: daemon /synthesize at float16 transfer, launches {counts}; against "
+          f"float32 {d_err}")
+    if not float16_within(d_err) or counts != {"decoder_rollout": 1, "gru_cell": 0,
+                                               "mel_spectrogram": 1}:
+        fail(f"output stage daemon: launches {counts}, float16 against float32 {d_err}")
+    return report
+
+
+def stage_turns(torch, card, pipe, inputs, turns=STAGE_TURNS):
+    """The output stage's cost on the last CSV chunk (64 x 1024) of the
+    float32 pipeline, device time by CUDA events, in turns: the rollout
+    programs alone (rot6d out), this port's path (the programs, then the
+    chunk's finish graph), and the programs followed by the stage run
+    eagerly (the path before the finish graph); then the finish program's
+    run alone against the eager stage. Report only."""
+    from zeggs_tpu_torch.infer.programs import output_stage
+
+    state0, gaze, audio, style = inputs
+    cache, f32 = pipe.programs, torch.float32
+    with torch.inference_mode():
+        speech, style = pipe.encode_speech_batched(audio), style.contiguous()
+
+        def rollout(dtype=None):
+            return cache.rollout(state0, gaze, speech, style, output_dtype=dtype)
+
+        paths = {"rot6d": rollout, "finish_graph": lambda: rollout(f32),
+                 "eager_stage": lambda: output_stage(rollout(), f32)}
+        times = {k: [] for k in paths}
+        for _ in range(turns):
+            for k, fn in paths.items():
+                times[k].append(event_ms(torch, fn, 1))
+        out = rollout()
+        finish = cache.finish(out, f32)
+        alone = {"finish_graph": event_ms(torch, lambda: finish.run(out), 10),
+                 "eager_stage": event_ms(torch, lambda: output_stage(out, f32), 10)}
+    steps = speech.shape[1] - 1
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"time output stage in turns ({turns} each), 64 x {speech.shape[1]} chunk, device ms "
+          f"(median, ms a step): rollout programs alone {med['rot6d']:.3f} "
+          f"({med['rot6d'] / steps:.4f}), with the finish graph {med['finish_graph']:.3f} "
+          f"({med['finish_graph'] / steps:.4f}), with the stage eager after them "
+          f"{med['eager_stage']:.3f} ({med['eager_stage'] / steps:.4f}); the stage alone: "
+          f"finish graph {alone['finish_graph']:.3f} ms, eager {alone['eager_stage']:.3f} ms; "
+          f"{card}")
+    return {"ms": times, "median_ms": med, "steps": steps, "alone_ms": alone}
+
+
+def recipe_phase(torch, card):
+    """Phase recipe: `python -m zeggs_tpu_torch.cli.train_full` in this
+    process: `build_corpus` on the card (6 clips of 8 s, one mel launch a
+    clip), then RECIPE_STEPS steps at v1 width in float32, B=32, window 256,
+    the loss logged every RECIPE_LOG_EVERY and a checkpoint and samples
+    every RECIPE_CKPT_EVERY: a first run stopped by a --max-hours budget of
+    RECIPE_BUDGET_S seconds (a checkpoint, the curve marked partial), then
+    resumed to the end; the merged curve holds every logged iteration once,
+    in order, all finite; then `cli.eval_checkpoint` of the last checkpoint,
+    its rollouts replaying the rollout programs (GRU-cell launches = decoder
+    steps + captures)."""
+    from zeggs_tpu_torch.cli import eval_checkpoint as E
+    from zeggs_tpu_torch.cli import train_full as T
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+
+    root = WORK / "recipe"
+    shutil.rmtree(root, ignore_errors=True)
+    report = {"card": card}
+    reset_counts()
+    t0 = time.perf_counter()
+    T.build_corpus(root, device="cuda")
+    torch.cuda.synchronize()
+    report["corpus"] = {"s": time.perf_counter() - t0, "launches": read_counts()}
+    if report["corpus"]["launches"] != {"decoder_rollout": 0, "gru_cell": 0,
+                                        "mel_spectrogram": 6}:
+        fail(f"recipe corpus: launches {report['corpus']['launches']}")
+    argv = ["--root", str(root), "--iters", str(RECIPE_STEPS), "--dtype", "float32",
+            "--log-every", str(RECIPE_LOG_EVERY), "--ckpt-every", str(RECIPE_CKPT_EVERY)]
+    curve_path = root / "full_run_curve.json"
+    t0 = time.perf_counter()
+    first = T.main(argv + ["--max-hours", str(RECIPE_BUDGET_S / 3600)])
+    cut = json.loads(curve_path.read_text())
+    report["first"] = {"s": time.perf_counter() - t0, "iters_done": cut["iters_done"],
+                       "completed": cut["completed"]}
+    stopped = first.iteration
+    del first
+    gc.collect()  # the trainer's graphs and pool (`pin_sample_example_length` makes a cycle)
+    if cut["completed"] or not 0 < stopped < RECIPE_STEPS or not (
+            root / "models" / str(stopped)).is_dir():
+        fail(f"recipe: the budget did not stop the run with a checkpoint: {report['first']}")
+    t0 = time.perf_counter()
+    second = T.main(argv)
+    curve = json.loads(curve_path.read_text())
+    report["second"] = {"s": time.perf_counter() - t0, "resumed_at": stopped,
+                        "iters_done": curve["iters_done"], "completed": curve["completed"]}
+    logged = curve["iters_logged"]
+    merged = (logged == list(range(0, RECIPE_STEPS, RECIPE_LOG_EVERY))
+              and all(len(curve[k]) == len(logged) for k in T.TERM_KEYS)
+              and curve[T.TERM_KEYS[0]][: len([i for i in cut["iters_logged"] if i < stopped])]
+              == [v for i, v in zip(cut["iters_logged"], cut[T.TERM_KEYS[0]]) if i < stopped])
+    finite = bool(np.isfinite([curve[k] for k in T.TERM_KEYS]).all())
+    losses = dict(zip(logged, curve["total_loss"]))
+    step_s = report["second"]["s"] / (RECIPE_STEPS - stopped)
+    print(f"recipe: corpus {report['corpus']['s']:.1f} s, launches "
+          f"{report['corpus']['launches']}; first run stopped by its {RECIPE_BUDGET_S:g} s budget "
+          f"at iteration {stopped} ({report['first']['s']:.1f} s), resumed to {second.iteration} "
+          f"({report['second']['s']:.1f} s, {step_s:.3f} s an iteration with its start-up, "
+          f"samples and checkpoints); merged curve {len(logged)} points, no duplicate or gap: "
+          f"{merged}, finite {finite}; total loss "
+          f"{ {i: round(losses[i], 4) for i in (logged[0], logged[len(logged) // 2], logged[-1])} }"
+          f", {card}")
+    if not (merged and finite and curve["completed"] and second.iteration == RECIPE_STEPS):
+        fail(f"recipe: curve {logged}, finite {finite}, completed {curve['completed']}")
+    report["curve"] = {"iters_logged": logged, "total_loss": curve["total_loss"],
+                       "wall_s": curve["wall_s"]}
+    del second
+    gc.collect()
+
+    # the gate on the last checkpoint, graphed
+    lengths, rollout = [], ProgramCache.rollout
+
+    def recorded(self, state0, gaze, speech, *args, **kw):
+        lengths.append(speech.shape[1] - 1)
+        return rollout(self, state0, gaze, speech, *args, **kw)
+
+    ProgramCache.rollout = recorded
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        code = E.main(["--root", str(root), "--iteration", str(RECIPE_STEPS)])
+        torch.cuda.synchronize()
+        eval_s, counts = time.perf_counter() - t0, read_counts()
+    finally:
+        ProgramCache.rollout = rollout
+    agg = json.loads((root / f"eval_{RECIPE_STEPS}.json").read_text())
+    keys = ("vel_ratio_mean", "jerk_ratio_mean", "motion_var_ratio_median")
+    expected = {"decoder_rollout": 0, "gru_cell": sum(lengths) + ladder_programs(lengths),
+                "mel_spectrogram": 0}
+    report["eval"] = {"exit_code": code, "s": eval_s, "launches": counts,
+                      **{k: agg[k] for k in keys}}
+    print(f"recipe: eval_checkpoint at iteration {RECIPE_STEPS}: exit {code} (gate "
+          f"{'passed' if code == 0 else 'failed'}), {dict((k, agg[k]) for k in keys)}, "
+          f"{eval_s:.3f} s, launches {counts} ({sum(lengths)} decoder steps), {card}")
+    if counts != expected or code not in (0, 1):
+        fail(f"recipe eval: launches {counts}, expected {expected}, exit {code}")
     return report
 
 
@@ -3036,6 +3473,8 @@ def main():
     done("mesh")
     progs = programs_phase(torch, card, results)
     done("programs")
+    stage = output_stage_phase(torch, card, results)
+    done("output_stage")
     reference = reference_checkpoints(torch, card)
     with torch.inference_mode():
         gl = griffin_lim_phase(torch, card)
@@ -3052,6 +3491,8 @@ def main():
     done("train_options")
     judged = quality(torch, card, WORK / "train")
     done("quality")
+    recipe = recipe_phase(torch, card)
+    done("recipe")
     progs["failed_capture"] = failed_capture_raises(torch)
     done("failed_capture")
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
@@ -3079,6 +3520,12 @@ def main():
                                    "train_step": trained["launches_per_step"],
                                    "sample_synthesis": {"gru_cell": trained["synthesis_gru"]},
                                    "reference_checkpoints": reference["launches"],
+                                   "output_stage": {
+                                       "batch64": stage["runs"]["batch64_float16"]["launches"],
+                                       "csv3": stage["runs"]["csv3_float16_depth2"]["launches"],
+                                       "daemon": stage["daemon"]["launches"]},
+                                   "recipe": {"corpus": recipe["corpus"]["launches"],
+                                              "eval": recipe["eval"]["launches"]},
                                    "griffin_lim": gl["launches"],
                                    "ddp_sample_synthesis": {
                                        k: v["synthesis"]["gru_cell"] for k, v in ddp.items()
@@ -3090,6 +3537,7 @@ def main():
                       "card": card}))
     print(json.dumps({"mesh": meshed}))
     print(json.dumps({"programs": progs}))
+    print(json.dumps({"output_stage": stage, "recipe": recipe}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         {**decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
@@ -3100,7 +3548,8 @@ def main():
          "launches_v2_batched": v2l["batched"]["decoder_rollout"],
          "launches_v2_serve": v2l["serve"]["decoder_rollout"],
          "launches_mesh": sum(meshed[k]["launches"]["decoder_rollout"]
-                              for k in ("batch64_mesh", "batched", "serve"))},
+                              for k in ("batch64_mesh", "batched", "serve")),
+         "launches_output_stage_daemon": stage["daemon"]["launches"]["decoder_rollout"]},
         {**decoder_entry("int8", int8_counts["decoder_rollout"]),
          "launches_v2_int8": v2l["int8"]["decoder_rollout"]},
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
@@ -3124,7 +3573,9 @@ def main():
          "launches_programs_batched": progs["batched"]["launches"]["graphed"]["gru_cell"],
          "launches_programs_batch64": progs["batch64"]["launches"]["graphed"]["gru_cell"],
          "launches_programs_session": progs["session"]["launches"]["graphed"]["gru_cell"],
-         "launches_programs_serve": progs["serve"]["launches"]["graphed"]["gru_cell"]},
+         "launches_programs_serve": progs["serve"]["launches"]["graphed"]["gru_cell"],
+         "launches_output_stage_csv": stage["runs"]["csv3_float16_depth2"]["launches"]["gru_cell"],
+         "launches_recipe_eval": recipe["eval"]["launches"]["gru_cell"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
@@ -3143,7 +3594,10 @@ def main():
          "launches_v2_serve": v2l["serve"]["mel_spectrogram"],
          "launches_v2_pipeline": v2["training"]["pipeline_mel"],
          "launches_eval": judged["launches"]["mel_spectrogram"],
-         "launches_mesh_batch64": meshed["batch64_mesh"]["launches"]["mel_spectrogram"]},
+         "launches_mesh_batch64": meshed["batch64_mesh"]["launches"]["mel_spectrogram"],
+         "launches_output_stage_csv":
+             stage["runs"]["csv3_float16_depth2"]["launches"]["mel_spectrogram"],
+         "launches_recipe_corpus": recipe["corpus"]["launches"]["mel_spectrogram"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

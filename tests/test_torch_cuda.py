@@ -385,6 +385,16 @@ def test_gru_cell_counts_launches_from_four_threads(device):
 def _program_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
     """A decoder of PyTorch-default initialisation on the card, its pose
     statistics and the carry and (B, T - 1) conditioning of a chunk."""
+    dec, stats, state0, (gaze, speech, style) = _rollout_case(device, B, T, njoints, hidden, seed)
+    with torch.inference_mode():
+        carry = D.init_carry(dec, *state0, gaze[:, 0], style[:, 0],
+                             *list(stats.values())[:2])
+    return dec, stats, carry, (gaze[:, 1:], speech[:, 1:], style[:, 1:])
+
+
+def _rollout_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
+    """The decoder and statistics of `_program_case`, the frame-0 state and
+    the (B, T) conditioning of a rollout."""
     from zeggs_tpu_torch.infer.programs import _STATS
 
     pose_in, pose_out = 6 + njoints * 15 + 3, 6 + njoints * 15
@@ -402,9 +412,7 @@ def _program_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
               t(B, njoints, 3), t(B, njoints, 2, 3), t(B, njoints, 3, scale=0.1),
               t(B, njoints, 3, scale=0.1))
     gaze, speech, style = t(B, T, 3, scale=100.0), t(B, T, 64), t(B, T, 64)
-    with torch.inference_mode():
-        carry = D.init_carry(dec, *state0, gaze[:, 0], style[:, 0], *stats[:2])
-    return dec, dict(zip(_STATS, stats)), carry, (gaze[:, 1:], speech[:, 1:], style[:, 1:])
+    return dec, dict(zip(_STATS, stats)), state0, (gaze, speech, style)
 
 
 def _eager_chunk(dec, stats, carry, cond, quantize_int8=False):
@@ -433,6 +441,48 @@ def test_graphed_chunk_equals_the_eager_chunk(device, quantize_int8):
     err = max(_max_diff(got, ref), _max_diff(got_carry, ref_carry))
     print(f"graphed against eager chunk (int8 {quantize_int8}): max|diff| {err:.3e}")
     assert err <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_graphed_output_stage_equals_the_eager_one(device, dtype):
+    """A rollout of 4 rows and 41 frames with the output stage in its
+    finish program (quaternions, the transfer dtype) against `output_stage`
+    of the eager `decoder.rollout`: within 1e-6 (bitwise expected)."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache, output_stage
+
+    dec, stats, state0, cond = _rollout_case(device)
+    dtype = getattr(torch, dtype)
+    with torch.inference_mode():
+        want = output_stage(D.rollout(dec, *state0, *cond, *stats.values(), DT,
+                                      output_indices=(0, 1, 4, 5)), dtype)
+        got = ProgramCache(dec, stats, DT).rollout(state0, *cond, output_dtype=dtype)
+        torch.cuda.synchronize()
+    assert [g.dtype for g in got] == [dtype] * 4
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert _max_diff([g.float() for g in got], [w.float() for w in want]) <= 1e-6
+
+
+def test_finish_outputs_outlive_the_next_replay(device):
+    """Two rollouts of one shape at float16 transfer, back to back and not
+    synchronised: one finish program serves both, and the first's outputs
+    (copied out of the graph's buffers) still equal its eager output stage
+    after the second has replayed the graph."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache, output_stage
+
+    dec, stats, state0, cond = _rollout_case(device)
+    other = _rollout_case(device, seed=22)[3]
+    cache = ProgramCache(dec, stats, DT)
+    with torch.inference_mode():
+        first = cache.rollout(state0, *cond, output_dtype=torch.float16)
+        second = cache.rollout(state0, *other, output_dtype=torch.float16)
+        want = [output_stage(D.rollout(dec, *state0, *c, *stats.values(), DT,
+                                       output_indices=(0, 1, 4, 5)), torch.float16)
+                for c in (cond, other)]
+        torch.cuda.synchronize()
+    assert len(cache.finishes()) == 1
+    for got, ref in zip((first, second), want):
+        assert _max_diff([g.float() for g in got], [w.float() for w in ref]) <= 1e-6
+    assert _max_diff([g.float() for g in first], [g.float() for g in second]) > 0.0
 
 
 def test_launch_counter_counts_replays(device):
@@ -743,6 +793,83 @@ def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path):
             assert np.isfinite(b["rotations"]).all()
             assert np.abs(a["positions"] - b["positions"]).mean() < 1e-3
             assert np.abs(a["rotations"] - b["rotations"]).mean() < 1e-3
+
+
+def test_pipelined_chunks_on_the_card(small_models, tmp_path, monkeypatch):
+    """Seven requests in chunks of two (four chunks, copies to pinned
+    memory, collected two dispatches late): at depth 2 the BVHs of depth 0,
+    text for text, in request order; over a mesh of two replicas on cuda:0
+    within the pose MAE budget of 1e-3; at float16 transfer within
+    tests/test_batch_infer.py's float16 bounds."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer import batch as B
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.io import bvh
+    from zeggs_tpu_torch.parallel import create_mesh
+
+    m = small_models
+    reqs = [Request(audio=m["root"] / "audio.wav", styles=[(m["root"] / "style.bvh", None)],
+                    file_name=f"r{i}", seed=i) for i in range(7)]
+    names = [f"r{i}.bvh" for i in range(7)]
+    runs = {"depth2": ("float32", 2, None), "depth0": ("float32", 0, None),
+            "mesh": ("float32", 2, create_mesh(devices=["cuda:0"] * 2)),
+            "float16": ("float16", 2, None)}
+    for tag, (dtype, depth, mesh) in runs.items():
+        monkeypatch.setattr(B, "PIPELINE_DEPTH", depth)
+        pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
+                               rollout_weights="float32", transfer_dtype=dtype)
+        written = generate_batch(pipe, reqs, tmp_path / tag, bucket=64, max_batch=2, mesh=mesh)
+        assert [p.name for p in written] == names, tag
+    for name in names:
+        a = bvh.load(tmp_path / "depth2" / name)
+        assert (tmp_path / "depth2" / name).read_text() == (tmp_path / "depth0" / name).read_text()
+        b = bvh.load(tmp_path / "mesh" / name)
+        assert np.abs(a["positions"] - b["positions"]).mean() < 1e-3
+        assert np.abs(a["rotations"] - b["rotations"]).mean() < 1e-3
+        h = bvh.load(tmp_path / "float16" / name)
+        dr = np.abs((a["rotations"] - h["rotations"] + 180.0) % 360.0 - 180.0)
+        assert dr.max() < 3.0 and np.median(dr) < 0.05
+        assert np.abs(a["positions"] - h["positions"]).max() <= 0.5
+
+
+def test_mesh_chunk_inputs_outlive_their_blocks(small_models, tmp_path, monkeypatch):
+    """Seven requests in chunks of two over a mesh of two replicas on
+    cuda:0. After each chunk's blocks have returned (their streams may still
+    read the chunk's inputs), the caller's stream takes fresh memory of the
+    inputs' sizes and fills it with NaN, as the next chunk's assembly would:
+    the BVHs equal those of an undisturbed run, text for text, since a
+    chunk's inputs are held until the chunk is collected."""
+    from concurrent.futures import wait
+
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer import batch as B
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.parallel import create_mesh
+
+    m = small_models
+    reqs = [Request(audio=m["root"] / "audio.wav", styles=[(m["root"] / "style.bvh", None)],
+                    file_name=f"r{i}", seed=i) for i in range(7)]
+    pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
+                           rollout_weights="float32")
+    mesh = create_mesh(devices=["cuda:0"] * 2)
+    clean = generate_batch(pipe, reqs, tmp_path / "clean", bucket=64, max_batch=2, mesh=mesh)
+    run_chunk = B._run_chunk
+
+    def disturbed(*args):
+        blocks = run_chunk(*args)
+        sizes = [t.numel() for t in (*args[4], *args[5:])]
+        del args
+        wait(blocks)
+        junk = [torch.full((n,), float("nan"), device="cuda") for n in sizes for _ in range(3)]
+        del junk
+        return blocks
+
+    monkeypatch.setattr(B, "_run_chunk", disturbed)
+    written = generate_batch(pipe, reqs, tmp_path / "disturbed", bucket=64, max_batch=2,
+                             mesh=mesh)
+    assert [p.name for p in written] == [p.name for p in clean]
+    for a, b in zip(clean, written):
+        assert a.read_text() == b.read_text(), a.name
 
 
 @pytest.fixture(scope="module")

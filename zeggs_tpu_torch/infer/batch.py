@@ -5,9 +5,21 @@ chunks of at most ``max_batch`` clips; each chunk's rows are padded to the
 batch size of the padding policy (`resolve_batch_pad`: "pow2" or "full",
 `_chunk_b_pad`) and rolled out as one batched rollout, so that a few rollout
 programs (`infer/programs.py`: CUDA graphs of the decoder step) serve every
-chunk. BVH writing runs on a thread pool while the next chunk is computed.
-A chunk of one row takes the B=1 decoder kernel on a card; larger chunks
-replay the programs, GRU1 of every step through the GRU-cell kernel.
+chunk. A chunk of one row takes the B=1 decoder kernel on a card; larger
+chunks replay the programs, GRU1 of every step through the GRU-cell kernel,
+and then their output stage (quaternions, the transfer dtype) in one more
+program (`programs.FinishProgram`).
+
+Chunks are pipelined as `zeggs_tpu`'s are: as soon as a chunk's device work
+is enqueued, its outputs start to copy into pinned host buffers on a copy
+stream (`_pull`). A chunk is collected, its copies waited for and its rows
+handed to the BVH writers' thread pool, once a later chunk has been
+dispatched and its copies have ended, and at the latest once
+PIPELINE_DEPTH later chunks have been dispatched; so the card computes the
+next chunks while the copies and the writing of the earlier ones go on,
+and at most PIPELINE_DEPTH + 1 chunks' outputs are held. A chunk's inputs
+are held until it is collected, since the streams of its blocks read them.
+Results come back in request order whatever the depth.
 `plan_programs` predicts the (T_pad, B_pad) shapes `generate_batch` will
 run, and `warmup` captures and runs each of them once, before traffic.
 
@@ -24,7 +36,8 @@ draws, so the draws do not depend on the mesh. One host thread a block
 then copies its rows to its device, runs the speech encoder and the
 rollout there on a stream of its own, through its block's slot of the
 replica's program cache, in inference mode (grad mode is per thread), and
-copies the outputs to the host. Every chunk under a mesh runs the
+starts its outputs' copies to the host; the chunk's futures are collected
+at the same depth. Every chunk under a mesh runs the
 programs, one of a single clip too, as `zeggs_tpu`'s sharded path does;
 whether it runs int8 products is decided by the padded chunk's size, not
 the block's. Blocks of a chunk reduce in another order than the whole
@@ -42,7 +55,7 @@ makes for the same seed.
 from __future__ import annotations
 
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional, Sequence
@@ -54,9 +67,15 @@ from ..data import features as F
 from ..io import bvh
 from ..parallel import shard_rows
 from ..utils import split_by_ratio
+from .programs import device_site
 
 #: name prefix of the threads that run a mesh's blocks
 SHARD_THREADS = "mesh-block"
+#: the most chunks dispatched after a chunk before it is collected
+#: (`zeggs_tpu`'s ``pipeline_depth``); it bounds the outputs held. A chunk
+#: whose copies have ended is collected after one. 0 collects each chunk as
+#: soon as it is dispatched.
+PIPELINE_DEPTH = 2
 _STATE0 = ("root_pos", "root_rot", "root_vel", "root_vrt", "lpos", "ltxy", "lvel", "lvrt")
 
 
@@ -218,10 +237,10 @@ def warmup(pipe, lengths, bucket=512, max_batch=64, mesh=None, style_jobs=None, 
                       for s in ((3,), (4,), (3,), (3,), (J, 3), (J, 2, 3), (J, 3), (J, 3))]
             state0[1][:, 0] = 1.0  # identity root rotation
             state0[5][..., 0, 0] = state0[5][..., 1, 1] = 1.0  # identity joint rotations
-            _run_chunk(pipe, replicas, mesh, shards, tuple(state0),
-                       torch.zeros((B_pad, T_pad, 3), device=dev),
-                       torch.zeros((B_pad, T_pad, n_audio), device=dev),
-                       torch.zeros((B_pad, T_pad, pipe.style_encoding_size), device=dev))
+            inputs = (tuple(state0), torch.zeros((B_pad, T_pad, 3), device=dev),
+                      torch.zeros((B_pad, T_pad, n_audio), device=dev),
+                      torch.zeros((B_pad, T_pad, pipe.style_encoding_size), device=dev))
+            _collect(_run_chunk(pipe, replicas, mesh, shards, *inputs))  # inputs held till here
             if log:
                 log(f"warm rollout T={T_pad} B={B_pad}: {time.monotonic() - t0:.1f}s")
             compiled.append((T_pad, B_pad))
@@ -268,21 +287,46 @@ def _assemble(chunk, T_pad, B_pad):
     return state0, _pad_rows(gaze, pad), _pad_rows(audio, pad), _pad_rows(style, pad)
 
 
+def _pull(out):
+    """Start copying a chunk's (or a block's) outputs to the host -> (host
+    tensors, the CUDA event that follows the copies, or None on the CPU,
+    where the outputs are the host tensors). On a card the copies wait on
+    the caller's stream for the chunk's device work and run on the device's
+    copy stream into pinned buffers; the device tensors are marked as read
+    by that stream, so that the caching allocator does not hand their memory
+    out before the copies end."""
+    dev = out[0].device
+    if dev.type != "cuda":
+        return list(out), None
+    copier = device_site(dev).copy_stream
+    copier.wait_stream(torch.cuda.current_stream(dev))
+    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in out]
+    with torch.cuda.stream(copier):
+        for h, o in zip(host, out):
+            h.copy_(o, non_blocking=True)
+            o.record_stream(copier)
+    copied = torch.cuda.Event()
+    copied.record(copier)
+    return host, copied
+
+
 def _shard_on(replica, rows, quantize_int8, slot):
     dev = replica.device
     *state0, gaze, audio, style = (t.to(dev, non_blocking=True) for t in rows)
     speech = replica.encode_speech_batched(audio)
-    out = replica.rollout(tuple(state0), gaze, speech, style.contiguous(), quantize_int8, slot)
-    return [o.float().cpu() for o in out]
+    return _pull(replica.rollout(tuple(state0), gaze, speech, style.contiguous(), quantize_int8,
+                                 slot))
 
 
 def _rollout_shard(replica, ready, rows, quantize_int8, slot):
     """One block of a chunk on ``replica``, in a worker thread, through the
-    programs of ``slot`` (the block's index) -> host trajectories.
-    ``rows``: the block's 8 frame-0 state tensors, gaze, audio features and
-    style, on the pipeline's device, written before the CUDA event
-    ``ready`` (None when that device is the CPU). On a card the block runs
-    on a stream of its own, which is idle when this returns."""
+    programs of ``slot`` (the block's index) -> `_pull`'s (host tensors,
+    event). ``rows``: the block's 8 frame-0 state tensors, gaze, audio
+    features and style, on the pipeline's device, written before the CUDA
+    event ``ready`` (None when that device is the CPU). On a card the block
+    runs on a stream of its own, and its copies to the host are still
+    running when this returns; so are reads of ``rows``, which the caller
+    holds until the block is collected (`_collect`)."""
     dev = replica.device
     with torch.inference_mode():  # grad mode is per thread
         if dev.type != "cuda":
@@ -293,35 +337,57 @@ def _rollout_shard(replica, ready, rows, quantize_int8, slot):
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
-            host = _shard_on(replica, rows, quantize_int8, slot)
-            stream.synchronize()
-        return host
+            return _shard_on(replica, rows, quantize_int8, slot)
 
 
 def _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio, style):
     """A padded chunk's rows over the mesh, one task of the pool ``shards``
-    a block -> host trajectories of the whole chunk, in row order. The int8
-    decision is the chunk's."""
+    a block -> the blocks' futures, in row order. The int8 decision is the
+    chunk's."""
     ready = None
     if pipe.device.type == "cuda":
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(pipe.device))
     blocks = zip(*(shard_rows(t, mesh) for t in (*state0, gaze, audio, style)))
     quantize_int8 = pipe.quantize_batched(audio.shape[0])
-    futures = [shards.submit(_rollout_shard, replica, ready, rows, quantize_int8, slot)
-               for slot, (replica, rows) in enumerate(zip(replicas, blocks))]
-    outs = [f.result() for f in futures]
-    return [torch.cat(parts) for parts in zip(*outs)]
+    return [shards.submit(_rollout_shard, replica, ready, rows, quantize_int8, slot)
+            for slot, (replica, rows) in enumerate(zip(replicas, blocks))]
 
 
 def _run_chunk(pipe, replicas, mesh, shards, state0, gaze, audio, style):
-    """One padded chunk: speech encoder and rollout on ``pipe.device``, or
-    over the ``mesh`` -> host trajectories (B_pad, T_pad, ...)."""
+    """Dispatch one padded chunk: speech encoder and rollout on
+    ``pipe.device``, or over the ``mesh`` -> its blocks (one without a
+    mesh), each `_pull`'s (host tensors, event) or a future of it."""
     if mesh is None:
         speech = pipe.encode_speech_batched(audio)
-        out = pipe.rollout_batch(state0, gaze, speech, style.contiguous())
-        return [o.float().cpu() for o in out]
+        return [_pull(pipe.rollout_batch(state0, gaze, speech, style.contiguous()))]
     return _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio, style)
+
+
+def _copied(blocks):
+    """Whether every block of a dispatched chunk has returned and its copies
+    to the host have ended; it does not wait."""
+    for block in blocks:
+        if isinstance(block, Future):
+            if not block.done():
+                return False
+            block = block.result()
+        if block[1] is not None and not block[1].query():
+            return False
+    return True
+
+
+def _collect(blocks):
+    """A dispatched chunk's blocks -> their host tensors, in row order,
+    once every copy has ended (and with it every read of the chunk's
+    inputs on its blocks' streams: the copies follow the blocks' work)."""
+    hosts = []
+    for block in blocks:
+        host, copied = block.result() if isinstance(block, Future) else block
+        if copied is not None:
+            copied.synchronize()
+        hosts.append(host)
+    return hosts
 
 
 @torch.inference_mode()
@@ -334,8 +400,9 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
     pipe: GesturePipeline. batch_pad: the chunk batch-padding policy
     (`resolve_batch_pad`). Writes <file_name>.bvh (and the .wav) of every
     request under ``results_path``; returns the written BVH paths, in the
-    order of the requests' buckets and chunks. Returns once every block
-    has finished."""
+    order of the requests' buckets and chunks. Chunks are pipelined (see
+    the module's docstring); returns once every block has finished and
+    every BVH is written."""
     batch_pad = resolve_batch_pad(batch_pad)
     results_path = Path(results_path)
     results_path.mkdir(parents=True, exist_ok=True)
@@ -359,15 +426,27 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
     replicas = None if mesh is None else [pipe.replica(d) for d in mesh.devices]
     with ThreadPoolExecutor(max_workers=write_workers) as pool, \
             ThreadPoolExecutor(max_workers=n_dev, thread_name_prefix=SHARD_THREADS) as shards:
-        futures = []
+        futures, pending = [], []
+
+        def collect(chunk, inputs, blocks):
+            hosts = _collect(blocks)  # only now may the chunk's inputs be freed
+            rows = hosts[0][0].shape[0]  # a block's rows; every block has as many
+            for i, (req, _, n, *_) in enumerate(chunk):
+                host = hosts[i // rows]
+                futures.append(pool.submit(
+                    pipe.write_result, results_path, req.file_name,
+                    tuple(h[i % rows : i % rows + 1, :n] for h in host), req.audio,
+                ))
+
         for T_pad, items in sorted(buckets.items()):
             for start in range(0, len(items), max_batch):
                 chunk = items[start : start + max_batch]
                 B_pad = _chunk_b_pad(len(chunk), max_batch, n_dev, batch_pad)
-                host = _run_chunk(pipe, replicas, mesh, shards, *_assemble(chunk, T_pad, B_pad))
-                for i, (req, _, n, *_) in enumerate(chunk):
-                    futures.append(pool.submit(
-                        pipe.write_result, results_path, req.file_name,
-                        tuple(h[i : i + 1, :n] for h in host), req.audio,
-                    ))
+                inputs = _assemble(chunk, T_pad, B_pad)
+                pending.append((chunk, inputs, _run_chunk(pipe, replicas, mesh, shards, *inputs)))
+                while len(pending) > PIPELINE_DEPTH or (len(pending) > 1
+                                                        and _copied(pending[0][2])):
+                    collect(*pending.pop(0))
+        for entry in pending:
+            collect(*entry)
         return [f.result() for f in futures]

@@ -8,7 +8,11 @@ style draw. `GesturePipeline` loads networks and statistics once onto one
 device and serves requests there; at B=1 on a card the decoder rollout is
 one launch of the CUDA kernel, and larger batches replay CUDA graphs of the
 decoder step from the pipeline's program cache (`infer/programs.py`, the
-counterpart of `zeggs_tpu`'s ``_rollout_fn`` cache). The batched entry
+counterpart of `zeggs_tpu`'s ``_rollout_fn`` cache). A rollout's output
+stage converts the joint rotations to quaternions and casts the four
+trajectories to the pipeline's transfer dtype on the device, inside the
+programs for batched chunks (`programs.output_stage`); `write_result`
+upcasts them to float32 on the host. The batched entry
 points used by `infer/batch.py` (`encode_speech_batched`,
 `encode_styles_batch`, `rollout_batch`) live here too, with
 `GesturePipeline.replica`, which puts the speech encoder and the decoder
@@ -35,13 +39,15 @@ from ..models import decoder, pose
 from ..models.decoder import Decoder
 from ..models.speech_encoder import SpeechEncoder
 from ..models.style_encoder import StyleEncoder
-from ..ops import quat, xform
 from ..ops.kernels import build
 from ..utils import split_by_ratio, write_bvh
-from .programs import ProgramCache
+from .programs import ProgramCache, output_stage
 from .streaming import StreamingSession
 
 _ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
+#: the transfer dtypes of a rollout's outputs, by the names `zeggs_tpu`'s
+#: ``jnp.dtype`` reads for them
+TRANSFER_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16, "float32": torch.float32}
 #: batch size from which batched rollouts run int8 products when int8 is
 #: selected (below it the per-step quantization is not amortized)
 INT8_BATCHED_MIN = 256
@@ -78,23 +84,29 @@ def build_network(name, params, opts: Options, pose_input_size, device):
     return module.to(device).eval().requires_grad_(False)
 
 
-def _with_quaternions(out):
-    """(root_pos, root_rot, lpos, ltxy) -> (root_pos, root_rot, lpos, lrot),
-    joint rotations as quaternions."""
-    return out[:3] + (quat.from_xform(xform.orthogonalize_from_xy(out[3])),)
+def transfer_dtype_of(name):
+    """The torch dtype of a transfer dtype name: None or "" read
+    ZEGGS_TRANSFER_DTYPE, as `zeggs_tpu` does, and float32 when it is unset
+    too; another name than those of TRANSFER_DTYPES raises."""
+    name = name or os.environ.get("ZEGGS_TRANSFER_DTYPE") or "float32"
+    if name not in TRANSFER_DTYPES:
+        raise ValueError(f"transfer_dtype must be one of {sorted(TRANSFER_DTYPES)}, not {name!r}")
+    return TRANSFER_DTYPES[name]
 
 
 @dataclasses.dataclass(frozen=True)
 class Replica:
     """What a batched rollout runs on one device: the speech encoder and the
-    decoder (``networks``), the statistics, the frame time and the
-    decoder's program cache (None for the ``film`` cell, which has none)."""
+    decoder (``networks``), the statistics, the frame time, the decoder's
+    program cache (None for the ``film`` cell, which has none) and the
+    transfer dtype of the rollout's outputs."""
 
     device: torch.device
     networks: dict
     stats: dict
     dt: float
     programs: ProgramCache | None
+    transfer_dtype: torch.dtype = torch.float32
 
     def encode_speech_batched(self, audio_features):
         """(B, T, n_features) -> (B, T, S) speech encodings."""
@@ -106,20 +118,22 @@ class Replica:
         through the program cache: on a card the decoder steps replay CUDA
         graphs, GRU1 of every step through the GRU-cell kernel, and the
         programs of ``slot`` are used by this call alone (a mesh gives each
-        block its own); products on int8 values with ``quantize_int8``. The
-        ``film`` cell has no programs and runs the eager `decoder.rollout`."""
+        block its own); products on int8 values with ``quantize_int8``; the
+        output stage (`programs.output_stage`) inside the programs. The
+        ``film`` cell has no programs and runs the eager `decoder.rollout`,
+        then the output stage. Returns (root_pos, root_rot, lpos, lrot)
+        (B, T, ...) in the transfer dtype."""
         if self.programs is not None:
-            out = self.programs.rollout(state0, gaze_pos, speech_enc, style_enc, quantize_int8,
-                                        slot)
-        else:
-            s = self.stats
-            out = decoder.rollout(
-                self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
-                s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
-                s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
-                quantize_int8=quantize_int8,
-            )
-        return _with_quaternions(out)
+            return self.programs.rollout(state0, gaze_pos, speech_enc, style_enc, quantize_int8,
+                                         slot, self.transfer_dtype)
+        s = self.stats
+        out = decoder.rollout(
+            self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
+            s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
+            s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
+            quantize_int8=quantize_int8,
+        )
+        return output_stage(out, self.transfer_dtype)
 
 
 class GesturePipeline:
@@ -128,12 +142,19 @@ class GesturePipeline:
     rollout needs to another device."""
 
     def __init__(self, network_path, data_path, options=None, style_encoding_type="example",
-                 device="cuda", rollout_weights=None):
+                 device="cuda", rollout_weights=None, transfer_dtype=None):
         """rollout_weights: dtype of the decoder weights in the B=1 CUDA
         kernel: "bfloat16" (37 MB streamed per frame; the default), "float32"
         or "int8" (18 MB, one scale per weight row, activations quantized
         every step). None takes "int8" when the environment sets
         ZEGGS_FUSED_INT8, else "bfloat16".
+
+        transfer_dtype: dtype of the rollout outputs copied to the host,
+        "float16" (half the bytes of "float32", at ~1e-3 relative pose
+        error), "bfloat16" or "float32"; None reads ZEGGS_TRANSFER_DTYPE,
+        and takes "float32" when it is unset. The cast runs on the device
+        (inside the rollout programs for batched chunks), and `write_result`
+        upcasts to float32 on the host.
 
         B=1 rollouts run the kernel on a card. On the CPU they run the
         eager rollout, except with "int8", where the kernel's plain PyTorch
@@ -144,6 +165,7 @@ class GesturePipeline:
             rollout_weights = "int8" if os.environ.get("ZEGGS_FUSED_INT8") else "bfloat16"
         if rollout_weights not in _ROLLOUT_WEIGHTS:
             raise ValueError(f"rollout_weights must be one of {sorted(_ROLLOUT_WEIGHTS)}")
+        self.transfer_dtype = transfer_dtype_of(transfer_dtype)
         self.device = require_device(device)
         if self.device.type == "cuda":
             # every kernel is built now, not at its first launch, which may
@@ -316,7 +338,7 @@ class GesturePipeline:
     def rollout(self, first_pose_feats, gaze_pos, speech_enc, style_enc):
         """Rollout from frame 0 of ``first_pose_feats`` under (1, T, ...)
         conditioning -> (root_pos, root_rot, lpos, lrot) trajectories
-        (1, T, ...), joint rotations as quaternions."""
+        (1, T, ...), joint rotations as quaternions, in the transfer dtype."""
         state0 = tuple(getattr(first_pose_feats, k)[0:1] for k in _STATE0)
         return self.rollout_batch(state0, gaze_pos, speech_enc, style_enc)
 
@@ -328,15 +350,17 @@ class GesturePipeline:
     def rollout_batch(self, state0, gaze_pos, speech_enc, style_enc):
         """Rollout of B clips from their frame-0 states (8 tensors (B, ...),
         the order of `decoder.rollout`) under (B, T, ...) conditioning ->
-        (root_pos, root_rot, lpos, lrot) trajectories (B, T, ...). B=1 takes
-        the decoder kernel where the pipeline has one, as `zeggs_tpu`'s
-        ``_rollout_fn`` takes its fused kernel at ``shape[0] == 1``; every
-        other chunk runs the decoder step from the pipeline's program cache
-        (CUDA graphs on a card, GRU1 through the GRU-cell kernel)."""
+        (root_pos, root_rot, lpos, lrot) trajectories (B, T, ...) in the
+        transfer dtype. B=1 takes the decoder kernel where the pipeline has
+        one, as `zeggs_tpu`'s ``_rollout_fn`` takes its fused kernel at
+        ``shape[0] == 1``, then the output stage, eagerly on the device;
+        every other chunk runs the decoder step and the output stage from
+        the pipeline's program cache (CUDA graphs on a card, GRU1 through the
+        GRU-cell kernel)."""
         B = speech_enc.shape[0]
         if self._fused_fn is not None and B == 1:
             out = self._fused_fn(state0, gaze_pos, speech_enc, style_enc)
-            return _with_quaternions(tuple(out[i] for i in (0, 1, 4, 5)))
+            return output_stage(tuple(out[i] for i in (0, 1, 4, 5)), self.transfer_dtype)
         return self.replica(self.device).rollout(
             state0, gaze_pos, speech_enc, style_enc, quantize_int8=self.quantize_batched(B))
 
@@ -351,7 +375,7 @@ class GesturePipeline:
         own = self.stats["anim_input_mean"].device
         if device == own or (device.type == own.type and device.index is None):
             return Replica(own, {n: self.networks[n] for n in ("speech_encoder", "decoder")},
-                           self.stats, self.dt, self.programs)
+                           self.stats, self.dt, self.programs, self.transfer_dtype)
         if device not in self._replicas:
             require_device(device)
             # plain tensors, also when called under inference mode: the copy
@@ -361,7 +385,8 @@ class GesturePipeline:
                         for n in ("speech_encoder", "decoder")}
                 stats = {k: v.to(device) for k, v in self.stats.items()}
             self._replicas[device] = Replica(device, nets, stats, self.dt,
-                                             self._program_cache(nets["decoder"], stats))
+                                             self._program_cache(nets["decoder"], stats),
+                                             self.transfer_dtype)
         return self._replicas[device]
 
     def streaming_session(self, styles, first_pose=None, blend_ratio=(0.5, 0.5),
@@ -375,9 +400,21 @@ class GesturePipeline:
         )
 
     def write_result(self, results_path, file_name, rollout_out, audio_file=None):
+        """Write (root_pos, root_rot, lpos, lrot) (1, T, ...), on the device or
+        on the host in any transfer dtype, as <file_name>.bvh: pulled first,
+        then upcast to float32 on the host (the BVH's re-anchoring and Euler
+        angles do not run in a reduced dtype). Quaternions that come in a
+        reduced dtype are normalised after the upcast: rounded to float16,
+        a unit quaternion's norm is off by up to ~1e-3, which the Euler
+        conversion turns into degrees near gimbal lock."""
         results_path = Path(results_path)
         results_path.mkdir(exist_ok=True, parents=True)
-        root_pos, root_rot, lpos, lrot = (t[0].float().cpu().numpy() for t in rollout_out)
+        host = [t[0].cpu() for t in rollout_out]
+        root_pos, root_rot, lpos, lrot = (t.float() for t in host)
+        if host[3].dtype != torch.float32:
+            root_rot, lrot = (q / torch.linalg.norm(q, dim=-1, keepdim=True)
+                              for q in (root_rot, lrot))
+        root_pos, root_rot, lpos, lrot = (t.numpy() for t in (root_pos, root_rot, lpos, lrot))
         out_file = results_path / (file_name + ".bvh")
         write_bvh(str(out_file), root_pos, root_rot, lpos, lrot, parents=self.parents,
                   names=self.bone_names, order="zyx", dt=self.dt,

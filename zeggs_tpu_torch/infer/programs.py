@@ -18,9 +18,22 @@ products are computed once for the whole chunk, as `rollout_chunk` computes
 them, and copied in a grain at a time: a replayed chunk equals the eager
 one bit for bit.
 
+A batched chunk also runs its output stage in a graph, as `zeggs_tpu`'s
+``_rollout_fn`` does inside its jitted program (`output_stage`: the joint
+rotations become quaternions and the four trajectories are cast to the
+pipeline's transfer dtype). A `FinishProgram` is one graph of that stage
+over a whole chunk of B rows and T frames, replayed once after the
+chunk's grains, so that after it only copies run on the card. Streaming
+sessions, sample synthesis and the evaluation keep the step's rot6d
+output.
+
 A program is keyed by (device, slot, B, steps, int8). The slot keeps
 callers that run at once apart: each block of a mesh (`infer/batch.py`)
-has its own, and streaming sessions share ``"stream"``.
+has its own, and streaming sessions share ``"stream"``. A finish program
+is keyed by (device, B, T, transfer dtype) alone, since each of its runs
+copies its inputs in and its outputs out under the device's lock; the
+finish programs of a cache share one memory pool (its intermediates), as
+their replays never overlap.
 
 Captures run on one high-priority stream a device, in ``thread_local``
 capture mode, so that other threads keep working on the card (a mesh's
@@ -36,8 +49,9 @@ caller enqueues while the card runs another's replays. Each replay counts
 the launches its graph captured (`ops/kernels/gru_cell.py`). A capture or
 replay that fails raises: there is no eager fall-back on a card.
 
-On the CPU a program runs its steps eagerly: the plain version, which the
-tests hold to `models.decoder.rollout_chunk`.
+On the CPU a program runs its steps eagerly and a finish program runs
+`output_stage`: the plain versions, which the tests hold to
+`models.decoder.rollout_chunk` and `decoder.rollout`.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ import time
 import torch
 
 from ..models import decoder
+from ..ops import quat, xform
 from ..ops.kernels import gru_cell as GC
 
 #: the grains a chunk is cut into, largest first (JAX's decoder grain of 16
@@ -58,24 +73,75 @@ OUTPUTS = (0, 1, 4, 5)
 _STATS = ("anim_input_mean", "anim_input_std", "anim_output_mean", "anim_output_std")
 
 
+def with_quaternions(out):
+    """(root_pos, root_rot, lpos, ltxy) -> (root_pos, root_rot, lpos, lrot),
+    joint rotations as quaternions."""
+    return tuple(out[:3]) + (quat.from_xform(xform.orthogonalize_from_xy(out[3])),)
+
+
+def output_stage(out, dtype):
+    """A rollout's output stage (`zeggs_tpu`'s ``_rollout_fn`` after its
+    scan): `with_quaternions`, then every trajectory cast to ``dtype``, the
+    transfer dtype of the device-to-host copies."""
+    return tuple(t.to(dtype) for t in with_quaternions(out))
+
+
 class DeviceSite:
     """A device's capture stream, and the lock and event that order every
-    capture and replay on the device (see the module's docstring). The
-    stream comes from the high-priority pool, which no other code of the
-    port draws from, so no other thread's work can land on it while it
-    captures."""
+    capture and replay on the device (see the module's docstring), and the
+    stream that copies rollout outputs to the host (`infer.batch._pull`),
+    which takes neither. The capture stream comes from the high-priority
+    pool, which no other code of the port draws from, so no other thread's
+    work can land on it while it captures."""
 
     def __init__(self, device):
         self.lock = threading.Lock()
         self.done = torch.cuda.Event()  # the end of the device's last graph work
         self.device = device
-        self._stream = None
+        self._stream = self._copy_stream = None
 
     @property
     def stream(self):
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device, priority=-1)
         return self._stream
+
+    @property
+    def copy_stream(self):
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._copy_stream
+
+    def capture(self, warm_up, body, what, pool=None):
+        """``warm_up()`` eagerly, then ``body()`` captured as a CUDA graph
+        (into ``pool``, or a pool of its own), both on the capture stream
+        and after the device's last graph work -> (graph, body's outputs,
+        GRU-cell launches captured, bytes the capture reserved, seconds).
+        A failed capture raises."""
+        with self.lock:
+            t0 = time.perf_counter()
+            side = self.stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            side.wait_event(self.done)
+            with torch.cuda.stream(side):
+                warm_up()  # every kernel loaded on this stream
+                reserved = torch.cuda.memory_reserved(self.device)
+                captured = GC.captured_launches()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    outs = body()
+                except Exception as e:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was invalidated: the error above says why
+                    raise RuntimeError(f"capturing {what} on {self.device} failed") from e
+                graph.capture_end()
+            self.done.record(side)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            return (graph, outs, GC.captured_launches() - captured,
+                    torch.cuda.memory_reserved(self.device) - reserved, time.perf_counter() - t0)
 
 
 _sites = {}
@@ -131,34 +197,10 @@ class RolloutProgram:
         return outs
 
     def _capture(self):
-        site = self._site
-        with site.lock:
-            t0 = time.perf_counter()
-            side = site.stream
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            side.wait_event(site.done)
-            with torch.cuda.stream(side):
-                self._body(1)  # warm-up, eager: every kernel loaded on this stream
-                reserved = torch.cuda.memory_reserved(self.device)
-                captured = GC.captured_launches()
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    outs = self._body(self.steps)
-                except Exception as e:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture was invalidated: the error above says why
-                    raise RuntimeError(f"capturing the rollout program of {self.rows} rows and "
-                                       f"{self.steps} steps on {self.device} failed") from e
-                graph.capture_end()
-            site.done.record(side)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self.launches = GC.captured_launches() - captured
-            self.graph_bytes += torch.cuda.memory_reserved(self.device) - reserved
-            self.capture_seconds = time.perf_counter() - t0
-        self._graph, self._outs = graph, outs
+        self._graph, self._outs, self.launches, reserved, self.capture_seconds = \
+            self._site.capture(lambda: self._body(1), lambda: self._body(self.steps),
+                               f"the rollout program of {self.rows} rows and {self.steps} steps")
+        self.graph_bytes += reserved
 
     def run(self, state, gaze, pre_l0, pre_g0, outs, start, reps):
         """``reps`` x ``steps`` steps from ``state`` over the columns
@@ -190,10 +232,59 @@ class RolloutProgram:
         return state
 
 
+class FinishProgram:
+    """The output stage (`output_stage`) of a chunk of B rows and T frames
+    as one CUDA graph on a card (the stage itself on the CPU), with static
+    buffers for the chunk's (root_pos, root_rot, lpos, ltxy) and for the
+    stage's outputs. ``like``: four (B, T, ...) tensors whose shapes and
+    dtypes the inputs take; ``pool``: the graph memory pool the capture
+    allocates from (None: a pool of its own)."""
+
+    def __init__(self, like, dtype, pool=None):
+        self.dtype = dtype
+        self.device = like[0].device
+        self.rows, self.frames = like[0].shape[:2]
+        self.capture_seconds = 0.0
+        self.graph_bytes = 0  # static inputs and what the capture reserved in its pool
+        if self.device.type != "cuda":
+            return
+        self._site = device_site(self.device)
+        with torch.cuda.device(self.device):
+            self._inputs = tuple(torch.zeros_like(t, memory_format=torch.contiguous_format)
+                                 for t in like)
+            self._graph, self._outs, _, reserved, self.capture_seconds = self._site.capture(
+                lambda: output_stage(self._inputs, dtype),
+                lambda: output_stage(self._inputs, dtype),
+                f"the output stage of {self.rows} rows and {self.frames} frames",
+                pool=pool)
+        self.graph_bytes = sum(t.numel() * t.element_size() for t in self._inputs) + reserved
+
+    def run(self, out):
+        """The chunk's (root_pos, root_rot, lpos, ltxy) ``out`` through the
+        stage -> (root_pos, root_rot, lpos, lrot) (B, T, ...) in the
+        transfer dtype, tensors of the caller's. On a card ``out`` is copied
+        into the graph's inputs and the outputs out of its buffers, which
+        the next replay overwrites while this chunk's copies to the host may
+        still run; all under the device's lock and event, as a
+        `RolloutProgram` run."""
+        if self.device.type != "cuda":
+            return output_stage(out, self.dtype)
+        with self._site.lock, torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._site.done)  # the device's last graph work
+            for dst, src in zip(self._inputs, out):
+                dst.copy_(src)
+            self._graph.replay()
+            outs = tuple(o.clone() for o in self._outs)
+            self._site.done.record(stream)
+        return outs
+
+
 class ProgramCache:
     """The rollout programs of one decoder on its device (counterpart of
     `zeggs_tpu`'s ``_rollout_cache`` and ``pipe._stream_fn_cache``), keyed
-    by (device, slot, B, steps, int8) and made at their first use or by
+    by (device, slot, B, steps, int8), and its finish programs, keyed by
+    (device, B, T, transfer dtype), made at their first use or by
     `infer.batch.warmup`. ``stats``: the decoder's pose statistics on the
     same device; ``dt``: the frame time."""
 
@@ -204,6 +295,10 @@ class ProgramCache:
         self.stats = tuple(stats[k] for k in _STATS)
         self.device = dec.cell.out.weight.device
         self._programs = {}
+        self._finishes = {}
+        # the finish programs' shared graph pool; a pool is given up when the
+        # last graph captured into it is freed, so it lives with the cache
+        self._finish_pool = None
         self._steps = {}
         self._lock = threading.RLock()
 
@@ -235,6 +330,29 @@ class ProgramCache:
         with self._lock:
             return list(self._programs.items())
 
+    def finish(self, like, dtype):
+        """The finish program for chunks shaped as ``like`` (root_pos,
+        root_rot, lpos, ltxy (B, T, ...)) and the transfer ``dtype``, made on
+        first use. Its runs are whole under the device's lock, so callers
+        that run at once share it."""
+        key = (self.device, like[0].shape[0], like[0].shape[1], dtype)
+        with self._lock:
+            if key not in self._finishes:
+                if self._finish_pool is None and self.device.type == "cuda":
+                    self._finish_pool = torch.cuda.graph_pool_handle()
+                try:
+                    self._finishes[key] = FinishProgram(like, dtype, self._finish_pool)
+                except Exception:
+                    if not self._finishes:  # no graph holds the pool: it is given up
+                        self._finish_pool = None
+                    raise
+            return self._finishes[key]
+
+    def finishes(self):
+        """(key, finish program) of every finish program made so far."""
+        with self._lock:
+            return list(self._finishes.items())
+
     def rollout_chunk(self, carry, gaze_pos, speech_encoding, style_encoding, quantize_int8=False,
                       slot=0):
         """`decoder.rollout_chunk` with ``output_indices=(0, 1, 4, 5)``: n =
@@ -257,13 +375,19 @@ class ProgramCache:
             t += reps * steps
         return (torch.stack(state[:2]),) + tuple(state[2:]), outs
 
-    def rollout(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False, slot=0):
+    def rollout(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False, slot=0,
+                output_dtype=None):
         """`decoder.rollout` with ``output_indices=(0, 1, 4, 5)``: the
         cell-state encoder from frame 0, then `rollout_chunk` over frames
         1..T-1. Returns (root_pos, root_rot, lpos, ltxy) (B, T, ...), frame 0
-        equal to the inputs."""
+        equal to the inputs; with an ``output_dtype``, (root_pos, root_rot,
+        lpos, lrot) after `output_stage`, run by the chunk's finish
+        program."""
         carry0 = decoder.init_carry(self.dec, *state0, gaze_pos[:, 0], style_enc[:, 0],
                                     *self.stats[:2])
         _, ys = self.rollout_chunk(carry0, gaze_pos[:, 1:], speech_enc[:, 1:], style_enc[:, 1:],
                                    quantize_int8, slot)
-        return tuple(torch.cat([state0[i][:, None], y], dim=1) for i, y in zip(OUTPUTS, ys))
+        out = tuple(torch.cat([state0[i][:, None], y], dim=1) for i, y in zip(OUTPUTS, ys))
+        if output_dtype is None:
+            return out
+        return self.finish(out, output_dtype).run(out)
