@@ -142,12 +142,19 @@ and 12 s) under build/chip_smoke/, then:
      resumed: the merged curve holds every logged iteration once; then
      `cli.eval_checkpoint` of the last checkpoint through the rollout
      programs;
- 14. prints times, each beside the card's name and power limit, a JSON
+ 14. runs the port's benchmark, `python -m zeggs_tpu_torch.bench --quick`
+     (core at B=64 and 5 B=1 runs, serve with 4 requests, a 5 s stream, 3
+     train replays a dtype; full width) as a process group of its own
+     within 240 s: its last line must come from the card, every stage
+     finished (no failure, skip or watchdog cut), every `correct` true,
+     and each stage's kernels launched (core: decoder and GRU cell; serve:
+     all three; streaming: GRU cell and mel);
+ 15. prints times, each beside the card's name and power limit, a JSON
      line of launch counts, one of training results, one of the
      checkpoint, multi-process and Griffin-Lim phases' results, one of the
      v2, training-option and quality phases' results, one of the mesh
      phase's, one of the programs phase's, one of the output_stage and
-     recipe phases', one of each phase's wall
+     recipe phases', one of the bench phase's, one of each phase's wall
      seconds, one of the barrier floor, one of kernel results and, last,
      {"ok": true, "device": {...}}.
 
@@ -167,6 +174,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -310,6 +318,15 @@ RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_LOG_EVERY, RECIPE_BUDGET_S = 60, 50, 10,
 # tests/test_torch_quality.py (rtol 1e-3 and one rounding quantum; jerk
 # and variance ratios within bounds derived from the rollouts' difference)
 EVAL_RTOL = 1e-3
+# the bench phase: `python -m zeggs_tpu_torch.bench --quick` (a depth cut at
+# full width) within BENCH_TIMEOUT_S, on a budget that leaves its orchestrator
+# BENCH_MARGIN_S to print its last line; the kernels each stage's path must
+# launch
+BENCH_TIMEOUT_S, BENCH_MARGIN_S = 240, 30
+BENCH_STAGES = ("core", "serve", "streaming", "train", "train_bf16")
+BENCH_REQUIRED = {"core": ("decoder_rollout", "gru_cell"),
+                  "serve": ("decoder_rollout", "gru_cell", "mel_spectrogram"),
+                  "streaming": ("gru_cell", "mel_spectrogram")}
 
 
 def fail(msg):
@@ -2004,6 +2021,63 @@ def recipe_phase(torch, card):
     return report
 
 
+def bench_phase(torch, card):
+    """Phase bench: `python -m zeggs_tpu_torch.bench --quick` in a process
+    group of its own, killed whole past BENCH_TIMEOUT_S: its last line must
+    parse, come from the card (platform "gpu"), hold every stage with no
+    failure, skip or watchdog cut, every `correct` true, and each stage's
+    required kernels launched."""
+    torch.cuda.empty_cache()  # the stages' processes share the card with this one
+    env = dict(os.environ, ZEGGS_BENCH_BUDGET_S=str(BENCH_TIMEOUT_S - BENCH_MARGIN_S))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "zeggs_tpu_torch.bench", "--quick", "--root",
+                             str(WORK / "bench")], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"the bench ran past {BENCH_TIMEOUT_S} s:\n{err[-3000:]}")
+    wall = time.perf_counter() - t0
+    (WORK / "bench.log").write_text(out + err)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"the bench exited {proc.returncode}:\n{err[-3000:]}")
+    last = json.loads(lines[-1])
+    extra = last["extra"]
+    if extra.get("platform") != "gpu":
+        fail(f"the bench ran on {extra.get('platform')}, not the card")
+    bad = [k for k in BENCH_STAGES if not isinstance(extra.get(k), dict)
+           or {"failed", "watchdog_fired", "skipped_over_budget"} & set(extra[k])]
+    if bad:
+        fail(f"bench stages {bad} did not finish: {[extra.get(k) for k in bad]}")
+
+    def corrects(node):
+        if isinstance(node, dict):
+            return [v for k, v in node.items() if k == "correct"] + \
+                [c for v in node.values() for c in corrects(v)]
+        return []
+
+    if not corrects(extra) or not all(v is True for v in corrects(extra)):
+        fail(f"a bench check failed: {extra['core'].get('checks')}")
+    launches = {k: extra[k]["launches"] for k in BENCH_STAGES}
+    missing = {k: [n for n in need if not launches[k][n]] for k, need in BENCH_REQUIRED.items()}
+    if any(missing.values()):
+        fail(f"bench stages launched none of {missing}")
+    core = extra["core"]
+    print(f"bench --quick: exit 0 in {wall:.1f} s; B={core['batch']} {last['value']:,.0f} "
+          f"frames/s, int8 B={core['fps8_batch']} {core['fps8']:,.0f}, B=1 "
+          f"{core['lat_ms']:.2f} ms (int8 {core['lat8_ms']:.2f}); serve daemon p50 "
+          f"{extra['serve'].get('daemon_p50_s')} s, streaming push p50 "
+          f"{extra['streaming']['push_p50_s']} s, train step {extra['train']['step_ms']} ms "
+          f"(bf16 {extra['train_bf16']['step_ms']}); stage walls "
+          f"{ {k: extra[k].get('stage_wall_s') for k in BENCH_STAGES} }; {card}")
+    return dict(wall_s=wall, value=last["value"], launches=launches, checks=core["checks"],
+                stage_wall_s={"core": extra["core_wall_s"],
+                              **{k: extra[k]["stage_wall_s"] for k in BENCH_STAGES[1:]}})
+
+
 def failed_capture_raises(torch):
     """A host sync injected into the decoder step (through the pose
     integration) makes a program's capture fail: the rollout must raise,
@@ -2293,32 +2367,11 @@ def train_phase(torch, card):
                 synthesis_programs=synth[0]["programs"])
 
 
-def graph_kernels(graph):
-    """(kernel nodes, all nodes) of a captured `torch.cuda.CUDAGraph` kept
-    with its graph (``keep_graph=True``), read through libcuda's
-    `cuGraphGetNodes` and `cuGraphNodeGetType`."""
-    import ctypes
-
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.POINTER(ctypes.c_size_t)]
-    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        fail("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        fail("cuGraphGetNodes failed")
-    kind, kernels = ctypes.c_int(0), 0
-    for node in nodes:
-        cuda.cuGraphNodeGetType(node, ctypes.byref(kind))
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels, n.value
-
-
 def graph_stats(program):
     """A train program's capture: seconds, its graphs' pool memory and
     their kernel and node counts."""
+    from zeggs_tpu_torch.bench.train import graph_kernels
+
     counts = [graph_kernels(g) for g in program.graphs]
     return dict(capture_s=program.capture_seconds, graph_mib=program.graph_bytes / 2**20,
                 graphs=len(counts), kernels=[k for k, _ in counts], nodes=[n for _, n in counts])
@@ -2347,8 +2400,7 @@ def graphed_vs_eager(torch, trainer, card):
     from torch.profiler."""
     import copy
 
-    from torch.autograd import DeviceType
-
+    from zeggs_tpu_torch.bench.train import device_events
     from zeggs_tpu_torch.train import loop
 
     program, ds, opts = trainer.program, trainer.ds, trainer.opts
@@ -2434,9 +2486,9 @@ def graphed_vs_eager(torch, trainer, card):
             program.run(inputs, trainer.iteration + GRAPH_ROUNDS + i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = [e for e in device if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
-    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    device = device_events(prof)
+    copies = [n for n, _ in device if "memcpy" in n.lower() or "memset" in n.lower()]
+    busy_ms = sum(us for _, us in device) / 1e3
     busy = dict(replays=BUSY_REPLAYS, wall_ms=wall, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall, kernels_per_replay=(len(device) - len(copies))
                 / BUSY_REPLAYS, copies_per_replay=len(copies) / BUSY_REPLAYS)
@@ -2496,8 +2548,7 @@ def step_breakdown(torch, trainer, card):
     `torch.cuda.set_sync_debug_mode("error")`: it must not synchronise.
     Runs last on ``trainer``: the eager steps rebind the
     gradients its program captured."""
-    from torch.autograd import DeviceType
-
+    from zeggs_tpu_torch.bench.train import device_events
     from zeggs_tpu_torch.train import loop, loss as L
 
     ds = trainer.ds
@@ -2557,9 +2608,9 @@ def step_breakdown(torch, trainer, card):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, wall = timed(step)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = [e for e in device if "memcpy" in e.name.lower()]
-    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    device = device_events(prof)
+    copies = [n for n, _ in device if "memcpy" in n.lower()]
+    busy_ms = sum(us for _, us in device) / 1e3
     kernels = len(device) - len(copies)
     report = dict(forward_ms=fwd, loss_terms_ms=terms, backward_ms=bwd, optimizer_ms=upd,
                   profiled_step_ms=wall, kernels=kernels, copies=len(copies),
@@ -3493,6 +3544,8 @@ def main():
     done("quality")
     recipe = recipe_phase(torch, card)
     done("recipe")
+    bench = bench_phase(torch, card)
+    done("bench")
     progs["failed_capture"] = failed_capture_raises(torch)
     done("failed_capture")
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
@@ -3527,6 +3580,7 @@ def main():
                                    "recipe": {"corpus": recipe["corpus"]["launches"],
                                               "eval": recipe["eval"]["launches"]},
                                    "griffin_lim": gl["launches"],
+                                   "bench": bench["launches"],
                                    "ddp_sample_synthesis": {
                                        k: v["synthesis"]["gru_cell"] for k, v in ddp.items()
                                        if "synthesis" in v}}}))
@@ -3538,6 +3592,7 @@ def main():
     print(json.dumps({"mesh": meshed}))
     print(json.dumps({"programs": progs}))
     print(json.dumps({"output_stage": stage, "recipe": recipe}))
+    print(json.dumps({"bench": bench, "card": card}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         {**decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
@@ -3549,7 +3604,8 @@ def main():
          "launches_v2_serve": v2l["serve"]["decoder_rollout"],
          "launches_mesh": sum(meshed[k]["launches"]["decoder_rollout"]
                               for k in ("batch64_mesh", "batched", "serve")),
-         "launches_output_stage_daemon": stage["daemon"]["launches"]["decoder_rollout"]},
+         "launches_output_stage_daemon": stage["daemon"]["launches"]["decoder_rollout"],
+         "launches_bench": {k: bench["launches"][k]["decoder_rollout"] for k in ("core", "serve")}},
         {**decoder_entry("int8", int8_counts["decoder_rollout"]),
          "launches_v2_int8": v2l["int8"]["decoder_rollout"]},
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
@@ -3575,7 +3631,9 @@ def main():
          "launches_programs_session": progs["session"]["launches"]["graphed"]["gru_cell"],
          "launches_programs_serve": progs["serve"]["launches"]["graphed"]["gru_cell"],
          "launches_output_stage_csv": stage["runs"]["csv3_float16_depth2"]["launches"]["gru_cell"],
-         "launches_recipe_eval": recipe["eval"]["launches"]["gru_cell"]},
+         "launches_recipe_eval": recipe["eval"]["launches"]["gru_cell"],
+         "launches_bench": {k: bench["launches"][k]["gru_cell"]
+                            for k in ("core", "serve", "streaming")}},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
@@ -3597,7 +3655,9 @@ def main():
          "launches_mesh_batch64": meshed["batch64_mesh"]["launches"]["mel_spectrogram"],
          "launches_output_stage_csv":
              stage["runs"]["csv3_float16_depth2"]["launches"]["mel_spectrogram"],
-         "launches_recipe_corpus": recipe["corpus"]["launches"]["mel_spectrogram"]},
+         "launches_recipe_corpus": recipe["corpus"]["launches"]["mel_spectrogram"],
+         "launches_bench": {k: bench["launches"][k]["mel_spectrogram"]
+                            for k in ("serve", "streaming")}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -120,6 +120,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None; sys.modules['zeggs_tpu'] = None\n"
+        "sys.modules['__graft_entry__'] = None\n"
         "import zeggs_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(zeggs_tpu_torch.__path__, "
         "'zeggs_tpu_torch.')]\n"
@@ -127,12 +128,14 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "new = {'train.loop', 'train.loss', 'train.radam', 'data.pipeline', 'data.dataset', "
         "'data.device_dataset', 'cli.train', 'cli.pipeline', 'utils.metrics', 'utils.logs', "
         "'io.torch_compat', 'cli.convert', 'cli.compare', 'cli.bvh2fbx', 'parallel', "
-        "'parallel.distributed', 'utils.profiling', 'cli.eval_checkpoint', 'parallel.mesh'}\n"
+        "'parallel.distributed', 'utils.profiling', 'cli.eval_checkpoint', 'parallel.mesh', "
+        "'bench', 'bench.fixture', 'bench.core', 'bench.serve', 'bench.streaming', "
+        "'bench.train', 'bench.__main__'}\n"
         "assert {'zeggs_tpu_torch.' + n for n in new} <= set(names), names\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
-        "(m.split('.')[0] in ('jax', 'zeggs_tpu'))]\n"
+        "(m.split('.')[0] in ('jax', 'zeggs_tpu', '__graft_entry__'))]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
