@@ -149,14 +149,24 @@ and 12 s) under build/chip_smoke/, then:
      finished (no failure, skip or watchdog cut), every `correct` true,
      and each stage's kernels launched (core: decoder and GRU cell; serve:
      all three; streaming: GRU cell and mel);
- 15. prints times, each beside the card's name and power limit, a JSON
+ 15. runs the port's last programs at full v1 width, cut in depth
+     (`programs_left`): `cli.train_curve` (40 iterations a dtype on the
+     recipe's corpus) and `cli.train_anneal` (30 iterations, its corpus
+     built on the card), each curve in its JAX record's schema and finite;
+     `profilers.fused_b1_profile` (the rollout programs against the decoder
+     kernel at bf16 and int8 on a 10 s clip), `loss_profile`,
+     `grad_profile` and `train_step_profile` (every section captured as a
+     CUDA graph and timed eager and graphed), `train_roofline` at float32
+     and bfloat16 against the bench's train steps, and
+     `examples.quickstart`;
+ 16. prints times, each beside the card's name and power limit, a JSON
      line of launch counts, one of training results, one of the
      checkpoint, multi-process and Griffin-Lim phases' results, one of the
      v2, training-option and quality phases' results, one of the mesh
      phase's, one of the programs phase's, one of the output_stage and
-     recipe phases', one of the bench phase's, one of each phase's wall
-     seconds, one of the barrier floor, one of kernel results and, last,
-     {"ok": true, "device": {...}}.
+     recipe phases', one of the bench phase's, one of the programs_left
+     phase's, one of each phase's wall seconds, one of the barrier floor,
+     one of kernel results and, last, {"ok": true, "device": {...}}.
 
 Any failure ends the run with a nonzero exit and without the last line.
 It exits nonzero at once when no CUDA device is available.
@@ -206,10 +216,6 @@ GRU_TOL = 2e-5
 GRU_SHAPES = [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256), (16, 2304, 512),
               (1, 1024, 1024), (3, 1024, 1024), (65, 1024, 1024)]
 GRU_TIMED = (1, 2, 64)  # batch sizes timed at in = H = 1024
-# an H100 SXM's data-sheet peaks: HBM bytes/s and
-# dense operations/s by the type of the operands
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 BATCH_COPIES = 64
 # the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
 MEL_TOL = 2e-4
@@ -320,13 +326,22 @@ RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_LOG_EVERY, RECIPE_BUDGET_S = 60, 50, 10,
 EVAL_RTOL = 1e-3
 # the bench phase: `python -m zeggs_tpu_torch.bench --quick` (a depth cut at
 # full width) within BENCH_TIMEOUT_S, on a budget that leaves its orchestrator
-# BENCH_MARGIN_S to print its last line; the kernels each stage's path must
-# launch
-BENCH_TIMEOUT_S, BENCH_MARGIN_S = 240, 30
+# BENCH_MARGIN_S to print its last line (about 1.8 times the 169 s of a
+# --quick run on an NVIDIA H100 80GB HBM3 at 700 W: a slower host ran its
+# five stages past 210 s); the kernels each stage's path must launch
+BENCH_TIMEOUT_S, BENCH_MARGIN_S = 300, 30
 BENCH_STAGES = ("core", "serve", "streaming", "train", "train_bf16")
 BENCH_REQUIRED = {"core": ("decoder_rollout", "gru_cell"),
                   "serve": ("decoder_rollout", "gru_cell", "mel_spectrogram"),
                   "streaming": ("gru_cell", "mel_spectrogram")}
+# the programs_left phase: the recipe's curve and anneal runs, the five
+# profilers and the quickstart at full v1 width, cut in depth: the curve's
+# LEFT_CURVE_ITERS iterations a dtype (400 in full), the anneal's
+# LEFT_ANNEAL_ITERS logged every LEFT_ANNEAL_LOG (10,000 in full) and
+# LEFT_REPS timed calls a profiler section
+LEFT_CURVE_ITERS, LEFT_ANNEAL_ITERS, LEFT_ANNEAL_LOG, LEFT_REPS = 40, 30, 5, 2
+# the v1 decoder cell's product weights (scripts/train_roofline.py:58)
+CELL_PARAMS = 18_910_208
 
 
 def fail(msg):
@@ -459,7 +474,9 @@ def event_ms(torch, fn, reps):
 def bound(nbytes, ops, kind):
     """(ms, "bytes" or "operations"): the least time an H100 could take to
     move `nbytes` (each input read once, each output written once) and do
-    `ops` operations of `kind`."""
+    `ops` operations of `kind` (`zeggs_tpu_torch/device.py`'s peaks)."""
+    from zeggs_tpu_torch.device import HBM_BYTES_PER_S, PEAK_OPS
+
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2075,7 +2092,165 @@ def bench_phase(torch, card):
           f"{ {k: extra[k].get('stage_wall_s') for k in BENCH_STAGES} }; {card}")
     return dict(wall_s=wall, value=last["value"], launches=launches, checks=core["checks"],
                 stage_wall_s={"core": extra["core_wall_s"],
-                              **{k: extra[k]["stage_wall_s"] for k in BENCH_STAGES[1:]}})
+                              **{k: extra[k]["stage_wall_s"] for k in BENCH_STAGES[1:]}},
+                train_step_ms={"float32": extra["train"]["step_ms"],
+                               "bfloat16": extra["train_bf16"]["step_ms"]})
+
+
+def graphed_sections(label, out):
+    """Every section a profiler timed was captured: a graph of kernels, and
+    finite times eager and graphed."""
+    for name, r in out.items():
+        if name in ("launches", "device") or "eager" not in r:
+            continue
+        timings = [r["eager"], r.get("graphed") or r.get("replay")]
+        if not r.get("kernels") or any(
+                t is None or not np.isfinite([t["host_ms"], t["device_ms"]]).all()
+                for t in timings):
+            fail(f"{label} {name}: not graphed or not finite: {r}")
+
+
+def programs_left(torch, card, bench):
+    """Phase programs_left: the port's last programs at full v1 width, each
+    through its entry point's `main`, the launch counts reset just before
+    and read just after each:
+
+      * `cli.train_curve` for LEFT_CURVE_ITERS iterations a dtype on the
+        recipe phase's processed corpus (the verdict cannot be judged at
+        this depth: the curve must have docs/loss_curve.json's keys and be
+        finite; sample synthesis at iteration 0 launches the GRU cell);
+      * `cli.train_anneal` for LEFT_ANNEAL_ITERS iterations, its own corpus
+        built on the card (6 mel launches), the curve with
+        docs/anneal_curve.json's keys in order, finite;
+      * `profilers.fused_b1_profile` (10 s clip): the scan replays the
+        rollout programs (GRU-cell launches), the kernel runs at bf16 and at
+        int8 (decoder launches in each), the scan equals the eager float32
+        rollout within GRAPH_MAE;
+      * `profilers.loss_profile all`, `grad_profile all all3` and
+        `train_step_profile all`: every section captured (kernels > 0),
+        finite eager and graphed times (grad_profile's ``all2`` and
+        ``all4`` are left to the full run: their sections take the same
+        loss and step functions as ``dropgrad`` and `train_step_profile`'s
+        full step, at ~20 s a section);
+      * `profilers.train_roofline --json` at float32 and bfloat16, each
+        against the bench phase's replayed step: the cell's weights
+        CELL_PARAMS, FLOPs and the fraction of the bound;
+      * `examples.quickstart`: a BVH of 240 frames and an HTTP response
+        with a BVH; the decoder kernel in generate and serve, the mel kernel
+        in the pipeline, generate and serve, the GRU cell in synthesis."""
+    from zeggs_tpu_torch.cli import train_anneal as A
+    from zeggs_tpu_torch.cli import train_curve as C
+    from zeggs_tpu_torch.examples import quickstart
+    from zeggs_tpu_torch.profilers import (fused_b1_profile, grad_profile, loss_profile,
+                                           train_roofline, train_step_profile)
+
+    root = WORK / "programs_left"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    report = {"card": card}
+
+    def run(label, fn):
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        report[label] = {"s": time.perf_counter() - t0, "launches": read_counts()}
+        return out
+
+    # the recipe's short curve, on the recipe phase's corpus
+    (root / "curve").mkdir()
+    (root / "curve" / "processed").symlink_to(WORK / "recipe" / "processed")
+    code = run("train_curve", lambda: C.main(
+        ["--iters", str(LEFT_CURVE_ITERS), "--root", str(root / "curve")]))
+    curve = json.loads((root / "curve" / "loss_curve.json").read_text())
+    ok = (list(curve) == ["iters", *C.DTYPES]
+          and all(len(curve[d]) == LEFT_CURVE_ITERS and np.isfinite(curve[d]).all()
+                  for d in C.DTYPES))
+    report["train_curve"].update(exit_code=code, head_tail={d: C.head_tail(curve[d])
+                                                            for d in C.DTYPES})
+    print(f"programs_left: train_curve --iters {LEFT_CURVE_ITERS}: exit {code}, "
+          f"{report['train_curve']['s']:.1f} s, loss head/tail "
+          f"{report['train_curve']['head_tail']}, launches {report['train_curve']['launches']}, "
+          f"{card}")
+    if not ok or code not in (0, 1) or not report["train_curve"]["launches"]["gru_cell"]:
+        fail(f"programs_left train_curve: {report['train_curve']}, schema/finite {ok}")
+
+    # the anneal run, its corpus built on the card
+    code = run("train_anneal", lambda: A.main(
+        ["--iters", str(LEFT_ANNEAL_ITERS), "--log-every", str(LEFT_ANNEAL_LOG),
+         "--root", str(root / "anneal")]))
+    curve = json.loads((root / "anneal" / "anneal_curve.json").read_text())
+    record = json.loads((ROOT / "docs" / "anneal_curve.json").read_text())
+    points = LEFT_ANNEAL_ITERS // LEFT_ANNEAL_LOG
+    ok = (list(curve) == list(record) and curve["iters_logged_len"] == points
+          and all(len(curve[k]) == points and np.isfinite(curve[k]).all()
+                  for k in (*A.LOG_KEYS, "kl_weight")))
+    report["train_anneal"].update(exit_code=code, readings=A.readings(curve))
+    print(f"programs_left: train_anneal --iters {LEFT_ANNEAL_ITERS}: exit {code}, "
+          f"{report['train_anneal']['s']:.1f} s with its corpus, launches "
+          f"{report['train_anneal']['launches']}, {card}")
+    if not ok or code not in (0, 1) or report["train_anneal"]["launches"] != {
+            "decoder_rollout": 0, "gru_cell": 0, "mel_spectrogram": 6}:
+        fail(f"programs_left train_anneal: {report['train_anneal']}, schema/finite {ok}")
+
+    # the B=1 profile
+    with torch.inference_mode():
+        b1 = run("fused_b1_profile", lambda: fused_b1_profile.main(["--reps", "5"]))
+    report["fused_b1_profile"].update(
+        {k: b1[k] for k in ("scan", "fused_bf16", "fused_int8", "mae", "bound_bf16_ms",
+                            "bound_int8_ms", "scan_launches", "fused_bf16_launches",
+                            "fused_int8_launches")})
+    print(f"programs_left: fused_b1_profile (10 s clip): scan {b1['scan']}, bf16 "
+          f"{b1['fused_bf16']}, int8 {b1['fused_int8']}, bound bf16 {b1['bound_bf16_ms']:.4f} ms"
+          f", int8 {b1['bound_int8_ms']:.4f} ms, {card}")
+    scan_mae = max(m["scan"] for m in b1["mae"].values())
+    if (not b1["scan_launches"]["gru_cell"] or not b1["fused_bf16_launches"]["decoder_rollout"]
+            or not b1["fused_int8_launches"]["decoder_rollout"] or scan_mae > GRAPH_MAE
+            or b1["cell_weights"] != CELL_PARAMS):
+        fail(f"programs_left fused_b1_profile: {report['fused_b1_profile']}")
+
+    # the train-side profilers
+    reps = ["--reps", str(LEFT_REPS)]
+    for label, module, which in (("loss_profile", loss_profile, ["all"]),
+                                 ("grad_profile", grad_profile, ["all", "all3"]),
+                                 ("train_step_profile", train_step_profile, ["all"])):
+        out = run(label, lambda: module.main(which + reps))
+        graphed_sections(label, out)
+        report[label]["sections"] = {k: v for k, v in out.items()
+                                     if k not in ("launches", "device")}
+        print(f"programs_left: {label} {' '.join(which)}: {report[label]['s']:.1f} s, "
+              f"{report[label]['sections']}, {card}")
+
+    # the roofline of the bench's train step
+    for dtype, flag in (("float32", []), ("bfloat16", ["--bf16"])):
+        measured = bench["train_step_ms"][dtype]
+        out = run(f"train_roofline_{dtype}", lambda: train_roofline.main(
+            ["--json", "--measured-ms", str(measured)] + flag))
+        keep = ("flops", "bytes_accessed", "analytic_bytes", "t_flops_ms", "t_bytes_ms",
+                "bound_ms", "bound_by", "cell_params", "n_params", "peak_flops", "measured_ms",
+                "fraction_of_bound", "arith_intensity_flops_per_byte")
+        report[f"train_roofline_{dtype}"].update({k: out[k] for k in keep})
+        print(f"programs_left: train_roofline {dtype}: {out['flops']:.4g} FLOPs, analytic "
+              f"{out['analytic_bytes']:.4g} B, bound {out['bound_ms']:.3f} ms by "
+              f"{out['bound_by']}, measured {measured} ms (bench), fraction "
+              f"{out['fraction_of_bound']:.4f}, {card}")
+        if out["cell_params"] != CELL_PARAMS or not out["flops"] > 0:
+            fail(f"programs_left train_roofline {dtype}: {out}")
+
+    # the quickstart
+    qs = run("quickstart", lambda: quickstart.main([str(root / "quickstart")]))
+    counts = report["quickstart"]["launches"]
+    report["quickstart"].update({k: qs[k] for k in ("frames", "http_bvh_lines",
+                                                    "http_batch_size", "http_latency_ms",
+                                                    "wall_s")})
+    print(f"programs_left: quickstart: {qs['frames']} frames, HTTP {qs['http_bvh_lines']} "
+          f"lines, {qs['wall_s']:.1f} s, launches {counts}, {card}")
+    if (qs["frames"] != 240 or not qs["response"]["bvh"].startswith("HIERARCHY")
+            or counts["decoder_rollout"] < 2 or counts["mel_spectrogram"] < 5
+            or not counts["gru_cell"]):
+        fail(f"programs_left quickstart: {report['quickstart']}")
+    return report
 
 
 def failed_capture_raises(torch):
@@ -3546,6 +3721,8 @@ def main():
     done("recipe")
     bench = bench_phase(torch, card)
     done("bench")
+    left = programs_left(torch, card, bench)
+    done("programs_left")
     progs["failed_capture"] = failed_capture_raises(torch)
     done("failed_capture")
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))
@@ -3581,6 +3758,8 @@ def main():
                                               "eval": recipe["eval"]["launches"]},
                                    "griffin_lim": gl["launches"],
                                    "bench": bench["launches"],
+                                   "programs_left": {k: v["launches"] for k, v in left.items()
+                                                     if isinstance(v, dict)},
                                    "ddp_sample_synthesis": {
                                        k: v["synthesis"]["gru_cell"] for k, v in ddp.items()
                                        if "synthesis" in v}}}))
@@ -3593,6 +3772,7 @@ def main():
     print(json.dumps({"programs": progs}))
     print(json.dumps({"output_stage": stage, "recipe": recipe}))
     print(json.dumps({"bench": bench, "card": card}))
+    print(json.dumps({"programs_left": left}))
     print(json.dumps({"barrier_floor": {"steps": report["bfloat16"]["T1"], **floor}}))
     print(json.dumps({"kernels": [
         {**decoder_entry("float32", stream["offline_counts"]["decoder_rollout"]),
@@ -3605,9 +3785,14 @@ def main():
          "launches_mesh": sum(meshed[k]["launches"]["decoder_rollout"]
                               for k in ("batch64_mesh", "batched", "serve")),
          "launches_output_stage_daemon": stage["daemon"]["launches"]["decoder_rollout"],
-         "launches_bench": {k: bench["launches"][k]["decoder_rollout"] for k in ("core", "serve")}},
+         "launches_bench": {k: bench["launches"][k]["decoder_rollout"] for k in ("core", "serve")},
+         "launches_fused_b1_profile":
+             left["fused_b1_profile"]["fused_bf16_launches"]["decoder_rollout"],
+         "launches_quickstart": left["quickstart"]["launches"]["decoder_rollout"]},
         {**decoder_entry("int8", int8_counts["decoder_rollout"]),
-         "launches_v2_int8": v2l["int8"]["decoder_rollout"]},
+         "launches_v2_int8": v2l["int8"]["decoder_rollout"],
+         "launches_fused_b1_profile":
+             left["fused_b1_profile"]["fused_int8_launches"]["decoder_rollout"]},
         {"name": "gru_cell", "route": "cuda", "source": "zeggs_tpu_torch/csrc/gru_cell.cu",
          "replaces": "zeggs_tpu/ops/pallas/gru_kernel.py:46",
          "launches": batch_counts["gru_cell"], "max_abs_err": gru["err"], "tol": GRU_TOL,
@@ -3633,7 +3818,11 @@ def main():
          "launches_output_stage_csv": stage["runs"]["csv3_float16_depth2"]["launches"]["gru_cell"],
          "launches_recipe_eval": recipe["eval"]["launches"]["gru_cell"],
          "launches_bench": {k: bench["launches"][k]["gru_cell"]
-                            for k in ("core", "serve", "streaming")}},
+                            for k in ("core", "serve", "streaming")},
+         "launches_fused_b1_profile": left["fused_b1_profile"]["scan_launches"]["gru_cell"],
+         "launches_train_curve_sample_synthesis": left["train_curve"]["launches"]["gru_cell"],
+         "launches_loss_profile": left["loss_profile"]["launches"]["gru_cell"],
+         "launches_quickstart": left["quickstart"]["launches"]["gru_cell"]},
         {"name": "mel_spectrogram", "route": "cuda",
          "source": "zeggs_tpu_torch/csrc/mel_spectrogram.cu",
          "replaces": "zeggs_tpu/ops/pallas/mel_kernel.py:58",
@@ -3657,7 +3846,9 @@ def main():
              stage["runs"]["csv3_float16_depth2"]["launches"]["mel_spectrogram"],
          "launches_recipe_corpus": recipe["corpus"]["launches"]["mel_spectrogram"],
          "launches_bench": {k: bench["launches"][k]["mel_spectrogram"]
-                            for k in ("serve", "streaming")}},
+                            for k in ("serve", "streaming")},
+         "launches_train_anneal_corpus": left["train_anneal"]["launches"]["mel_spectrogram"],
+         "launches_quickstart": left["quickstart"]["launches"]["mel_spectrogram"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

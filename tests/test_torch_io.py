@@ -130,7 +130,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
         "'io.torch_compat', 'cli.convert', 'cli.compare', 'cli.bvh2fbx', 'parallel', "
         "'parallel.distributed', 'utils.profiling', 'cli.eval_checkpoint', 'parallel.mesh', "
         "'bench', 'bench.fixture', 'bench.core', 'bench.serve', 'bench.streaming', "
-        "'bench.train', 'bench.__main__'}\n"
+        "'bench.train', 'bench.__main__', 'data.synthetic', 'cli.train_curve', "
+        "'cli.train_anneal', 'profilers', 'profilers.common', 'profilers.fused_b1_profile', "
+        "'profilers.loss_profile', 'profilers.grad_profile', 'profilers.train_step_profile', "
+        "'profilers.train_roofline', 'examples', 'examples.quickstart'}\n"
         "assert {'zeggs_tpu_torch.' + n for n in new} <= set(names), names\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"

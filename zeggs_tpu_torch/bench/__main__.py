@@ -55,8 +55,10 @@ STAGES = (
      "ZEGGS_BENCH_SERVE"),
     ("streaming", "streaming", ["--seconds", "30", "--http"], ["--seconds", "5", "--http"], True,
      "ZEGGS_BENCH_STREAMING"),
-    ("train", "train", [], ["--iters", "3", "--turns", "3"], False, "ZEGGS_BENCH_TRAIN"),
-    ("train_bf16", "train", ["--bf16"], ["--bf16", "--iters", "3", "--turns", "3"], False,
+    ("train", "train", [], ["--iters", "3", "--turns", "1", "--busy-replays", "1"], False,
+     "ZEGGS_BENCH_TRAIN"),
+    ("train_bf16", "train", ["--bf16"],
+     ["--bf16", "--iters", "3", "--turns", "1", "--busy-replays", "1"], False,
      "ZEGGS_BENCH_TRAIN"),
 )
 
@@ -143,7 +145,8 @@ def main(argv=None):
                     help="8 joints and narrow widths: a rehearsal, with --device cpu only")
     ap.add_argument("--quick", action="store_true",
                     help="a depth cut at full width: core at B=64 and 5 B=1 runs, 4 serving "
-                         "requests, a 5 s stream, 3 train replays a dtype")
+                         "requests, a 5 s stream, 3 train replays a dtype, one turn against the "
+                         "eager step and one profiled replay")
     ap.add_argument("--full-run-curve", default=None,
                     help="the curve JSON of a port's training run (cli/train_full.py)")
     ap.add_argument("--root", default=str(FX.CORPUS_ROOT),

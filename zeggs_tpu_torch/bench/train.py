@@ -2,7 +2,7 @@
 device-resident corpus (counterpart of `scripts/device_train_bench.py` and
 `scripts/train_step_bench.py`).
 
-    python -m zeggs_tpu_torch.bench.train [--bf16] [--iters 10] [--turns 5]
+    python -m zeggs_tpu_torch.bench.train [--bf16] [--iters 10] [--turns 5] [--busy-replays 3]
 
 A synthetic corpus at full v1 dims (`_FakeDS`: 20,000 frames, 75 joints,
 window 256, examples 512 wide) is uploaded once (`data/device_dataset.py::
@@ -20,7 +20,7 @@ first step and the second, capture and replay: the card's counterpart of
 XLA's compile and first call); ``eager_step_ms_median`` (the plain eager
 step, `train.loop.make_train_step`, on a copy of the state, timed in turns
 with as many replays); the graphs' pool memory and kernel counts, and the
-card's busy share over 3 replays (`torch.profiler`). XLA's
+card's busy share over ``--busy-replays`` replays (`torch.profiler`). XLA's
 ``compile_cache`` and ``aot*`` keys have no counterpart. A train step
 launches none of the port's kernels (they raise under autograd). Prints
 one JSON line; exits 1 if a loss is not finite.
@@ -152,11 +152,11 @@ def device_events(prof):
             if e.device_type() == DeviceType.CUDA]
 
 
-def busy_share(step: Step, first_iteration):
-    """The card's busy share over BUSY_REPLAYS replays: the time of the
+def busy_share(step: Step, first_iteration, n_replays=BUSY_REPLAYS):
+    """The card's busy share over ``n_replays`` replays: the time of the
     events it ran (`torch.profiler`) over the host's wall time -> (share,
     wall ms)."""
-    replays = [step.draw() for _ in range(BUSY_REPLAYS)]
+    replays = [step.draw() for _ in range(n_replays)]
     torch.cuda.synchronize(step.device)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -168,7 +168,7 @@ def busy_share(step: Step, first_iteration):
     return sum(us for _, us in device_events(prof)) / 1e3 / wall_ms, wall_ms
 
 
-def run(compute_dtype, device, iters, turns, tiny=False):
+def run(compute_dtype, device, iters, turns, tiny=False, busy_replays=BUSY_REPLAYS):
     def timed(fn):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -210,7 +210,7 @@ def run(compute_dtype, device, iters, turns, tiny=False):
     del eager
     counts.close("steps")
     t0 = time.perf_counter()
-    share, busy_wall_ms = (busy_share(step, it) if device.type == "cuda" else (None, None))
+    share, busy_wall_ms = (busy_share(step, it, busy_replays) if device.type == "cuda" else (None, None))
     kernels = [graph_kernels(g)[0] for g in program.graphs]
     FX.log(f"replays and turns done; busy share and graph kernels in "
            f"{time.perf_counter() - t0:.1f}s")
@@ -234,7 +234,7 @@ def run(compute_dtype, device, iters, turns, tiny=False):
         "eager_step_ms_n": len(eager_ts),
         "turns_step_ms_median": round(float(np.median(turn_ts)) * 1e3, 3),
         "busy_share": share,
-        "busy_share_n": BUSY_REPLAYS if share is not None else 0,
+        "busy_share_n": busy_replays if share is not None else 0,
         "busy_wall_ms": busy_wall_ms,
         "compute_dtype": compute_dtype,
         "batch": step.batchsize, "window": step.ds.window,
@@ -249,9 +249,11 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=10, help="timed replays")
     ap.add_argument("--turns", type=int, default=5,
                     help="replays and eager steps timed in turns")
+    ap.add_argument("--busy-replays", type=int, default=BUSY_REPLAYS,
+                    help="replays profiled for the card's busy share")
     args, device = FX.parse_stage_args(ap, argv)
     result = run("bfloat16" if args.bf16 else "float32", device, args.iters, args.turns,
-                 args.tiny)
+                 args.tiny, args.busy_replays)
     FX.emit(result)
     return 0 if result["losses_finite"] else 1
 

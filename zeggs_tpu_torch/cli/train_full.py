@@ -32,7 +32,6 @@ tests replace `recipe_options` with narrow widths there).
 from __future__ import annotations
 
 import argparse
-import csv
 import json
 import time
 from pathlib import Path
@@ -40,10 +39,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import MelConfig, NetworkConfig, Options, PipelineConfig, TrainConfig
-from ..data.pipeline import data_pipeline
+from ..config import NetworkConfig, Options, TrainConfig
+from ..data.synthetic import build_corpus, write_raw_corpus  # noqa: F401 (the CLI's corpus)
 from ..device import require_device
-from ..io import bvh, wav
 from ..train.loop import Trainer
 from ..train.loss import generalized_logistic_function
 
@@ -59,95 +57,6 @@ RECIPE = ("configs_v1 (batch 32 x 256, RAdam 1e-4, ExpLR 0.995/1k, "
           "KL center 7500 cap 0.2)")
 #: iterations between rewrites of the curve file
 FLUSH_EVERY = 1000
-
-# -- the synthetic corpus (a copy of tests/synthetic.py's raw corpus) ---------
-
-BONE_NAMES = ["Hips", "Spine", "Spine1", "Spine2", "Neck", "Head", "RightArm", "LeftArm"]
-PARENTS = [-1, 0, 1, 2, 3, 4, 3, 3]
-LABELS = ["Neutral", "Happy", "Sad"]
-
-
-def make_motion(nframes=240, seed=0):
-    """Smooth random joint rotations and root translation at 60 fps."""
-    rng = np.random.default_rng(seed)
-    njoints = len(BONE_NAMES)
-    t = np.linspace(0, 2 * np.pi, nframes)[:, None, None]
-    phase = rng.uniform(0, 2 * np.pi, (1, njoints, 3))
-    amp = rng.uniform(5, 25, (1, njoints, 3))
-    rotations = amp * np.sin(2 * t + phase)  # degrees
-    offsets = rng.uniform(-10, 10, (njoints, 3)).astype(np.float32)
-    offsets[0] = 0
-    positions = np.repeat(offsets[None], nframes, axis=0).astype(np.float32)
-    positions[:, 0, 0] += np.linspace(0, 30, nframes)
-    positions[:, 0, 1] += 90.0
-    return {
-        "rotations": rotations.astype(np.float32),
-        "positions": positions,
-        "offsets": offsets,
-        "parents": np.asarray(PARENTS, np.int32),
-        "names": list(BONE_NAMES),
-        "order": "zyx",
-        "frametime": 1.0 / 60.0,
-    }
-
-
-def make_audio(seconds=2.0, fs=16000, seed=1):
-    rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * fs)) / fs
-    x = 0.3 * np.sin(2 * np.pi * 220 * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
-    x += 0.05 * rng.normal(size=t.shape)
-    return np.clip(x, -0.99, 0.99).astype(np.float32)
-
-
-def write_raw_corpus(root, n_clips=3, seconds=4.0):
-    """The raw corpus the pipeline reads: original/{bvh, wav, speaker timing
-    csv} and info.csv with clap-sync timecodes that trim 0.5 s at each end;
-    the last clip is validation (a corpus of one clip keeps it in
-    training)."""
-    root = Path(root)
-    orig = root / "original"
-    orig.mkdir(parents=True, exist_ok=True)
-    fs = 16000
-    rows = []
-    for i in range(n_clips):
-        anim = make_motion(int(seconds * 60), seed=10 + i)
-        audio = make_audio(seconds, fs=fs, seed=10 + i)
-        name = f"{i:03d}_Synth_{i}"
-        bvh.save(orig / f"{name}.bvh", anim)
-        wav.write_wavefile(orig / f"{name}.wav", audio, fs)
-        with open(orig / f"{name}.csv", "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["#", "Start", "End"])
-            w.writerow(["R1", "0:0.0", f"0:{seconds:.1f}"])
-        rows.append(dict(
-            audio_filename=f"{name}.wav",
-            audio_start_time="00:00:00:00",
-            anim_start_time="00:00:00:00",
-            acting_start_time="00:00:00:30",
-            acting_end_time=f"00:00:{int(seconds) - 1:02d}:30",
-            style=LABELS[i % len(LABELS)],
-            anim_bvh=f"{name}.bvh",
-            validation="TRUE" if (n_clips > 1 and i == n_clips - 1) else "FALSE",
-        ))
-    with open(root / "info.csv", "w", newline="") as f:
-        w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
-        w.writeheader()
-        w.writerows(rows)
-    return root
-
-
-def build_corpus(root, device="cuda"):
-    """The recipe's corpus under ``root`` (`scripts/train_anneal.py`'s
-    ``build_corpus``): 6 raw clips of 8 s through the pipeline on
-    ``device`` -> the processed directory."""
-    root = Path(root)
-    write_raw_corpus(root, n_clips=6, seconds=8.0)
-    data_pipeline(PipelineConfig(
-        base_path=str(root), processed_data_path="processed", info_filename="info.csv",
-        audio_conf=MelConfig(normalize_loudness=False), len_ratios=(1.0,),
-        save_trimmed_audio=False, save_trimmed_animation=False), device=device)
-    return root / "processed"
-
 
 # -- the run --------------------------------------------------------------------
 

@@ -4,6 +4,12 @@ from __future__ import annotations
 
 import torch
 
+#: an NVIDIA H100 SXM's data-sheet peaks (dense, at its 700 W limit): HBM
+#: bytes/s, and operations/s by the type of the operands; float32 runs
+#: outside the tensor cores, since `require_device` turns TF32 off
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+
 
 def require_device(name) -> torch.device:
     """Resolve ``name`` ("cuda", "cuda:1", "cpu" or a torch.device) and
