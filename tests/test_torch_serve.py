@@ -101,6 +101,23 @@ def test_synthesize_equals_generate_batch(server, corpus, tmp_path):
     assert out["bvh"] == (tmp_path / "direct.bvh").read_text()
 
 
+def test_stats_report_the_program_counters(server, corpus):
+    """GET /stats carries the process's counters: a request adds its clip
+    and frames, and one style-cache lookup."""
+    _, port = server
+    style, audio = corpus["clips"][1]
+    before = _get(port, "/stats")["counters"]
+    _post(port, "/synthesize", {"audio_path": str(audio), "style_path": str(style), "seed": 3})
+    after = _get(port, "/stats")["counters"]
+
+    def added(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    assert added("batch.clips") == 1 and added("batch.frames") > 0
+    assert added("style_cache.hits") + added("style_cache.misses") == 1
+    assert added("batch.frames_rolled") >= added("batch.frames")
+
+
 def test_concurrent_requests_coalesce(corpus, tmp_path):
     """Requests inside one batching window come out of one batched rollout.
     The drain ends when the third arrives (max_batch), not on a clock, so a

@@ -66,7 +66,7 @@ import torch
 from ..data import features as F
 from ..io import bvh
 from ..parallel import shard_rows
-from ..utils import split_by_ratio
+from ..utils import profiling, split_by_ratio
 from .programs import device_site
 
 #: name prefix of the threads that run a mesh's blocks
@@ -103,13 +103,15 @@ def _prepare(pipe, req: Request):
     """Per-request preparation (counterpart of `_prepare_host`): audio
     features, style-encode jobs (deferred to one batched call), first pose.
     The request's generator is seeded as `generate_gesture` seeds its own."""
-    audio_features, n_frames = pipe.audio_to_features(req.audio)
+    with profiling.annotate("zeggs:batch.audio"):
+        audio_features, n_frames = pipe.audio_to_features(req.audio)
     generator = torch.Generator(device=pipe.device)
     generator.manual_seed(req.seed)
     specs, jobs, feats = [], [], None  # spec: ("job", index) | ("const", (1, C))
     for style in req.styles:
         if isinstance(style, (tuple, list)) and isinstance(style[0], (str, Path)):
-            vec, feats = pipe.style_example_from_bvh(style[0], style[1])
+            with profiling.annotate("zeggs:batch.style_example"):
+                vec, feats = pipe.style_example_from_bvh(style[0], style[1])
             jobs.append((vec, req.temperature, generator))
             specs.append(("job", len(jobs) - 1))
         elif isinstance(style, np.ndarray):
@@ -118,7 +120,8 @@ def _prepare(pipe, req: Request):
         else:  # a label
             specs.append(("const", pipe.label_encoding(style)))
     if req.first_pose is not None:
-        feats = F.preprocess_animation(bvh.load(req.first_pose), device=pipe.device)
+        with profiling.annotate("zeggs:batch.first_pose"):
+            feats = F.preprocess_animation(bvh.load(req.first_pose), device=pipe.device)
     if feats is None:
         raise ValueError(f"{req.file_name}: no first pose available: give first_pose or a BVH "
                          "style example")
@@ -390,6 +393,12 @@ def _collect(blocks):
     return hosts
 
 
+def _write(pipe, results_path, req, rows):
+    """A writer thread's task: one request's rows to its BVH (and WAV)."""
+    with profiling.annotate("zeggs:batch.write", req.file_name):
+        return pipe.write_result(results_path, req.file_name, rows, req.audio)
+
+
 @torch.inference_mode()
 def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=None,
                    write_workers=4, batch_pad="auto"):
@@ -402,17 +411,37 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
     request under ``results_path``; returns the written BVH paths, in the
     order of the requests' buckets and chunks. Chunks are pipelined (see
     the module's docstring); returns once every block has finished and
-    every BVH is written."""
-    batch_pad = resolve_batch_pad(batch_pad)
+    every BVH is written.
+
+    Spans (`utils/profiling.py`): ``zeggs:batch`` the call; inside it
+    ``zeggs:batch.featurize`` the requests' featurization, one
+    ``zeggs:batch.prepare#<file_name>`` a request (``.audio``,
+    ``.style_example``, ``.first_pose`` inside), ``.encode_styles``, then a
+    chunk's ``.assemble``, ``.dispatch`` and ``.collect``, and the final
+    ``.wait_writes``; ``zeggs:batch.write#<file_name>`` on a writer thread.
+    Counters: ``batch.clips``, ``batch.frames`` (the requests' frames) and
+    ``batch.frames_rolled`` (B_pad x T_pad of every chunk)."""
+    with profiling.annotate("zeggs:batch"):
+        return _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh,
+                               write_workers, resolve_batch_pad(batch_pad))
+
+
+def _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh, write_workers,
+                    batch_pad):
     results_path = Path(results_path)
     results_path.mkdir(parents=True, exist_ok=True)
 
-    prepped = [(req, *_prepare(pipe, req)) for req in requests]
+    prepped = []
+    with profiling.annotate("zeggs:batch.featurize"):
+        for req in requests:
+            with profiling.annotate("zeggs:batch.prepare", req.file_name):
+                prepped.append((req, *_prepare(pipe, req)))
     all_jobs, offsets = [], []
     for (_, _, _, _, jobs, _) in prepped:
         offsets.append(len(all_jobs))
         all_jobs.extend(jobs)
-    encoded = pipe.encode_styles_batch(all_jobs)
+    with profiling.annotate("zeggs:batch.encode_styles"):
+        encoded = pipe.encode_styles_batch(all_jobs)
 
     buckets = {}
     for (req, af, n, specs, _, feats), off in zip(prepped, offsets):
@@ -421,6 +450,8 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
         state = tuple(getattr(feats, a)[0] for a in _STATE0)
         item = (req, af, n, style, state, feats.gaze_pos[0])
         buckets.setdefault(max(bucket, _round_up(n, bucket)), []).append(item)
+    profiling.count("batch.clips", len(prepped))
+    profiling.count("batch.frames", sum(p[2] for p in prepped))
 
     n_dev = 1 if mesh is None else mesh.size
     replicas = None if mesh is None else [pipe.replica(d) for d in mesh.devices]
@@ -429,24 +460,30 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
         futures, pending = [], []
 
         def collect(chunk, inputs, blocks):
-            hosts = _collect(blocks)  # only now may the chunk's inputs be freed
+            with profiling.annotate("zeggs:batch.collect"):
+                hosts = _collect(blocks)  # only now may the chunk's inputs be freed
             rows = hosts[0][0].shape[0]  # a block's rows; every block has as many
             for i, (req, _, n, *_) in enumerate(chunk):
                 host = hosts[i // rows]
                 futures.append(pool.submit(
-                    pipe.write_result, results_path, req.file_name,
-                    tuple(h[i % rows : i % rows + 1, :n] for h in host), req.audio,
+                    _write, pipe, results_path, req,
+                    tuple(h[i % rows : i % rows + 1, :n] for h in host),
                 ))
 
         for T_pad, items in sorted(buckets.items()):
             for start in range(0, len(items), max_batch):
                 chunk = items[start : start + max_batch]
                 B_pad = _chunk_b_pad(len(chunk), max_batch, n_dev, batch_pad)
-                inputs = _assemble(chunk, T_pad, B_pad)
-                pending.append((chunk, inputs, _run_chunk(pipe, replicas, mesh, shards, *inputs)))
+                profiling.count("batch.frames_rolled", B_pad * T_pad)
+                with profiling.annotate("zeggs:batch.assemble"):
+                    inputs = _assemble(chunk, T_pad, B_pad)
+                with profiling.annotate("zeggs:batch.dispatch"):
+                    blocks = _run_chunk(pipe, replicas, mesh, shards, *inputs)
+                pending.append((chunk, inputs, blocks))
                 while len(pending) > PIPELINE_DEPTH or (len(pending) > 1
                                                         and _copied(pending[0][2])):
                     collect(*pending.pop(0))
         for entry in pending:
             collect(*entry)
-        return [f.result() for f in futures]
+        with profiling.annotate("zeggs:batch.wait_writes"):
+            return [f.result() for f in futures]

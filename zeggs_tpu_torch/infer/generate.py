@@ -40,7 +40,7 @@ from ..models.decoder import Decoder
 from ..models.speech_encoder import SpeechEncoder
 from ..models.style_encoder import StyleEncoder
 from ..ops.kernels import build
-from ..utils import split_by_ratio, write_bvh
+from ..utils import profiling, split_by_ratio, write_bvh
 from .programs import ProgramCache, output_stage
 from .streaming import StreamingSession
 
@@ -260,11 +260,14 @@ class GesturePipeline:
         (path, mtime, frames), at most STYLE_CACHE entries, as the JAX
         pipeline caches it: requests reuse a few style clips, and the FK
         featurization is the costly part of a request. Callers must not
-        modify the returned tensors."""
+        modify the returned tensors. Counts ``style_cache.hits`` and
+        ``style_cache.misses``."""
         key = (str(path), Path(path).stat().st_mtime_ns, tuple(frames) if frames else None)
         hit = self._style_cache.get(key)
         if hit is not None:
+            profiling.count("style_cache.hits")
             return hit
+        profiling.count("style_cache.misses")
         anim = bvh.load(path)
         if frames is not None:
             anim["rotations"] = anim["rotations"][frames[0] : frames[1]]

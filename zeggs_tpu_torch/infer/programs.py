@@ -64,6 +64,7 @@ import torch
 from ..models import decoder
 from ..ops import quat, xform
 from ..ops.kernels import gru_cell as GC
+from ..utils import profiling
 
 #: the grains a chunk is cut into, largest first (JAX's decoder grain of 16
 #: and the streaming ladder's 4 and 1)
@@ -117,8 +118,9 @@ class DeviceSite:
         (into ``pool``, or a pool of its own), both on the capture stream
         and after the device's last graph work -> (graph, body's outputs,
         GRU-cell launches captured, bytes the capture reserved, seconds).
-        A failed capture raises."""
-        with self.lock:
+        A failed capture raises. Counts one ``programs.captures``."""
+        profiling.count("programs.captures")
+        with profiling.annotate("zeggs:program.capture"), self.lock:
             t0 = time.perf_counter()
             side = self.stream
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -208,6 +210,10 @@ class RolloutProgram:
         step's outputs go to those columns of ``outs`` (root_pos, root_rot,
         lpos, ltxy, each (B, n, ...)). Returns the new state (tensors of the
         caller's)."""
+        with profiling.annotate("zeggs:program.rollout"):
+            return self._run(state, gaze, pre_l0, pre_g0, outs, start, reps)
+
+    def _run(self, state, gaze, pre_l0, pre_g0, outs, start, reps):
         stop = start + reps * self.steps
         if self.device.type != "cuda":
             for t in range(start, stop):
@@ -267,6 +273,10 @@ class FinishProgram:
         the next replay overwrites while this chunk's copies to the host may
         still run; all under the device's lock and event, as a
         `RolloutProgram` run."""
+        with profiling.annotate("zeggs:program.finish"):
+            return self._run(out)
+
+    def _run(self, out):
         if self.device.type != "cuda":
             return output_stage(out, self.dtype)
         with self._site.lock, torch.cuda.device(self.device):

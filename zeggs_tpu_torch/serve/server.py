@@ -29,7 +29,10 @@ Design:
     them all at once,
   * responses carry the BVH text inline (JSON), plus scheduling metadata
     (batch size, queue + synthesis latency) so clients can observe the
-    batcher,
+    batcher; GET /stats adds the process's counters
+    (`utils.profiling.counters`) under ``counters``: among them
+    ``programs.captures`` (a capture after warm-up stalls every queued
+    request for seconds) and ``style_cache.hits`` / ``.misses``,
   * stdlib only (``http.server.ThreadingHTTPServer``): no new deps.
 """
 
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from ..infer.batch import Request, generate_batch
+from ..utils import profiling
 
 
 class _Stopped(Exception):
@@ -301,6 +305,7 @@ class GestureServer:
                 elif self.path == "/stats":
                     snap = server.stats.snapshot()
                     snap["live_sessions"] = len(server._sessions)
+                    snap["counters"] = profiling.counters()
                     self._reply(200, snap)
                 else:
                     self._reply(404, {"error": "not found"})

@@ -61,6 +61,7 @@ import torch
 from ..infer.programs import device_site
 from ..models.layers import RowShard
 from ..parallel import distributed
+from ..utils import profiling
 
 #: the step's scalars at the head of the staging buffer: the iteration and
 #: RAdam's (a, c, d)
@@ -190,17 +191,25 @@ class TrainProgram:
         """One training step: ``inputs`` ({name: host array}, the same names
         and shapes every step; see `Trainer._batch`) at ``iteration`` ->
         the metrics ({name: 0-d tensor}, copies that later steps leave
-        alone). Advances the optimizer's step count."""
-        self._stage(inputs, iteration)
+        alone). Advances the optimizer's step count.
+
+        Spans (`utils/profiling.py`): ``zeggs:train.stage``, then
+        ``zeggs:train.eager`` or ``zeggs:train.replay``."""
+        with profiling.annotate("zeggs:train.stage"):
+            self._stage(inputs, iteration)
         if self.device.type != "cuda":
-            self._copy_in()
-            metrics = self._eager_step()
+            with profiling.annotate("zeggs:train.eager"):
+                self._copy_in()
+                metrics = self._eager_step()
         elif self.steps == 0:
-            metrics = self._on_capture_stream(self._eager_step)
+            with profiling.annotate("zeggs:train.eager"):
+                metrics = self._on_capture_stream(self._eager_step)
         else:
             if not self.graphs:
-                self._on_capture_stream(self._capture)
-            metrics = self._replay()
+                with profiling.annotate("zeggs:program.capture"):
+                    self._on_capture_stream(self._capture)
+            with profiling.annotate("zeggs:train.replay"):
+                metrics = self._replay()
         self.optimizer.step_count += 1
         self.steps += 1
         return dict(zip(self._names, metrics.unbind()))
@@ -236,6 +245,7 @@ class TrainProgram:
                   else [lambda: (self._forward_backward(), self._update())[0]])
         graphs, outs = [], []
         for i, body in enumerate(bodies):
+            profiling.count("programs.captures")
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             if generator is not None and i == 0:
                 graph.register_generator_state(generator)
@@ -256,15 +266,23 @@ class TrainProgram:
         self.capture_seconds = time.perf_counter() - t0
 
     def _replay(self):
+        """One replay of the step. Counts ``train.replays`` and adds to
+        ``train.replay_s`` the host's seconds from just before the first
+        graph's ``replay()`` to the return of the last one's: the launch of
+        the graphs' work, which the card runs meanwhile."""
         site = device_site(self.device)
         with site.lock, torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(site.done)  # the device's last graph work
             self._copy_in(stream)
+            t0 = time.perf_counter()
             self.graphs[0].replay()
             if self.several:
                 self._average(self._metrics)
                 self.graphs[1].replay()
+            launched = time.perf_counter() - t0
+            profiling.count("train.replays")
+            profiling.count("train.replay_s", launched)
             metrics = self._metrics.clone()
             site.done.record(stream)
         return metrics

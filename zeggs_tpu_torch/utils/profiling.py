@@ -1,20 +1,78 @@
 """Profiling and timing helpers (counterpart of `zeggs_tpu/utils/profiling.py`):
-a `torch.profiler` trace written as a Chrome trace, named regions, a
-timing loop that waits for the card, and per-card memory statistics."""
+the program's spans and counters, a `torch.profiler` trace written as a
+Chrome trace, a timing loop that waits for the card, and per-card memory
+statistics.
+
+Spans. `annotate` is the one span helper of the port. A program span is
+named ``zeggs:<layer>.<stage>``, with ``#<request id>`` where it belongs to
+one request. It is a `torch.profiler.record_function` range when tracing is
+on: inside `trace` (on every thread), or on a thread that a profiler
+traces (`torch.autograd._profiler_enabled`; a profiler that traces only
+its own thread does not see worker threads). Otherwise it is one shared
+null context: no range is made, and the gate costs a fraction of a
+microsecond. Spans are stamped by the same profiler as CUPTI's device
+events, so they lie on the device trace's clock by construction. A span
+never sits inside a body a CUDA graph captures (it would run at capture
+time only): spans wrap the calls that replay graphs.
+
+Counters. `count` adds to a process-wide counter, always on, under one
+lock; `counters` is a snapshot. Each reading is a total since the process
+started, so a reader of a stretch takes two and subtracts.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+_lock = threading.Lock()
+_counters = {}
+#: open `trace` contexts: while any is open, every thread's spans are made
+_tracing = 0
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name, rid=None):
+    """A named span, ``name#rid`` with a request id: a
+    `torch.profiler.record_function` when tracing is on (see the module's
+    docstring), else a shared null context."""
+    if not (_tracing or torch.autograd._profiler_enabled()):
+        return _OFF
+    return torch.profiler.record_function(name if rid is None else f"{name}#{rid}")
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters():
+    """A copy of every counter: {name: total since the process started}."""
+    with _lock:
+        return dict(_counters)
+
+
+def _all_threads():
+    """The profiler option that records every thread's ranges, where the
+    installed torch has it (else None)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
 
 @contextlib.contextmanager
 def trace(logdir):
-    """Profile the enclosed block (host, and the cards when there are any)
+    """Profile the enclosed block (host, and the cards when there are any;
+    every thread's spans, where the installed torch records all threads)
     and write ``<logdir>/trace.json``, viewable in Perfetto or
     chrome://tracing; yields the profiler, whose ``key_averages()`` sums
     the time by operator and kernel:
@@ -22,19 +80,23 @@ def trace(logdir):
         with profiling.trace("traces") as prof:
             trainer.train_step(batch)
     """
+    global _tracing
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     logdir = Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    config = _all_threads()
+    options = {} if config is None else {"experimental_config": config}
+    with torch.profiler.profile(activities=activities, **options) as prof:
+        with _lock:
+            _tracing += 1
+        try:
+            yield prof
+        finally:
+            with _lock:
+                _tracing -= 1
     prof.export_chrome_trace(str(logdir / "trace.json"))
-
-
-def annotate(name):
-    """A named region inside a trace."""
-    return torch.profiler.record_function(name)
 
 
 def _sync():
