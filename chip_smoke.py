@@ -16,7 +16,10 @@ and 12 s) under build/chip_smoke/, then:
      n_fft 800, 1024, 802 and 8192, the last through the global-workspace
      variant: the three clips, the streaming windows of 1 to 512 frames, an
      input shorter than n_fft and zero windows; timed at 1, 32 and the 10 s
-     clip's frames, and the variant forced at n_fft 800); fails on a register spill in nvcc's
+     clip's frames, and the variant forced at n_fft 800) and the training
+     rollout's six kernels (csrc/decoder_train.cu, forward and backward,
+     with the pose kernels' first- and last-frame forms, at the v1 train
+     cell's B=32, H=1024, pose 1134/1131); fails on a register spill in nvcc's
      report; times each against its plain version and its bound (bytes
      over 3.35 TB/s or operations over the operands' peak), the mel kernel
      at each launch shape, the GRU cell at B=1, 2 and 64 also against
@@ -91,8 +94,9 @@ and 12 s) under build/chip_smoke/, then:
      the captured step replayed from a CUDA graph; its capture seconds,
      kernels and pool memory), a checkpoint and sample synthesis at
      iteration 0 (rollout programs: one GRU-cell launch a decoder step and
-     one a capture; no kernel launch in a train step; every parameter a
-     finite nonzero gradient in the first step) and a resume for one more
+     one a capture; a train step launches the training rollout's kernels,
+     8 a frame and one more a window, and no other kernel; every parameter
+     a finite nonzero gradient in the first step) and a resume for one more
      step that must restore the whole training state; then the captured
      step against the eager step on a copy of the same state, in turns on
      the same inputs (5 rounds: parameters, RAdam moments and losses after
@@ -137,7 +141,7 @@ and 12 s) under build/chip_smoke/, then:
      checks that the v2 checkpoint is refused;
  13. runs the full-recipe CLI (`cli.train_full`): its corpus (6 clips of
      8 s) through the pipeline on the card, 60 steps at v1 width in
-     float32 (a checkpoint and samples every 50), first stopped by a 15 s
+     float32 (a checkpoint and samples every 50), first stopped by a 6 s
      `--max-hours` budget (a checkpoint, the curve marked partial), then
      resumed: the merged curve holds every logged iteration once; then
      `cli.eval_checkpoint` of the last checkpoint through the rollout
@@ -148,7 +152,8 @@ and 12 s) under build/chip_smoke/, then:
      within 240 s: its last line must come from the card, every stage
      finished (no failure, skip or watchdog cut), every `correct` true,
      and each stage's kernels launched (core: decoder and GRU cell; serve:
-     all three; streaming: GRU cell and mel);
+     the three inference kernels; streaming: GRU cell and mel; train: the
+     training rollout's);
  15. runs the port's last programs at full v1 width, cut in depth
      (`programs_left`): `cli.train_curve` (40 iterations a dtype on the
      recipe's corpus) and `cli.train_anneal` (30 iterations, its corpus
@@ -156,7 +161,8 @@ and 12 s) under build/chip_smoke/, then:
      `profilers.fused_b1_profile` (the rollout programs against the decoder
      kernel at bf16 and int8 on a 10 s clip), `loss_profile`,
      `grad_profile` and `train_step_profile` (every section captured as a
-     CUDA graph and timed eager and graphed), `train_roofline` at float32
+     CUDA graph and timed eager and graphed; the last two launch the
+     training rollout's kernels), `train_roofline` at float32
      and bfloat16 against the bench's train steps, and
      `examples.quickstart`;
  16. prints times, each beside the card's name and power limit, a JSON
@@ -217,6 +223,18 @@ GRU_SHAPES = [(64, 1024, 1024), (2, 1024, 1024), (8, 384, 256), (16, 2304, 512),
               (1, 1024, 1024), (3, 1024, 1024), (65, 1024, 1024)]
 GRU_TIMED = (1, 2, 64)  # batch sizes timed at in = H = 1024
 BATCH_COPIES = 64
+# the training rollout's kernels (csrc/decoder_train.cu) against their
+# plain versions at the v1 train cell's shapes (B=32, H=1024, 75 joints:
+# pose 1134 in, 1131 out): max error over max(1, max|plain|) of each
+# output (tests/test_torch_decoder_bptt.py's bound); the forward kernels
+# round each operation as PyTorch's operators do, so they must equal their
+# plain versions bit for bit
+DT_TOL = 1e-5
+DT_SHAPE = (32, 1024, 75)  # B, H, joints
+# one frame of the train rollout: the forward's 4 launches and the
+# backward's 4 (`ops/kernels/decoder_train.py`)
+DT_FRAME = ("pose_fwd", "elu_fwd", "gru_fwd_l0", "gru_fwd_l1", "gru_bwd_l1", "gru_bwd_l0",
+            "elu_bwd", "pose_bwd")
 # the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
 MEL_TOL = 2e-4
 MEL_WINDOWS = (1, 2, 3, 8, 32, 33, 128, 512)
@@ -318,8 +336,11 @@ STAGE_TURNS = 5
 # RECIPE_CKPT_EVERY, the loss logged every RECIPE_LOG_EVERY; the first run
 # stopped by a budget of RECIPE_BUDGET_S seconds, then resumed (depth cut
 # from 200 steps, checkpoints every 100 and a 30 s budget, for the script's
-# time)
-RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_LOG_EVERY, RECIPE_BUDGET_S = 60, 50, 10, 15.0
+# time). The budget has to fall inside the first run, after its step 1
+# (the capture, ~2.5 s in): on an NVIDIA H100 80GB HBM3 at 700 W, at ~111
+# ms a step, 6 s stopped it at iteration 47 and 15 s let all 60 finish
+# (10.6 s)
+RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_LOG_EVERY, RECIPE_BUDGET_S = 60, 50, 10, 6.0
 # the evaluation on the card against the CPU: the tolerances of
 # tests/test_torch_quality.py (rtol 1e-3 and one rounding quantum; jerk
 # and variance ratios within bounds derived from the rollouts' difference)
@@ -333,7 +354,8 @@ BENCH_TIMEOUT_S, BENCH_MARGIN_S = 300, 30
 BENCH_STAGES = ("core", "serve", "streaming", "train", "train_bf16")
 BENCH_REQUIRED = {"core": ("decoder_rollout", "gru_cell"),
                   "serve": ("decoder_rollout", "gru_cell", "mel_spectrogram"),
-                  "streaming": ("gru_cell", "mel_spectrogram")}
+                  "streaming": ("gru_cell", "mel_spectrogram"),
+                  "train": ("decoder_train",)}
 # the programs_left phase: the recipe's curve and anneal runs, the five
 # profilers and the quickstart at full v1 width, cut in depth: the curve's
 # LEFT_CURVE_ITERS iterations a dtype (400 in full), the anneal's
@@ -662,6 +684,141 @@ def check_gru_cell(torch, card):
     return report
 
 
+def decoder_train_cases(torch, B, H, J):
+    """{case: (op, args, indices of the written args, floats the kernel
+    touches)} of `ops/kernels/decoder_train.py`'s step ops at one frame,
+    on strided (B, 3, ...) frame views as the Function passes them; random
+    inputs from SEED. The floats touched: each input the kernel reads and
+    each output it writes, once (the pose backward reads 6 floats of the
+    last frame's output a row)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    D = 6 + 15 * J
+    Din = D + 3
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def frame(n, scale=1.0):
+        return r(B, 3, n, scale=scale)[:, 1]
+
+    def quats():
+        q = r(B, 4)
+        return q / q.norm(dim=-1, keepdim=True)
+
+    def empty(*shape):
+        return torch.full(shape, float("nan"), device="cuda")
+
+    mean_in, std_in = r(Din, scale=0.1), r(Din).abs() + 0.5
+    mean_out, std_out = r(D, scale=0.1), r(D).abs() * 0.2 + 0.05
+    mean_out[3:6] = 0.0
+    out = r(B, D)
+    out[0, 3:6] = 0.0  # no root rotation in row 0: the exp map's small-angle branch
+    p_prev = frame(D)
+    p_prev[0, 3:6] = 0.0
+    gates = torch.cat([torch.rand(B, 3 * H, generator=g, device="cuda"), r(B, H)], dim=1)
+    gates[:, 2 * H : 3 * H] = gates[:, 2 * H : 3 * H] * 2 - 1
+    a4 = r(B, 4 * H)
+
+    def traj():  # a frame's p, root_pos, root_rot views of (B, 3, ...) buffers
+        return (empty(B, 3, D)[:, 1], empty(B, 3, 3)[:, 1], empty(B, 3, 4)[:, 1])
+
+    return {
+        "pose_fwd": ("pose_fwd", (out, mean_out, std_out, None, r(B, 3), quats(), *traj(),
+                                  frame(3, 5.0), mean_in, std_in, empty(B, Din), DT),
+                     (6, 7, 8, 12), 2 * B * D + B * Din + 2 * D + 2 * Din + 17 * B),
+        "pose_fwd_first": ("pose_fwd", (None, mean_out, std_out, r(B, D), r(B, 3), quats(),
+                                        None, None, None, frame(3, 5.0), mean_in, std_in,
+                                        empty(B, Din), DT),
+                           (12,), B * D + B * Din + 2 * Din + 10 * B),
+        "pose_fwd_last": ("pose_fwd", (r(B, D), mean_out, std_out, None, r(B, 3), quats(),
+                                       *traj(), None, mean_in, std_in, None, DT),
+                          (6, 7, 8), 2 * B * D + 2 * D + 14 * B),
+        "elu_fwd": ("elu_fwd", (frame(H), a4[:, :H], empty(B, H), empty(B, H)), (2, 3),
+                    4 * B * H),
+        "gru_fwd_l0": ("gru_fwd", (frame(3 * H), r(B, 3 * H), a4[:, H:], r(B, 3 * H),
+                                   r(B, 2 * H)[:, :H], empty(B, H), empty(B, 4 * H)),
+                       (5, 6), 18 * B * H),
+        "gru_fwd_l1": ("gru_fwd", (r(B, 3 * H), None, None, r(B, 3 * H), r(B, H), empty(B, H),
+                                   empty(B, 4 * H)),
+                       (5, 6), 12 * B * H),
+        "gru_bwd_l1": ("gru_bwd", (r(B, H), gates, r(B, H), empty(B, 3 * H), empty(B, 3 * H)),
+                       (0, 3, 4), 13 * B * H),
+        "gru_bwd_l0": ("gru_bwd", (r(B, H), gates, r(B, H), empty(B, 4 * H)[:, H:],
+                                   empty(B, 3 * H)),
+                       (0, 3, 4), 13 * B * H),
+        "elu_bwd": ("elu_bwd", (r(B, H), r(B, H, scale=3.0), empty(B, 4 * H)[:, :H]), (2,),
+                    3 * B * H),
+        "pose_bwd": ("pose_bwd", (r(B, Din), std_in, frame(3, 5.0), r(B, 3), quats(), empty(B, 3),
+                                  frame(D), frame(3), frame(4), p_prev, quats(), std_out,
+                                  empty(B, D), r(B, 3), r(B, 4), None, DT),
+                     (5, 12, 13, 14), B * Din + Din + 2 * B * D + D + 44 * B),
+        "pose_bwd_last": ("pose_bwd", (None, std_in, None, r(B, 3), quats(), None, frame(D),
+                                       frame(3), frame(4), frame(D), quats(), std_out,
+                                       empty(B, D), r(B, 3), r(B, 4), None, DT),
+                          (12, 13, 14), 2 * B * D + D + 31 * B),
+        "pose_bwd_first": ("pose_bwd", (r(B, Din), std_in, frame(3, 5.0), r(B, 3), quats(),
+                                        empty(B, 3), None, None, None, None, None, std_out, None,
+                                        r(B, 3), r(B, 4), empty(B, D), DT),
+                           (5, 13, 14, 15), B * Din + Din + B * D + 27 * B),
+    }
+
+
+def check_decoder_train(torch, card):
+    """Phase 1d: each kernel of the training rollout (forward and backward,
+    and the first and last frame's forms of the pose kernels) against its
+    plain version on the same inputs at the v1 train cell's shapes (the
+    forward's bit for bit); then
+    each one's device time (CUDA graphs, kernel and plain in turns)
+    against its bound (the bytes it touches over the HBM bandwidth)."""
+    from zeggs_tpu_torch.ops.kernels import decoder_train as DT_K
+
+    B, H, J = DT_SHAPE
+    report = {"err": 0.0}
+    launches = DT_K.launches
+    cases = decoder_train_cases(torch, B, H, J)
+    for name, (op, args, written, floats) in cases.items():
+        plain = [a.clone() if i in written else a for i, a in enumerate(args)]
+        getattr(DT_K.PlainOps, op)(*plain)
+        getattr(DT_K.CudaOps, op)(*args)
+        torch.cuda.synchronize()
+        err = max((args[i] - plain[i]).abs().max().item() / max(1.0, plain[i].abs().max().item())
+                  for i in written)
+        unequal = sum(int((args[i] != plain[i]).sum()) for i in written)
+        finite = all(bool(torch.isfinite(args[i]).all()) for i in written)
+        print(f"decoder_train {name} (B={B}, H={H}, pose {6 + 15 * J + 3}/{6 + 15 * J}): max "
+              f"err / max(1, max|plain|) {err:.3e} (tol {DT_TOL:g}), {unequal} elements unequal")
+        if not (finite and err <= DT_TOL) or (op.endswith("_fwd") and unequal):
+            fail(f"decoder_train {name}: kernel/plain error {err} (tol {DT_TOL}), {unequal} "
+                 f"elements unequal, finite {finite}")
+        report["err"] = max(report["err"], err)
+
+        def kernel():
+            getattr(DT_K.CudaOps, op)(*args)
+
+        def plain_op():
+            getattr(DT_K.PlainOps, op)(*plain)
+
+        p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain_op, kernel, kernel, plain_op))
+        bound_ms, bound_by = bound(4 * floats, 0, "float32")
+        ms = min(k1, k2)
+        print(f"time decoder_train {name} (device, CUDA graph): kernel {k1 * 1e3:.2f} / "
+              f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}: {4 * floats / 1e6:.3f} MB), "
+              f"{bound_ms / ms:.1%} of the bound, {card}")
+        report[name] = dict(ms=ms, plain_ms=min(p1, p2), bound_ms=bound_ms, bound_by=bound_by,
+                            max_abs_err=err, unequal=unequal)
+    # each check launched once and each timing once before its capture (a
+    # captured launch counts only when replayed, and graph_ms does not count)
+    if DT_K.launches - launches != 3 * len(cases):
+        fail(f"decoder_train: {DT_K.launches - launches} launches, expected {3 * len(cases)}")
+    frame = {k: sum(report[c][k] for c in DT_FRAME) for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"time decoder_train one frame's {len(DT_FRAME)} launches (device, CUDA graphs): "
+          f"kernels {frame['ms'] * 1e3:.2f} us, plain {frame['plain_ms'] * 1e3:.2f} us, bound "
+          f"{frame['bound_ms'] * 1e3:.3f} us, {card}")
+    report["frame"] = frame
+    return report
+
+
 def read_wav(name):
     from zeggs_tpu_torch.io import wav
 
@@ -785,23 +942,38 @@ def check_ptxas(libs):
             fail(f"{lib.name} spills registers: {spills}")
 
 
-def reset_counts():
+def kernel_modules():
+    """{kernel: its wrapper module, which holds the launch counter}."""
     from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+    from zeggs_tpu_torch.ops.kernels import decoder_train as DT_K
     from zeggs_tpu_torch.ops.kernels import gru_cell as GC
     from zeggs_tpu_torch.ops.kernels import mel as MK
 
-    DR.launches = GC.launches = MK.launches = 0
+    return {"decoder_rollout": DR, "decoder_train": DT_K, "gru_cell": GC,
+            "mel_spectrogram": MK}
+
+
+def reset_counts():
+    for module in kernel_modules().values():
+        module.launches = 0
 
 
 def read_counts():
     """Launches since `reset_counts`. Each path runs one weight dtype, so
     the decoder count is that dtype's."""
-    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
-    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
-    from zeggs_tpu_torch.ops.kernels import mel as MK
+    return {name: module.launches for name, module in kernel_modules().items()}
 
-    return {"decoder_rollout": DR.launches, "gru_cell": GC.launches,
-            "mel_spectrogram": MK.launches}
+
+def launch_counts(**launched):
+    """{kernel: launches} over every kernel, 0 where ``launched`` names none."""
+    return {name: launched.get(name, 0) for name in kernel_modules()}
+
+
+def bptt_launches(frames):
+    """The training rollout's launches over a window of ``frames`` + 1
+    frames whose first frame is data: 4 a frame forward and 4 backward, and
+    the first frame's pose kernel in the forward."""
+    return 8 * frames + 1
 
 
 def check_bvhs(results, label):
@@ -1129,12 +1301,9 @@ def launch_sites(torch):
     through the wrappers' counters; the counts themselves are left as they
     are."""
     from zeggs_tpu_torch.infer.batch import SHARD_THREADS
-    from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
-    from zeggs_tpu_torch.ops.kernels import gru_cell as GC
-    from zeggs_tpu_torch.ops.kernels import mel as MK
 
     sites, lock, saved = {}, threading.Lock(), {}
-    for name, mod in (("decoder_rollout", DR), ("gru_cell", GC), ("mel_spectrogram", MK)):
+    for name, mod in kernel_modules().items():
         saved[mod] = count = mod._count_launch
 
         def counted(*n, name=name, count=count):  # n: the launches of a graph's replay
@@ -1895,8 +2064,8 @@ def output_stage_phase(torch, card, results):
     report["daemon"] = {"launches": counts, "float16_errors": d_err}
     print(f"output stage: daemon /synthesize at float16 transfer, launches {counts}; against "
           f"float32 {d_err}")
-    if not float16_within(d_err) or counts != {"decoder_rollout": 1, "gru_cell": 0,
-                                               "mel_spectrogram": 1}:
+    if not float16_within(d_err) or counts != launch_counts(decoder_rollout=1,
+                                                            mel_spectrogram=1):
         fail(f"output stage daemon: launches {counts}, float16 against float32 {d_err}")
     return report
 
@@ -1963,8 +2132,7 @@ def recipe_phase(torch, card):
     T.build_corpus(root, device="cuda")
     torch.cuda.synchronize()
     report["corpus"] = {"s": time.perf_counter() - t0, "launches": read_counts()}
-    if report["corpus"]["launches"] != {"decoder_rollout": 0, "gru_cell": 0,
-                                        "mel_spectrogram": 6}:
+    if report["corpus"]["launches"] != launch_counts(mel_spectrogram=6):
         fail(f"recipe corpus: launches {report['corpus']['launches']}")
     argv = ["--root", str(root), "--iters", str(RECIPE_STEPS), "--dtype", "float32",
             "--log-every", str(RECIPE_LOG_EVERY), "--ckpt-every", str(RECIPE_CKPT_EVERY)]
@@ -2026,8 +2194,7 @@ def recipe_phase(torch, card):
         ProgramCache.rollout = rollout
     agg = json.loads((root / f"eval_{RECIPE_STEPS}.json").read_text())
     keys = ("vel_ratio_mean", "jerk_ratio_mean", "motion_var_ratio_median")
-    expected = {"decoder_rollout": 0, "gru_cell": sum(lengths) + ladder_programs(lengths),
-                "mel_spectrogram": 0}
+    expected = launch_counts(gru_cell=sum(lengths) + ladder_programs(lengths))
     report["eval"] = {"exit_code": code, "s": eval_s, "launches": counts,
                       **{k: agg[k] for k in keys}}
     print(f"recipe: eval_checkpoint at iteration {RECIPE_STEPS}: exit {code} (gate "
@@ -2120,7 +2287,8 @@ def programs_left(torch, card, bench):
         this depth: the curve must have docs/loss_curve.json's keys and be
         finite; sample synthesis at iteration 0 launches the GRU cell);
       * `cli.train_anneal` for LEFT_ANNEAL_ITERS iterations, its own corpus
-        built on the card (6 mel launches), the curve with
+        built on the card (6 mel launches, and the training rollout's
+        kernels in its float32 steps), the curve with
         docs/anneal_curve.json's keys in order, finite;
       * `profilers.fused_b1_profile` (10 s clip): the scan replays the
         rollout programs (GRU-cell launches), the kernel runs at bf16 and at
@@ -2128,7 +2296,8 @@ def programs_left(torch, card, bench):
         rollout within GRAPH_MAE;
       * `profilers.loss_profile all`, `grad_profile all all3` and
         `train_step_profile all`: every section captured (kernels > 0),
-        finite eager and graphed times (grad_profile's ``all2`` and
+        finite eager and graphed times, the training rollout's kernels
+        launched by the last two (grad_profile's ``all2`` and
         ``all4`` are left to the full run: their sections take the same
         loss and step functions as ``dropgrad`` and `train_step_profile`'s
         full step, at ~20 s a section);
@@ -2190,8 +2359,10 @@ def programs_left(torch, card, bench):
     print(f"programs_left: train_anneal --iters {LEFT_ANNEAL_ITERS}: exit {code}, "
           f"{report['train_anneal']['s']:.1f} s with its corpus, launches "
           f"{report['train_anneal']['launches']}, {card}")
-    if not ok or code not in (0, 1) or report["train_anneal"]["launches"] != {
-            "decoder_rollout": 0, "gru_cell": 0, "mel_spectrogram": 6}:
+    anneal = report["train_anneal"]["launches"]
+    if not ok or code not in (0, 1) or anneal != launch_counts(
+            mel_spectrogram=6, decoder_train=anneal["decoder_train"]) or not anneal[
+            "decoder_train"]:
         fail(f"programs_left train_anneal: {report['train_anneal']}, schema/finite {ok}")
 
     # the B=1 profile
@@ -2217,6 +2388,11 @@ def programs_left(torch, card, bench):
                                  ("train_step_profile", train_step_profile, ["all"])):
         out = run(label, lambda: module.main(which + reps))
         graphed_sections(label, out)
+        # the float32 decoder under autograd (grad_profile's rollgrad and
+        # dropgrad, train_step_profile's fwd) runs the training rollout's
+        # kernels, eagerly and in each replay
+        if label != "loss_profile" and not report[label]["launches"]["decoder_train"]:
+            fail(f"programs_left {label}: no decoder_train launch: {report[label]}")
         report[label]["sections"] = {k: v for k, v in out.items()
                                      if k not in ("launches", "device")}
         print(f"programs_left: {label} {' '.join(which)}: {report[label]['s']:.1f} s, "
@@ -2437,7 +2613,7 @@ def train_phase(torch, card):
     print(f"pipeline: {TRAIN_CLIPS} clips of {TRAIN_SECONDS:g} s x 2 stretches, launches "
           f"{pipe_counts}; time {pipe_s:.3f} s wall, {pipe_s / TRAIN_CLIPS:.3f} s a clip "
           f"(on the card: features; on the host: BVH/WAV reading, the cubic time-stretch), {card}")
-    if pipe_counts != {"decoder_rollout": 0, "gru_cell": 0, "mel_spectrogram": n_aug}:
+    if pipe_counts != launch_counts(mel_spectrogram=n_aug):
         fail(f"pipeline launches {pipe_counts}, expected {n_aug} mel launches")
     # the mel kernel against its plain chain on each input the pipeline gave it
     mel_err, frames = 0.0, []
@@ -2481,8 +2657,9 @@ def train_phase(torch, card):
           f"batch {first.opts.train.batchsize}, window {first.opts.train.window}), "
           f"{len(first.ds)} windows; every one of {n_params} parameters got a finite nonzero "
           f"gradient in the first step; losses {[round(s['loss'], 4) for s in steps]}")
-    if any(sum(s["launches"].values()) for s in steps):
-        fail(f"a train step launched a kernel: {[s['launches'] for s in steps]}")
+    per_step = launch_counts(decoder_train=bptt_launches(first.ds.window - 1))
+    if any(s["launches"] != per_step for s in steps):
+        fail(f"train steps launched {[s['launches'] for s in steps]}, expected {per_step} each")
     if len(synth) != 1 or not synth_counted(synth[0]):
         fail(f"sample synthesis: {synth}")
     samples = sorted((root / "run" / "logs" / "samples").glob("*.bvh"))
@@ -2895,7 +3072,7 @@ def reference_checkpoints(torch, card):
           f"array for array; 10 s request from the .pt directory: launches {counts['pt']} "
           f"(.npz directory {counts['npz']}), CLI wall {wall['pt']:.3f} s (pipeline load "
           f"included); BVH text identical {same}; compare --json {report}")
-    expected = {"decoder_rollout": 1, "gru_cell": 0, "mel_spectrogram": 1}
+    expected = launch_counts(decoder_rollout=1, mel_spectrogram=1)
     errors = [report.get(k) for k in ("rotation_mae_deg", "position_mae",
                                       "joint_position_error_max")]
     if counts["pt"] != expected or counts["npz"] != expected:
@@ -3275,7 +3452,7 @@ def v2_labels(torch, card, results):
           f"(client); an unknown label: HTTP {refused}, {card}")
     if not (refused == 400 and frames == round(60 * CLIPS["clip_04s"])
             and np.isfinite(anim["rotations"]).all()
-            and counts["serve"] == {"decoder_rollout": 1, "gru_cell": 0, "mel_spectrogram": 1}):
+            and counts["serve"] == launch_counts(decoder_rollout=1, mel_spectrogram=1)):
         fail(f"v2 labels daemon: refused {refused}, {frames} frames, launches {counts['serve']}")
     return dict(launches=counts, card_vs_cpu_mae=maes, stream=times, serve_ms=serve_ms)
 
@@ -3304,8 +3481,7 @@ def v2_training(torch, card, train_root):
     labels = json.loads((processed / "data_definition.json").read_text())["label_names"]
     print(f"v2 pipeline ({conf['info_filename']} -> {conf['processed_data_path']}): labels "
           f"{labels}, launches {pipe_counts}, {pipe_s:.3f} s wall, {card}")
-    if len(labels) < 3 or pipe_counts != {"decoder_rollout": 0, "gru_cell": 0,
-                                          "mel_spectrogram": TRAIN_CLIPS * 2}:
+    if len(labels) < 3 or pipe_counts != launch_counts(mel_spectrogram=TRAIN_CLIPS * 2):
         fail(f"v2 pipeline: labels {labels}, launches {pipe_counts}")
 
     v2 = json.loads((ROOT / "configs" / "configs_v2.json").read_text())
@@ -3625,7 +3801,7 @@ def quality(torch, card, train_root):
           f"{seconds['cpu']:.3f} s, {card}")
     if bad or gates[0] != gates[1]:
         fail(f"quality: the card's report differs from the CPU's: {bad}, gates {gates}")
-    expected = {"decoder_rollout": 0, "gru_cell": steps + programs, "mel_spectrogram": 0}
+    expected = launch_counts(gru_cell=steps + programs)
     if (counts["cuda"] != expected or counts["cuda_again"] != expected or any(
             counts["cpu"].values()) or counts["cuda_eager"]["gru_cell"] != steps
             or graphed_vs_eager > GRAPH_MAE or reports["cuda_again"] != a):
@@ -3676,6 +3852,7 @@ def main():
         floor = barrier_floor(torch, card, report["bfloat16"]["T1"])
         gru = check_gru_cell(torch, card)
         mel = check_mel(torch, card)
+        bptt = check_decoder_train(torch, card)
     done("fixture_and_kernels")
     n = len(CLIPS)
     csv_counts = run_cli_path(torch, results, "main path (CSV, bf16)", [],
@@ -3849,6 +4026,20 @@ def main():
                             for k in ("serve", "streaming")},
          "launches_train_anneal_corpus": left["train_anneal"]["launches"]["mel_spectrogram"],
          "launches_quickstart": left["quickstart"]["launches"]["mel_spectrogram"]},
+        {"name": "decoder_train", "route": "cuda",
+         "source": "zeggs_tpu_torch/csrc/decoder_train.cu", "replaces": None,
+         "launches": trained["launches_per_step"]["decoder_train"],
+         "max_abs_err": bptt["err"], "tol": DT_TOL,
+         **{k: bptt["frame"][k] for k in ("ms", "plain_ms", "bound_ms")}, "bound_by": "bytes",
+         "library_ms": None, "shape": dict(zip(("batch", "hidden", "joints"), DT_SHAPE)),
+         "frame": list(DT_FRAME),
+         "by_kernel": {k: v for k, v in bptt.items() if k not in ("err", "frame")},
+         "launches_bench_train": bench["launches"]["train"]["decoder_train"],
+         "launches_train_anneal": left["train_anneal"]["launches"]["decoder_train"],
+         "launches_train_curve": left["train_curve"]["launches"]["decoder_train"],
+         "launches_grad_profile": left["grad_profile"]["launches"]["decoder_train"],
+         "launches_train_step_profile":
+             left["train_step_profile"]["launches"]["decoder_train"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

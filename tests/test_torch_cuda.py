@@ -44,6 +44,7 @@ import torch
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.models import pose as P
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
+from zeggs_tpu_torch.ops.kernels import decoder_train as DB
 from zeggs_tpu_torch.config import MelConfig
 from zeggs_tpu_torch.ops import mel as M
 from zeggs_tpu_torch.ops.kernels import gru_cell as GC
@@ -619,14 +620,17 @@ def _step(opts, stats, parents, batch, dims, lengths, dev, generator=None, frame
 
 @pytest.mark.parametrize("rnn_cond", ["normal", "film"])
 def test_train_step_gradients_match_the_cpu(device, rnn_cond):
-    """One deterministic small-width step on the card against the CPU, and
-    no kernel launch inside it."""
+    """One deterministic small-width step on the card against the CPU; no
+    inference kernel launches inside it, and the ``normal`` cell's rollout
+    runs the training rollout's kernels on the card (none on the CPU)."""
     case = _train_case(rnn_cond)
     grads = {}
     for dev in ("cpu", device):
         counts = (GC.launches, MK.launches, DR.launches)
+        bptt = DB.launches
         grads[str(dev)] = _step(*case, dev)[1]
         assert (GC.launches, MK.launches, DR.launches) == counts
+        assert (DB.launches > bptt) == (dev == device and rnn_cond == "normal")
     for k, g in grads["cpu"].items():
         assert (grads["cuda"][k] - g).abs().max().item() <= 1e-4 * max(1.0, g.abs().max().item()), k
 

@@ -44,7 +44,7 @@ TINY_JOINTS = 8
 REPO = Path(__file__).resolve().parents[2]
 CORPUS_ROOT = REPO / "build" / "bench" / "corpus"
 #: the kernels of the port, by their launch counters
-KERNELS = ("decoder_rollout", "gru_cell", "mel_spectrogram")
+KERNELS = ("decoder_rollout", "decoder_train", "gru_cell", "mel_spectrogram")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,10 +256,11 @@ def device_summary(device="cuda"):
 
 def _counters():
     from ..ops.kernels import decoder_rollout as DR
+    from ..ops.kernels import decoder_train as DT
     from ..ops.kernels import gru_cell as GC
     from ..ops.kernels import mel as MK
 
-    return dict(zip(KERNELS, (DR, GC, MK)))
+    return dict(zip(KERNELS, (DR, DT, GC, MK)))
 
 
 def reset_counts():

@@ -44,7 +44,7 @@ from . import fixture as FX
 
 #: the kernels the stage's path must launch on a card: the mel kernel a
 #: request, the GRU cell in batched chunks, the decoder at B=1
-REQUIRED = FX.KERNELS
+REQUIRED = ("decoder_rollout", "gru_cell", "mel_spectrogram")
 
 
 def main(argv=None):

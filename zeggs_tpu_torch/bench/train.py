@@ -21,9 +21,10 @@ XLA's compile and first call); ``eager_step_ms_median`` (the plain eager
 step, `train.loop.make_train_step`, on a copy of the state, timed in turns
 with as many replays); the graphs' pool memory and kernel counts, and the
 card's busy share over ``--busy-replays`` replays (`torch.profiler`). XLA's
-``compile_cache`` and ``aot*`` keys have no counterpart. A train step
-launches none of the port's kernels (they raise under autograd). Prints
-one JSON line; exits 1 if a loss is not finite.
+``compile_cache`` and ``aot*`` keys have no counterpart. At float32 a
+train step launches the training rollout's kernels (``decoder_train`` in
+``launches``) and none of the inference kernels, which raise under
+autograd. Prints one JSON line; exits 1 if a loss is not finite.
 """
 
 from __future__ import annotations

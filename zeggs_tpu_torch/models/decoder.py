@@ -12,10 +12,15 @@ devectorize_output and feeds the integrated pose back.
   of every step is one launch of the GRU-cell CUDA kernel
   (`ops/kernels/gru_cell.py`) on a card, its plain version on the CPU;
   ``quantize_int8`` runs the step's products on int8 values instead. Where
-  autograd records (a training step), every step is the plain
-  differentiable math over the live parameters, with the products in
-  ``compute_dtype``. `chunk_step` gives that step and the hoisted
-  products; `infer/programs.py` replays the step from CUDA graphs.
+  autograd records (a training step) at float32 compute, without remat
+  and with every trajectory asked for, the whole window is one autograd
+  Function with its backward through time written by hand
+  (`ops/kernels/decoder_train.py`: CUDA step kernels on a card, their
+  plain versions on the CPU). Under other options (bfloat16 compute,
+  remat) every step is the plain differentiable math over the live
+  parameters, with the products in ``compute_dtype``. `chunk_step` gives
+  that step and the hoisted products; `infer/programs.py` replays the
+  inference step from CUDA graphs.
 ``film``: style enters only through per-layer (gamma, beta) modulation and
   the GRU input is [hidden | pose | speech]; always the eager plain step,
   at every batch size, as in the reference.
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import decoder_rollout as DR
+from ..ops.kernels import decoder_train as DT
 from ..ops.kernels import gru_cell as GC
 from . import layers as L
 from . import pose as P
@@ -216,7 +222,8 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
             gi = g0_t + hidden @ wg_h.T + pose_c @ wg_pose.T
             h0_new = L.gru_gates(gi, F.linear(h0, whh0, bhh0), h0)
             h1_new = gru1_step(h0_new, h1)
-            return h0_new.float(), h1_new.float(), F.linear(h1_new, w_out, b_out).float()
+            sd = pose.dtype  # the state's dtype
+            return h0_new.to(sd), h1_new.to(sd), F.linear(h1_new, w_out, b_out).to(sd)
 
     def step(gaze_t, l0_t, g0_t, h0, h1, rp, rr, rv, rw, jp, jt, jv, jw):
         pose = P.vectorize_input(rp, rr, rv, rw, jp, jt, jv, jw, gaze_t,
@@ -236,10 +243,13 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
     from ``carry``; each column of the (B, n, ...) conditioning is one step.
     Returns (new_carry, trajectories (B, n, ...)).
 
-    Where autograd records on the decoder's parameters, or ``compute_dtype``
-    is not float32, every step is the differentiable plain math of the
-    reference's scan: products in ``compute_dtype`` over the live
-    parameters, states and pose integration in float32. ``remat``
+    Where autograd records on the decoder's parameters at float32 compute,
+    without ``remat`` or ``output_indices``, the window runs as
+    `ops.kernels.decoder_train.DecoderBPTT` (the same math, backward
+    through time written by hand). Otherwise, where autograd records or
+    ``compute_dtype`` is not float32, every step is the differentiable
+    plain math of the reference's scan: products in ``compute_dtype`` over
+    the live parameters, states and pose integration in float32. ``remat``
     recomputes each step in the backward pass instead of storing it.
     Otherwise (inference) GRU1 runs through the GRU-cell kernel, one eager
     launch a step; `infer/programs.py` replays the same step from CUDA
@@ -254,6 +264,12 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
         dec, anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
         carry[5].shape[1], quantize_int8, compute_dtype)
     pre_l0, pre_g0 = conditioning(speech_encoding, style_encoding)
+    # autograd records on the decoder (``plain`` at float32 compute), no
+    # remat, every trajectory asked for
+    if (plain and compute_dtype == torch.float32 and not remat and output_indices is None
+            and speech_encoding.shape[1] > 0):
+        return DT.rollout_bptt(dec.cell, carry, gaze_pos, pre_l0, pre_g0, anim_input_mean,
+                               anim_input_std, anim_output_mean, anim_output_std, dt)
     h, *pose_state = carry
     # the cell-state encoder's h is a transposed view
     state = (h[0], h[1].contiguous(), *pose_state)

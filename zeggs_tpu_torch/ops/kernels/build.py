@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every csrc/<name>.cu of the port
-KERNELS = ("decoder_rollout", "gru_cell", "mel_spectrogram")
+KERNELS = ("decoder_rollout", "decoder_train", "gru_cell", "mel_spectrogram")
 _load_lock = threading.Lock()
 
 

@@ -20,6 +20,7 @@ import torch
 
 from ..bench import fixture as FX
 from ..bench.train import graph_kernels
+from ..ops.kernels import decoder_train as DT
 from ..ops.kernels import gru_cell as GC
 
 WARMUP = 2
@@ -87,8 +88,8 @@ class Graphed:
     `torch.Generator` on the card that ``fn`` draws from, registered with
     the graph. Calling the object replays the graph and returns ``fn``'s
     outputs of the capture (overwritten by every replay); each replay
-    counts the GRU-cell launches it captured. ``kernels``: the graph's
-    kernel nodes."""
+    counts the GRU-cell launches and the training rollout's launches and
+    passes it captured. ``kernels``: the graph's kernel nodes."""
 
     def __init__(self, fn, device, what, generator=None):
         side = torch.cuda.Stream(device)
@@ -96,7 +97,7 @@ class Graphed:
         with torch.cuda.stream(side):
             fn()
         torch.cuda.synchronize(device)
-        captured = GC.captured_launches()
+        captured, bptt = GC.captured_launches(), DT.captured(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
             graph.register_generator_state(generator)
@@ -115,11 +116,13 @@ class Graphed:
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = graph
         self.gru_launches = GC.captured_launches() - captured
+        self.bptt_counts = DT.captured(side) - bptt
         self.kernels = graph_kernels(graph)[0]
 
     def __call__(self):
         self.graph.replay()
         GC.count_replay(self.gru_launches)
+        DT.count_replay(self.bptt_counts)
         return self.outs
 
 

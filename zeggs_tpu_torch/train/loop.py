@@ -6,11 +6,13 @@ checkpoints at ``generate_samples_step`` (the latest at the models
 directory's root and one a checkpointed iteration) and ground/predict BVH
 sample pairs. `make_train_step` is the plain eager step; `Trainer` runs the
 same step as a `train.programs.TrainProgram`, replayed from CUDA graphs on
-a card. Either way the decoder rollout runs the differentiable plain step
-(`models.decoder.rollout_chunk` under autograd) and launches no CUDA kernel
-of the port; the GRU-cell kernel runs only in sample synthesis, which is
-inference: the ``normal`` cell's rollouts there replay the rollout programs
-of `infer/programs.py` (a cache of them made for each synthesis, so that
+a card. Either way the decoder rollout runs under autograd
+(`models.decoder.rollout_chunk`): at float32 without remat as one
+autograd Function with the step kernels of `ops/kernels/decoder_train.py`
+(their plain versions on the CPU), else as the differentiable plain step.
+The GRU-cell kernel runs only in sample synthesis, which is inference:
+the ``normal`` cell's rollouts there replay the rollout programs of
+`infer/programs.py` (a cache of them made for each synthesis, so that
 none outlives a weight update), the FiLM cell's run eagerly (programs run
 the ``normal`` cell only).
 
