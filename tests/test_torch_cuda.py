@@ -30,7 +30,8 @@ cannot be captured; sample synthesis after a train step replays the new
 weights. Generation from the reference's `.pt` pickles writes the same BVH
 text as from the `.npz` files; Griffin-Lim on the card against the CPU from
 the same first signal: relative L2 error 1e-4 (tests/test_torch_misc.py's
-bound); one NCCL process comes up on the card. The profilers capture every
+bound); a job's first poses featurized in one pass equal each clip
+featurized alone, bit for bit; one NCCL process comes up on the card. The profilers capture every
 section as a CUDA graph of kernels and raise where a section cannot be
 captured; the B=1 profile launches all three of its paths' kernels, its
 scan equal to the eager rollout within 1e-6; the roofline counts the v1
@@ -1239,6 +1240,36 @@ def test_griffin_lim_on_the_card_matches_the_cpu(device):
     y = M.griffin_lim(mag, cfg.hop_length, 800, 30, signal=signal).cpu().numpy()
     ref = M.griffin_lim(mag.cpu(), cfg.hop_length, 800, 30, signal=signal).numpy()
     assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-4
+
+
+def _motion75(nframes, seed):
+    """A 75-joint BVH dict (the featurizer's spine names, then a bushy tree)
+    of sinusoidal joint rotations and a root walking along x."""
+    rng = np.random.default_rng(seed)
+    names = ["Hips", "Spine", "Spine1", "Spine2", "Spine3", "Neck", "Head"]
+    names += [f"Joint{i}" for i in range(len(names), 75)]
+    parents = [-1] + [i - 1 if i < 7 else (i - 1) % 7 for i in range(1, 75)]
+    t = np.linspace(0, 2 * np.pi, nframes)[:, None, None]
+    rotations = rng.uniform(3, 20, (1, 75, 3)) * np.sin(2 * t + rng.uniform(0, 6.3, (1, 75, 3)))
+    positions = np.repeat(rng.uniform(-8, 8, (1, 75, 3)), nframes, axis=0)
+    positions[:, 0] = [0.0, 95.0, 0.0]
+    positions[:, 0, 0] += np.linspace(0, 20, nframes)
+    return {"rotations": rotations.astype(np.float32), "positions": positions.astype(np.float32),
+            "parents": np.asarray(parents, np.int32), "names": names, "order": "zyx",
+            "frametime": 1.0 / 60.0}
+
+
+def test_batched_first_poses_on_the_card_equal_each_clip_alone(device):
+    """A job's first poses (75 joints; 20 clips of 64 frames and 3 of 80) in
+    one pass a frame count equal each clip featurized alone on the card."""
+    from zeggs_tpu_torch.data import features as F
+
+    anims = [_motion75(64 if i < 20 else 80, i) for i in range(23)]
+    batched = F.preprocess_animations(anims, device=device)
+    for anim, ours in zip(anims, batched):
+        alone = F.preprocess_animation(anim, device=device)
+        for name, a in vars(alone).items():
+            assert torch.equal(a, getattr(ours, name)), name
 
 
 def test_one_nccl_process_on_the_card(device, monkeypatch):

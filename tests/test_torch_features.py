@@ -8,6 +8,7 @@ displacements (velocity * dt), in the positions' units, at the same 1e-4.
 """
 
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -78,12 +79,60 @@ def test_preprocess_animation_matches_jax(nframes):
         np.testing.assert_allclose(b * scale, a * scale, atol=1e-4, rtol=0, err_msg=f.name)
 
 
+def _wrapping(nframes, seed):
+    """A clip whose joint 1 turns from 150 to 210 degrees about z: its Euler
+    angle wraps from +180 to -180 there, the quaternions change sign, and
+    `quat.unroll` flips every frame after the wrap."""
+    anim = make_motion(nframes, seed=seed)
+    anim["rotations"][:, 1, 0] = (np.linspace(150.0, 210.0, nframes) + 180.0) % 360.0 - 180.0
+    return anim
+
+
+# name -> clips, as (frame count, seed, made by)
+MIXES = {
+    "equal_lengths": [(64, 1, make_motion), (64, 2, make_motion), (64, 3, make_motion)],
+    "two_lengths": [(64, 1, make_motion), (80, 2, make_motion), (64, 3, make_motion),
+                    (80, 4, make_motion), (80, 5, make_motion)],
+    "one_clip": [(64, 6, make_motion)],
+    "unroll_flips": [(64, 7, make_motion), (64, 8, _wrapping), (64, 9, make_motion)],
+}
+
+
+@pytest.mark.parametrize("mix", list(MIXES))
+def test_batched_animations_equal_each_clip_alone(mix, monkeypatch):
+    """`preprocess_animations` over a mix of clips gives each clip every
+    field `preprocess_animation` gives it alone, bit for bit, in one pass a
+    group of clips of one frame count."""
+    anims = [made(n, seed) for n, seed, made in MIXES[mix]]
+    if mix == "unroll_flips":
+        from zeggs_tpu_torch.ops import quat as tq
+
+        q = tq.from_euler(torch.deg2rad(torch.as_tensor(anims[1]["rotations"])), "zyx")
+        assert not torch.equal(tq.unroll(q), q)
+    passes, extract = [], TF.extract_anim_features
+
+    def counted(rotations_deg, *args, **kwargs):
+        passes.append(len(rotations_deg))
+        return extract(rotations_deg, *args, **kwargs)
+
+    monkeypatch.setattr(TF, "extract_anim_features", counted)
+    batched = TF.preprocess_animations(anims, device="cpu")
+    assert sorted(passes) == sorted(Counter(n for n, *_ in MIXES[mix]).values())
+    assert len(batched) == len(anims)
+    for anim, ours in zip(anims, batched):
+        alone = TF.preprocess_animation(anim, device="cpu")
+        for f in dataclasses.fields(alone):
+            a, b = getattr(alone, f.name), getattr(ours, f.name)
+            assert a.shape == b.shape and a.shape[0] == len(anim["rotations"]), f.name
+            assert torch.equal(a, b), f.name
+
+
 def test_gaze_median_averages_the_middle_pair():
     """An even frame count: the gaze point is the mean of the two middle
     values, as jnp.median gives (torch.median would take the lower)."""
-    x = torch.tensor([[1.0], [4.0], [2.0], [3.0]])
+    x = torch.tensor([[[1.0], [4.0], [2.0], [3.0]]])  # one clip of 4 frames
     assert TF._median_time(x).item() == 2.5
-    assert TF._median_time(x[:3]).item() == 2.0
+    assert TF._median_time(x[:, :3]).item() == 2.0
 
 
 @pytest.mark.parametrize("featurizer", ["audio", "animation", "anim_features"])

@@ -4,7 +4,8 @@ the CPU, and the train program's replay counters on a card (``-m cuda``).
 * `generate_batch` at a narrow width (8 joints, tests/synthetic.py) under
   `torch.profiler`: every span of the batch orchestration and of the
   rollout and finish programs, nested in ``zeggs:batch``; one
-  ``zeggs:batch.prepare#<file_name>`` a request; the counters' deltas as
+  ``zeggs:batch.prepare#<file_name>`` a request, and the first poses
+  featurized after them in one pass; the counters' deltas as
   `plan_programs` and the clip lengths give them.
 * Under `profiling.trace`, the BVH writer threads' spans reach
   ``trace.json`` where the installed torch traces every thread.
@@ -29,7 +30,7 @@ from zeggs_tpu_torch.utils import profiling
 
 BUCKET, MAX_BATCH, NFRAMES = 64, 2, 150
 BATCH_SPANS = ["zeggs:batch", "zeggs:batch.featurize", "zeggs:batch.audio",
-               "zeggs:batch.style_example", "zeggs:batch.first_pose",
+               "zeggs:batch.style_example", "zeggs:batch.first_pose", "zeggs:batch.first_poses#1",
                "zeggs:batch.encode_styles", "zeggs:batch.assemble", "zeggs:batch.dispatch",
                "zeggs:batch.collect", "zeggs:batch.wait_writes", "zeggs:program.rollout",
                "zeggs:program.finish"]
@@ -92,12 +93,26 @@ def test_generate_batch_spans_nest_and_counters_add_up(corpus, tmp_path):
     assert len(plan) == 2  # distinct shapes: one entry a chunk
     for stage in ("assemble", "dispatch", "collect"):
         assert names.count(f"zeggs:batch.{stage}") == len(plan)
+    # the posed request's BVH is parsed inside its prepare span; its FK runs
+    # in the job's one pass over first poses, after every request's span
     assert names.count("zeggs:batch.first_pose") == 1
+    assert [n for n in names if n.startswith("zeggs:batch.first_poses")] == [
+        "zeggs:batch.first_poses#1"]
+    (_, p0, p1, _), = [e for e in spans if e[0] == "zeggs:batch.first_pose"]
+    (_, q0, q1, _), = [e for e in spans if e[0] == "zeggs:batch.first_poses#1"]
+    (_, r0, r1, _), = [e for e in spans if e[0] == "zeggs:batch.prepare#posed"]
+    assert r0 <= p0 and p1 <= r1
+    assert all(e <= q0 for n, _, e, _ in spans if n.startswith("zeggs:batch.prepare#"))
+    crosses = [s for n, s, _, _ in _events(prof) if n == "aten::linalg_cross"]
+    assert not any(p0 <= s <= p1 for s in crosses)
+    assert any(q0 <= s <= q1 for s in crosses)
     assert names.count("zeggs:batch.style_example") == 5
     delta = _delta(before)
     assert delta["batch.clips"] == len(reqs)
     assert delta["batch.frames"] == sum(lengths) == len(reqs) * NFRAMES
     assert delta["batch.frames_rolled"] == sum(T * B for T, B in plan)
+    assert delta["batch.first_poses"] == sum(r.first_pose is not None for r in reqs) == 1
+    assert delta["batch.first_pose_passes"] == 1
     # five BVH styles over three clips: each clip featurized once
     assert (delta["style_cache.misses"], delta["style_cache.hits"]) == (3, 2)
     assert delta.get("programs.captures", 0) == 0  # the CPU captures nothing

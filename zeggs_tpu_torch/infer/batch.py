@@ -101,8 +101,10 @@ def _round_up(n, m):
 
 def _prepare(pipe, req: Request):
     """Per-request preparation (counterpart of `_prepare_host`): audio
-    features, style-encode jobs (deferred to one batched call), first pose.
-    The request's generator is seeded as `generate_gesture` seeds its own."""
+    features, style-encode jobs (deferred to one batched call), the style
+    example's features and the parsed first-pose BVH (featurized later,
+    with the job's other first poses: `_first_poses`). The request's
+    generator is seeded as `generate_gesture` seeds its own."""
     with profiling.annotate("zeggs:batch.audio"):
         audio_features, n_frames = pipe.audio_to_features(req.audio)
     generator = torch.Generator(device=pipe.device)
@@ -119,13 +121,32 @@ def _prepare(pipe, req: Request):
                                                    device=pipe.device)[None]))
         else:  # a label
             specs.append(("const", pipe.label_encoding(style)))
+    pose = None
     if req.first_pose is not None:
         with profiling.annotate("zeggs:batch.first_pose"):
-            feats = F.preprocess_animation(bvh.load(req.first_pose), device=pipe.device)
-    if feats is None:
+            pose = bvh.load(req.first_pose)
+    elif feats is None:
         raise ValueError(f"{req.file_name}: no first pose available: give first_pose or a BVH "
                          "style example")
-    return audio_features, n_frames, specs, jobs, feats
+    return audio_features, n_frames, specs, jobs, feats, pose
+
+
+def _first_poses(pipe, poses):
+    """Featurize the requests' parsed first poses (None where a request has
+    none), one `F.preprocess_animations` pass a group of clips that stack
+    (`F.anim_groups`) -> an `AnimFeatures` or None a request."""
+    posed = [i for i, pose in enumerate(poses) if pose is not None]
+    anims = [poses[i] for i in posed]
+    groups = F.anim_groups(anims)
+    out = [None] * len(poses)
+    for group in groups:
+        with profiling.annotate("zeggs:batch.first_poses", len(group)):
+            feats = F.preprocess_animations([anims[k] for k in group], device=pipe.device)
+        for k, f in zip(group, feats):
+            out[posed[k]] = f
+    profiling.count("batch.first_poses", len(posed))
+    profiling.count("batch.first_pose_passes", len(groups))
+    return out
 
 
 def _blend(req: Request, encodings, n_frames):
@@ -414,13 +435,17 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
     every BVH is written.
 
     Spans (`utils/profiling.py`): ``zeggs:batch`` the call; inside it
-    ``zeggs:batch.featurize`` the requests' featurization, one
+    ``zeggs:batch.featurize`` the requests' featurization: one
     ``zeggs:batch.prepare#<file_name>`` a request (``.audio``,
-    ``.style_example``, ``.first_pose`` inside), ``.encode_styles``, then a
-    chunk's ``.assemble``, ``.dispatch`` and ``.collect``, and the final
-    ``.wait_writes``; ``zeggs:batch.write#<file_name>`` on a writer thread.
-    Counters: ``batch.clips``, ``batch.frames`` (the requests' frames) and
-    ``batch.frames_rolled`` (B_pad x T_pad of every chunk)."""
+    ``.style_example``, ``.first_pose`` (the BVH parse) inside), then one
+    ``zeggs:batch.first_poses#<clips>`` a pass over first poses that stack;
+    ``.encode_styles``, then a chunk's ``.assemble``, ``.dispatch`` and
+    ``.collect``, and the final ``.wait_writes``;
+    ``zeggs:batch.write#<file_name>`` on a writer thread. Counters:
+    ``batch.clips``, ``batch.frames`` (the requests' frames),
+    ``batch.frames_rolled`` (B_pad x T_pad of every chunk),
+    ``batch.first_poses`` (first poses featurized) and
+    ``batch.first_pose_passes`` (their passes)."""
     with profiling.annotate("zeggs:batch"):
         return _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh,
                                write_workers, resolve_batch_pad(batch_pad))
@@ -431,11 +456,14 @@ def _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh, write
     results_path = Path(results_path)
     results_path.mkdir(parents=True, exist_ok=True)
 
-    prepped = []
+    prepped, poses = [], []
     with profiling.annotate("zeggs:batch.featurize"):
         for req in requests:
             with profiling.annotate("zeggs:batch.prepare", req.file_name):
-                prepped.append((req, *_prepare(pipe, req)))
+                *prep, pose = _prepare(pipe, req)
+            prepped.append((req, *prep))
+            poses.append(pose)
+        first = _first_poses(pipe, poses)
     all_jobs, offsets = [], []
     for (_, _, _, _, jobs, _) in prepped:
         offsets.append(len(all_jobs))
@@ -444,9 +472,10 @@ def _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh, write
         encoded = pipe.encode_styles_batch(all_jobs)
 
     buckets = {}
-    for (req, af, n, specs, _, feats), off in zip(prepped, offsets):
+    for (req, af, n, specs, _, example), pose_feats, off in zip(prepped, first, offsets):
         encs = [encoded[off + s[1]] if s[0] == "job" else s[1] for s in specs]
         style = _blend(req, encs, n)[0]  # (C,) or (n, C)
+        feats = example if pose_feats is None else pose_feats
         state = tuple(getattr(feats, a)[0] for a in _STATE0)
         item = (req, af, n, style, state, feats.gaze_pos[0])
         buckets.setdefault(max(bucket, _round_up(n, bucket)), []).append(item)

@@ -260,12 +260,14 @@ def from_xform(ts, eps=1e-10):
     return torch.where((~pos & c2)[..., None], q_z, qs)
 
 
-def unroll(x):
-    """Hemisphere-align a quaternion track over its leading (time) axis:
+def unroll(x, axis=0):
+    """Hemisphere-align a quaternion track over its time axis ``axis``:
     frame t flips exactly when its dot product with the aligned frame t-1
-    is negative. A loop over frames, vectorised over the other axes."""
+    is negative. A loop over frames, vectorised over the other axes (a
+    stack of clips' tracks runs in one loop)."""
+    x = x.movedim(axis, 0)
     out = [x[0]]
     for t in range(1, x.shape[0]):
         d = torch.sum(x[t] * out[-1], dim=-1, keepdim=True)
         out.append(torch.where(d < 0.0, -x[t], x[t]))
-    return torch.stack(out, dim=0)
+    return torch.stack(out, dim=axis)
