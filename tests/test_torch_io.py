@@ -21,6 +21,7 @@ from zeggs_tpu.io import checkpoint as jax_checkpoint
 from zeggs_tpu.io import wav as jax_wav
 from zeggs_tpu_torch.audio import loudness
 from zeggs_tpu_torch.io import bvh, checkpoint, native, wav
+from zeggs_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -75,6 +76,100 @@ def test_native_parser_builds_into_the_build_directory():
         pytest.skip("no host C++ compiler")
     assert native.parse_float_matrix("1 2 3\n4 5 6\n").tolist() == [[1, 2, 3], [4, 5, 6]]
     assert list(native._BUILD_DIR.glob("libfastparse_*.so"))
+
+
+def _need_native():
+    if not native.available():
+        pytest.skip("no host C++ compiler")
+
+
+def _edge_values():
+    """Values where integer-digit '%f' could part from snprintf's: signed
+    zeros and tiny negatives, sixth-decimal ties (odd multiples of 2^-7),
+    both sides of the 9e12 fast-path limit, the extremes, the wide values
+    snprintf once truncated, NaN of either sign and the infinities."""
+    f32 = np.finfo(np.float32)
+    ties = np.arange(1, 256, 2, dtype=np.float32) / 128
+    limit = np.float32(9e12)
+    below = [np.nextafter(limit, np.float32(0))]
+    above = [limit]
+    for _ in range(2):
+        below.append(np.nextafter(below[-1], np.float32(0)))
+        above.append(np.nextafter(above[-1], np.float32(np.inf)))
+    with np.errstate(invalid="ignore"):
+        computed_nan = np.float32(0) / np.float32(0)  # the sign bit set, on x86
+    special = np.array([0.0, -0.0, 1e-9, -1e-9, 4e-7, 5e-7, -5e-7, f32.tiny, -f32.tiny,
+                        f32.smallest_subnormal, f32.max, -f32.max, 1e24, -1e24, -3e38,
+                        np.nan, -np.nan, computed_nan, np.inf, -np.inf], np.float32)
+    return np.concatenate([ties, -ties, ties + 1000, 65535 + ties[:9], below, above,
+                           np.negative(above), special]).astype(np.float32)
+
+
+def _assert_same_text(got, want):
+    if got != want:
+        rows = list(zip(got.splitlines(), want.splitlines()))
+        first = next((i for i, (a, b) in enumerate(rows) if a != b), len(rows))
+        pytest.fail(f"{len(got)} / {len(want)} bytes; first differing row {first}: "
+                    f"{rows[first] if first < len(rows) else 'past the end'}")
+
+
+@pytest.mark.parametrize("draw", ["finite_bit_patterns", "uniform_360"])
+def test_native_formatter_equals_percent_f(draw):
+    """The integer-digit formatter writes what Python's '%f' writes, byte for
+    byte, over a million float32 values."""
+    _need_native()
+    rng = np.random.default_rng(20)
+    if draw == "finite_bit_patterns":
+        v = rng.integers(0, 2**32, 1_100_000, dtype=np.uint64).astype(np.uint32).view(np.float32)
+        v = v[np.isfinite(v)][:1_000_000]
+    else:
+        v = rng.uniform(-360, 360, 1_000_000).astype(np.float32)
+    m = v.reshape(-1, 8)
+    _assert_same_text(bytes(native.format_float_matrix(m)), bvh._motion_text(m))
+
+
+def test_native_formatter_edge_values():
+    _need_native()
+    m = _edge_values().reshape(1, -1)
+    got = bytes(native.format_float_matrix(m))
+    _assert_same_text(got, bvh._motion_text(m))
+    assert b"\0" not in got
+    assert got.split()[-5:] == [b"nan", b"nan", b"nan", b"inf", b"-inf"]
+    for v, text in ((-0.0, b"-0.000000"), (-1e-9, b"-0.000000"), (2**-7, b"0.007812"),
+                    (3 * 2**-7, b"0.023438"), (5e-7, b"0.000000"), (-3e38,
+                    b"-300000000549775575777803994281145270272.000000")):
+        assert bytes(native.format_float_matrix(np.float32([[v]]))) == text + b"\n", v
+
+
+def test_bvh_save_edge_values_same_file_with_and_without_the_native_formatter(
+        tmp_path, monkeypatch):
+    _need_native()
+    anim = _anim(seed=4)
+    edges = _edge_values()
+    anim["rotations"].reshape(-1)[:len(edges)] = edges
+    anim["positions"][:, 0].reshape(-1)[:9] = edges[-9:]
+    bvh.save(tmp_path / "native.bvh", anim)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    bvh.save(tmp_path / "numpy.bvh", anim)
+    _assert_same_text((tmp_path / "native.bvh").read_bytes(),
+                      (tmp_path / "numpy.bvh").read_bytes())
+
+
+def test_native_formatter_counts_values_and_fallbacks(tmp_path):
+    _need_native()
+
+    def counted(run):
+        before = profiling.counters()
+        run()
+        after = profiling.counters()
+        return tuple(after.get(k, 0) - before.get(k, 0)
+                     for k in ("bvh.values_formatted", "bvh.values_fallback"))
+
+    m = np.float32([[1.5, np.nan, -np.inf], [9e12, 1e24, -0.0]])  # float32(9e12) > 9e12
+    assert counted(lambda: native.format_float_matrix(m)) == (6, 4)
+    anim = _anim(seed=5, nframes=30)
+    assert counted(lambda: bvh.save(tmp_path / "a.bvh", anim)) == (30 * (3 + 7 * 3), 0)
 
 
 def test_checkpoints_cross_read_both_ways(tmp_path):

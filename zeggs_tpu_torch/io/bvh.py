@@ -214,9 +214,14 @@ def save(filename, data, translations=False):
 
     body = native.format_float_matrix(motion)
     if body is None:
-        body = "\n".join(" ".join("%f" % v for v in row) for row in motion) + "\n"
+        body = _motion_text(motion)
 
-    with open(filename, "w") as f:
-        f.write("\n".join(lines))
-        f.write("\n")
+    with open(filename, "wb") as f:
+        f.write(("\n".join(lines) + "\n").encode())
         f.write(body)
+
+
+def _motion_text(motion):
+    """The motion block as '%f' rows, in Python: the path without the
+    native formatter, and the text it must equal."""
+    return "".join(" ".join("%f" % v for v in row) + "\n" for row in motion).encode()

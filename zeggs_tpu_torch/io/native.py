@@ -23,6 +23,9 @@ import numpy as np
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "fastparse.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zeggs_tpu_torch"
 _FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+#: bytes a value may take in `format_float_matrix`'s output: the widest
+#: finite float's '%f' (47 characters) and its separator
+_SLOT = 48
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -67,7 +70,7 @@ def _load():
         lib.format_float_matrix.restype = ctypes.c_long
         lib.format_float_matrix.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_long,
-            ctypes.c_char_p, ctypes.c_long,
+            ctypes.c_void_p, ctypes.c_long, ctypes.POINTER(ctypes.c_long),
         ]
         _lib = lib
         return _lib
@@ -99,17 +102,25 @@ def parse_float_matrix(text: str):
 
 
 def format_float_matrix(values):
-    """Format (rows, cols) floats as '%f' rows (the BVH motion block).
-    Returns None when the library is unavailable."""
+    """Format (rows, cols) floats, as float32, in '%f' rows (the BVH motion
+    block): a bytes-like view of the text, or None when the library is
+    unavailable. Counts ``bvh.values_formatted`` and, of them,
+    ``bvh.values_fallback``: those snprintf printed (NaN, infinities,
+    |v| >= 9e12)."""
     lib = _load()
     if lib is None:
         return None
+    # Imported here, not with the module: `utils` imports `io.bvh` and torch.
+    from ..utils import profiling
+
     vals = np.ascontiguousarray(values, np.float32)
     rows, cols = vals.shape
-    cap = rows * cols * 32
-    buf = ctypes.create_string_buffer(cap)
+    out = np.empty(rows * cols * _SLOT, np.uint8)
+    fallback = ctypes.c_long()
     n = lib.format_float_matrix(vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), rows, cols,
-                                buf, cap)
+                                out.ctypes.data, out.size, ctypes.byref(fallback))
     if n < 0:
-        return None
-    return buf.raw[:n].decode()
+        raise RuntimeError(f"format_float_matrix: a buffer of {out.size} bytes is too small")
+    profiling.count("bvh.values_formatted", rows * cols)
+    profiling.count("bvh.values_fallback", fallback.value)
+    return out[:n].data
