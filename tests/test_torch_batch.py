@@ -31,8 +31,7 @@ from zeggs_tpu_torch.infer import generate as G
 from zeggs_tpu_torch.infer.batch import Request, generate_batch
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.ops import quat
-from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
-from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+from zeggs_tpu_torch.ops.kernels import build
 from tests.synthetic import write_corpus
 
 NFRAMES = 150
@@ -184,14 +183,14 @@ def test_int8_pipeline_on_cpu_runs_the_plain_int8_kernel(corpus, monkeypatch):
     pipe = _port(c)
     assert pipe.rollout_weights == "int8" and pipe._fused_fn is not None
     args = _rollout_inputs(pipe, c, 1)
-    launches = DR.launches
+    launches = build.launches()
     with torch.inference_mode():
         out = pipe.rollout_batch(*args)
         ref = D.make_fused_b1_fn(pipe.networks["decoder"], pipe.stats["anim_input_mean"],
                                  pipe.stats["anim_input_std"], pipe.stats["anim_output_mean"],
                                  pipe.stats["anim_output_std"], pipe.dt,
                                  weights_dtype=torch.int8)(*args)
-    assert DR.launches == launches
+    assert build.launches() == launches
     for o, r in zip(out[:3], (ref[0], ref[1], ref[4])):
         torch.testing.assert_close(o, r, rtol=0, atol=0)
     assert all(torch.isfinite(o).all() for o in out)
@@ -205,14 +204,14 @@ def test_batched_rollouts_quantize_from_the_threshold(corpus, monkeypatch, min_b
     pipe = _port(c, rollout_weights="int8")
     state0, gaze, speech, style = _rollout_inputs(pipe, c, 2)
     s = pipe.stats
-    launches = GC.launches
+    launches = build.launches()
     with torch.inference_mode():
         out = pipe.rollout_batch(state0, gaze, speech, style)
         ref = D.rollout(pipe.networks["decoder"], *state0, gaze, speech, style,
                         s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
                         s["anim_output_std"], pipe.dt, output_indices=(0, 1, 4, 5),
                         quantize_int8=quantized)
-    assert GC.launches == launches, "CPU tensors take the GRU cell's plain version"
+    assert build.launches() == launches, "CPU tensors take the GRU cell's plain version"
     for o, r in zip(out[:3], ref[:3]):
         torch.testing.assert_close(o, r, rtol=0, atol=0)
 

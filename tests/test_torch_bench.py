@@ -25,6 +25,7 @@ import torch
 import __graft_entry__ as graft
 from zeggs_tpu_torch.bench import __main__ as orch
 from zeggs_tpu_torch.bench import fixture as FX
+from zeggs_tpu_torch.ops.kernels import build
 
 REPO = Path(__file__).resolve().parents[1]
 #: subprocesses: no card visible, few threads (the suite runs in parallel)
@@ -177,8 +178,8 @@ def test_device_events_reads_the_profilers_raw_events():
 
 def test_missing_launches_on_a_card_only():
     counts = {"decoder_rollout": 3, "decoder_train": 8, "gru_cell": 0, "mel_spectrogram": 5}
-    assert FX.missing_launches(counts, FX.KERNELS, torch.device("cuda")) == ["gru_cell"]
-    assert FX.missing_launches(counts, FX.KERNELS, torch.device("cpu")) == []
+    assert FX.missing_launches(counts, build.KERNELS, torch.device("cuda")) == ["gru_cell"]
+    assert FX.missing_launches(counts, build.KERNELS, torch.device("cpu")) == []
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +270,7 @@ def test_stage_keys_are_the_jax_stages(rehearsal, stage):
     assert "failed" not in out and "watchdog_fired" not in out, out
     assert set(out) == _expected_keys(stage.replace("_bf16", "")), sorted(out)
     assert out["device"]["platform"] == "cpu"
-    assert set(out["launches"]) == set(FX.KERNELS)
+    assert set(out["launches"]) == set(build.KERNELS)
     if stage == "streaming":
         assert set(out["http"]) == set(_r05()["extra"]["streaming"]["http"]) | {"push_n"}
         assert out["frames"] == out["http"]["frames"] == 300  # 5 s at 60 fps

@@ -18,10 +18,18 @@ gradients: per leaf 1e-4 * max(1, max|g|) against the same step on the CPU,
 TF32 off. The GRU cell launched from four threads at once counts every
 launch; `generate_batch` over a mesh (two replicas on one card, and every
 card where there are several) stays within the pose MAE budget of the
-unsharded run. The rollout programs (CUDA graphs of the decoder step)
-equal the eager chunk within 1e-6, count their replays' launches, raise
-where the step cannot be captured, and give the single-thread result when
-two threads replay at once. The train program (CUDA graphs of the train
+unsharded run, its GRU-cell launches counted on the mesh's threads. End to
+end on the card, with every kernel's launches counted (`utils.profiling`'s
+``<kernel>.launches``): the generate CLI's CSV, batched and int8 paths with
+example and label styles, batched requests against single ones; a request
+against the CPU; a streaming session against the offline request; the
+daemon's coalesced /synthesize (also over a mesh) and a stream over HTTP;
+only copies after a chunk's finish program; the corpus pipeline's mel
+launches; two processes sharing the card against one. The rollout
+programs (CUDA graphs of the decoder step) equal the eager chunk within
+1e-6, count their replays' launches, raise where the step cannot be
+captured, and give the single-thread result when two threads replay at
+once. The train program (CUDA graphs of the train
 step) equals the plain step over three steps under every training option
 (bit for bit with cuDNN's deterministic algorithms, within rtol 2e-5 /
 atol 1e-6 with its default ones), draws fresh noise at each replay from
@@ -44,8 +52,8 @@ import torch
 
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.models import pose as P
+from zeggs_tpu_torch.ops.kernels import build
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
-from zeggs_tpu_torch.ops.kernels import decoder_train as DB
 from zeggs_tpu_torch.config import MelConfig
 from zeggs_tpu_torch.ops import mel as M
 from zeggs_tpu_torch.ops.kernels import gru_cell as GC
@@ -55,6 +63,20 @@ pytestmark = pytest.mark.cuda
 
 DT = 1.0 / 60.0
 MEL_N_FFTS = [800, 1024, 802]
+#: the requests of the end-to-end tests: at the default bucket of 512
+#: frames the 4 s clip is a chunk of its own, the 10 and 12 s clips one
+#: chunk of two at T_pad 1024
+CLIPS = {"clip_04s": 4.0, "clip_10s": 10.0, "clip_12s": 12.0}
+
+
+def _launches(kernel):
+    """``kernel``'s launches in this process so far (`build.launches`)."""
+    return build.launches()[kernel]
+
+
+def _counts(**launched):
+    """{kernel: launches} over every kernel, 0 where ``launched`` names none."""
+    return {k: launched.get(k, 0) for k in build.KERNELS}
 
 
 @pytest.fixture(scope="module")
@@ -97,10 +119,10 @@ def _kernel_and_plain(dec, stats, state0, cond, dtype):
     p0 = torch.cat([x.reshape(-1) for x in state0[2:]])
     root0 = torch.cat([state0[0][0], state0[1][0]])
     args = (packed, cond_l0, cond_g0, cond[0][0, 1:].contiguous(), p0, h, root0, DT)
-    before = DR.launches
+    before = _launches("decoder_rollout")
     rows = DR.rollout_b1(*args)
     torch.cuda.synchronize()
-    assert DR.launches == before + 1
+    assert _launches("decoder_rollout") == before + 1
     return rows, DR.rollout_b1_plain(*args)
 
 
@@ -129,10 +151,10 @@ def test_rollout_matches_plain(device, dtype):
 def test_pipeline_rollout_counts_one_launch(device, dtype):
     dec, stats, state0, cond = _case(device, 8, 128, T=30, seed=2)
     fn = D.make_fused_b1_fn(dec, *stats, DT, weights_dtype=getattr(torch, dtype))
-    before = DR.launches
+    before = _launches("decoder_rollout")
     out = fn(state0, *cond)
     torch.cuda.synchronize()
-    assert DR.launches == before + 1
+    assert _launches("decoder_rollout") == before + 1
     assert [tuple(o.shape[:2]) for o in out] == [(1, 30)] * 8
 
 
@@ -164,10 +186,10 @@ def test_rollout_plan_on_the_card(device, dtype):
 @torch.no_grad()
 def test_rollout_raises_when_its_plan_cannot_fit(device):
     dec, stats, state0, cond = _case(device, 8, 2048, T=3)
-    before = DR.launches
+    before = _launches("decoder_rollout")
     with pytest.raises(ValueError, match="does not fit"):
         _kernel_and_plain(dec, stats, state0, cond, torch.float32)
-    assert DR.launches == before
+    assert _launches("decoder_rollout") == before
 
 
 @pytest.mark.parametrize("barrier", ["grid", "cg"])
@@ -189,10 +211,10 @@ def test_gru_cell_matches_plain(device, B, in_dim, H):
     x = torch.as_tensor(rng.normal(size=(B, in_dim)).astype(np.float32), device=device)
     h = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32), device=device)
     p = GC.pack_gru(cell)
-    before = GC.launches
+    before = _launches("gru_cell")
     out = GC.fused_gru_cell(p, x, h)
     torch.cuda.synchronize()
-    assert GC.launches == before + 1
+    assert _launches("gru_cell") == before + 1
     assert out.shape == (B, H) and out.device.type == "cuda"
     assert (out - GC.gru_cell_plain(p, x, h)).abs().max().item() <= 2e-5
 
@@ -206,7 +228,7 @@ def test_cuda_tensors_raise_instead_of_falling_back(device, fault):
         x, err = x.half(), TypeError
     else:
         h, err = torch.zeros(4, 32, device=device), ValueError
-    before = GC.launches
+    before = _launches("gru_cell")
     with pytest.raises(err):
         GC.fused_gru_cell(GC.pack_gru(cell), x, h)
     dec, stats, _, _ = _case(device, 8, 128, T=2)
@@ -221,7 +243,7 @@ def test_cuda_tensors_raise_instead_of_falling_back(device, fault):
         args[1] = torch.zeros(3, 2 * H, device=device)
     with pytest.raises(err):
         DR.rollout_b1(packed, *args, DT)
-    assert GC.launches == before
+    assert _launches("gru_cell") == before
 
 
 def _speech_like(seconds, seed):
@@ -243,10 +265,10 @@ def _mel_cfg(n_fft):
 def test_mel_spectrogram_matches_plain(device, seconds, n_fft):
     cfg = _mel_cfg(n_fft)
     x = torch.as_tensor(_speech_like(seconds, seed=int(seconds * 10)), device=device)
-    before = MK.launches
+    before = _launches("mel_spectrogram")
     out = M.mel_spectrogram_tts(x, cfg)
     torch.cuda.synchronize()
-    assert MK.launches == before + 1
+    assert _launches("mel_spectrogram") == before + 1
     ref = M.mel_spectrogram_tts(x, cfg, fused=False)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 2e-4
@@ -270,12 +292,12 @@ def test_mel_streaming_windows_match_plain(device, nf, zeros, n_fft):
 
 @torch.no_grad()
 def test_mel_cuda_tensors_raise_instead_of_falling_back(device):
-    before = MK.launches
+    before = _launches("mel_spectrogram")
     with pytest.raises(TypeError):
         MK.mel_frames(torch.zeros(1000, device=device, dtype=torch.float64), 2, MelConfig())
     with pytest.raises(ValueError):
         MK.mel_frames(torch.zeros(999, device=device), 2, MelConfig())
-    assert MK.launches == before
+    assert _launches("mel_spectrogram") == before
 
 
 @torch.no_grad()
@@ -298,7 +320,7 @@ def test_mel_launch_fits_shared_memory_or_raises(device):
     ref = MK.mel_frames_plain(x, 5, MK.mel_consts(cfg, x.device))
     assert (out - ref).abs().max().item() <= 2e-4
     c = MK.mel_consts(cfg, x.device)
-    before = MK.launches
+    before = _launches("mel_spectrogram")
     err = MK._library().zeggs_mel_spectrogram(
         x.data_ptr(), 5, c.window.data_ptr(), c.stages.data_ptr(), c.twiddles.data_ptr(),
         c.twiddles.shape[0], c.filters.data_ptr(), c.filters.shape[1], c.support.data_ptr(),
@@ -306,7 +328,7 @@ def test_mel_launch_fits_shared_memory_or_raises(device):
         len(c.plan.radices), 1, 0, x.data_ptr(), 64, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="invalid argument"):
         MK._raise_for(err)
-    assert MK.launches == before
+    assert _launches("mel_spectrogram") == before
 
 
 @pytest.mark.parametrize("n_fft", [6000, 8192])
@@ -321,10 +343,10 @@ def test_mel_large_n_fft_variant_matches_plain(device, n_fft, nf):
                                n_fft, c.n_mels, False) > 0
     n = (nf - 1) * cfg.hop_length + n_fft
     x = torch.as_tensor(_speech_like(n / 16000 + 0.01, seed=nf)[:n], device=device)
-    before = MK.launches
+    before = _launches("mel_spectrogram")
     out = MK.mel_frames(x, nf, cfg)
     torch.cuda.synchronize()
-    assert MK.launches == before + 1
+    assert _launches("mel_spectrogram") == before + 1
     ref = MK.mel_frames_plain(x, nf, c)
     assert out.shape == (nf, 80) and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 2e-4
@@ -344,14 +366,14 @@ def test_mel_global_variant_forced_matches_plain(device, n_fft):
 def test_gru_cell_raises_under_autograd_on_the_card(device):
     cell = torch.nn.GRUCell(64, 64, device=device)
     x, h = torch.zeros(4, 64, device=device), torch.zeros(4, 64, device=device)
-    before = GC.launches
+    before = _launches("gru_cell")
     with pytest.raises(RuntimeError, match="inference only"):
         GC.pack_gru(cell)
     with torch.no_grad():
         packed = GC.pack_gru(cell)
     with pytest.raises(RuntimeError, match="inference only"):
         GC.fused_gru_cell(packed, x.requires_grad_(), h)
-    assert GC.launches == before
+    assert _launches("gru_cell") == before
 
 
 def test_gru_cell_counts_launches_from_four_threads(device):
@@ -376,14 +398,14 @@ def test_gru_cell_counts_launches_from_four_threads(device):
             stream.synchronize()
             errors.append(max((o - ref).abs().max().item() for o in outs))
 
-    before = GC.launches
+    before = _launches("gru_cell")
     threads = [threading.Thread(target=launch) for _ in range(4)]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
-    assert GC.launches == before + 4 * n
+    assert _launches("gru_cell") == before + 4 * n
     assert len(errors) == 4 and max(errors) <= 2e-5
 
 
@@ -503,11 +525,11 @@ def test_launch_counter_counts_replays(device):
     counts = []
     with torch.inference_mode():
         for _ in range(2):
-            before = GC.launches
+            before = _launches("gru_cell")
             cache.rollout_chunk(carry, *cond)
-            counts.append(GC.launches - before)
+            counts.append(_launches("gru_cell") - before)
     assert counts == [42, 40]
-    assert sorted(p.launches for _, p in cache.programs()) == [4, 16]
+    assert sorted(p.counts["gru_cell.launches"] for _, p in cache.programs()) == [4, 16]
 
 
 def test_an_uncapturable_step_raises(device, monkeypatch):
@@ -627,11 +649,11 @@ def test_train_step_gradients_match_the_cpu(device, rnn_cond):
     case = _train_case(rnn_cond)
     grads = {}
     for dev in ("cpu", device):
-        counts = (GC.launches, MK.launches, DR.launches)
-        bptt = DB.launches
+        before = build.launches()
         grads[str(dev)] = _step(*case, dev)[1]
-        assert (GC.launches, MK.launches, DR.launches) == counts
-        assert (DB.launches > bptt) == (dev == device and rnn_cond == "normal")
+        launched = build.launches_since(before)
+        assert launched == _counts(decoder_train=launched["decoder_train"])
+        assert (launched["decoder_train"] > 0) == (dev == device and rnn_cond == "normal")
     for k, g in grads["cpu"].items():
         assert (grads["cuda"][k] - g).abs().max().item() <= 1e-4 * max(1.0, g.abs().max().item()), k
 
@@ -671,7 +693,7 @@ def test_bfloat16_step_on_the_card_matches_the_cpu(device):
 def small_models(device, tmp_path_factory):
     """A small model (8 joints, decoder H=128) as .npz and as the
     reference's .pt pickles, a label-style model of the same widths, their
-    data directory, a style BVH and a WAV."""
+    data directory, a style BVH, a 2 s WAV and the WAVs of CLIPS."""
     import json
     import shutil
     from pathlib import Path
@@ -720,6 +742,8 @@ def small_models(device, tmp_path_factory):
         "parents": np.asarray(parents, np.int32), "names": names,
         "order": "zyx", "frametime": DT})
     wav.write_wavefile(root / "audio.wav", _speech_like(2.0, 3), 16000)
+    for i, (clip, seconds) in enumerate(CLIPS.items()):
+        wav.write_wavefile(root / f"{clip}.wav", _speech_like(seconds, 30 + i), 16000)
     opts = Options.from_options_dict({"net_opt": {"style_encoder": {"nhidden": 24,
                                                                     "style_encoding_size": 8}}})
     return dict(root=root, data=data, opts=opts)
@@ -731,11 +755,12 @@ def test_generation_from_reference_checkpoints_on_the_card(small_models, tmp_pat
     m, texts = small_models, {}
     for tag in ("npz", "pt"):
         pipe = GesturePipeline(m["root"] / tag, m["data"], options=m["opts"], device="cuda")
-        before = (DR.launches, MK.launches)
+        before = build.launches()
         generate_gesture(m["root"] / "audio.wav", [(m["root"] / "style.bvh", None)], None, None,
                          tmp_path, file_name=tag, seed=3, pipeline=pipe)
         torch.cuda.synchronize()
-        assert (DR.launches, MK.launches) == (before[0] + 1, before[1] + 1)
+        launched = build.launches_since(before)
+        assert (launched["decoder_rollout"], launched["mel_spectrogram"]) == (1, 1)
         texts[tag] = (tmp_path / f"{tag}.bvh").read_text()
     assert texts["pt"] == texts["npz"]
 
@@ -752,31 +777,34 @@ def test_label_request_launches_the_decoder_once(small_models, tmp_path):
         pipe = GesturePipeline(m["root"] / "label", m["data"], options=m["opts"],
                                style_encoding_type="label", device=tag,
                                rollout_weights="float32")
-        before = (DR.launches, GC.launches, MK.launches)
+        before = build.launches()
         generate_gesture(m["root"] / "audio.wav", ["B"], None, None, tmp_path,
                          style_encoding_type="label", first_pose=m["root"] / "style.bvh",
                          file_name=tag, pipeline=pipe)
         torch.cuda.synchronize()
-        launched[tag] = tuple(n - b for n, b in zip((DR.launches, GC.launches, MK.launches),
-                                                    before))
-    assert launched == {"cpu": (0, 0, 0), "cuda": (1, 0, 1)}
+        launched[tag] = build.launches_since(before)
+    assert launched == {"cpu": _counts(), "cuda": _counts(decoder_rollout=1, mel_spectrogram=1)}
     a, b = bvh.load(tmp_path / "cpu.bvh"), bvh.load(tmp_path / "cuda.bvh")
     assert a["rotations"].shape == b["rotations"].shape and np.isfinite(b["rotations"]).all()
     assert np.abs(a["positions"] - b["positions"]).mean() < 1e-3
     assert np.abs(a["rotations"] - b["rotations"]).mean() < 1e-3
 
 
-def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path):
+def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path, monkeypatch):
     """Three requests as one chunk over two replicas on cuda:0 and, with
     several cards, over every card, at fp32 rollout weights: each BVH within
     the pose MAE budget of 1e-3 of the run without a mesh; with the mesh's
     programs captured first by `warmup`, GRU-cell launches = decoder steps
     x blocks (the chunk padded to a multiple of the mesh), no decoder
-    launch, one mel launch a request."""
+    launch, one mel launch a request; the GRU cell's launches counted on
+    the mesh's block threads, the mel kernel's on the caller's."""
+    import threading
+
     from zeggs_tpu_torch.infer import GesturePipeline
-    from zeggs_tpu_torch.infer.batch import Request, generate_batch, warmup
+    from zeggs_tpu_torch.infer.batch import SHARD_THREADS, Request, generate_batch, warmup
     from zeggs_tpu_torch.io import bvh
     from zeggs_tpu_torch.parallel import create_mesh
+    from zeggs_tpu_torch.utils import profiling
 
     m = small_models
     pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
@@ -789,13 +817,25 @@ def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path):
     meshes = [create_mesh(devices=["cuda:0"] * 2)]
     if torch.cuda.device_count() > 1:
         meshes.append(create_mesh())
+    sites, count, replayed = set(), profiling.count, profiling.replayed
+
+    def site(names):
+        thread = threading.current_thread().name
+        sites.update((name, "block" if thread.startswith(SHARD_THREADS) else "caller")
+                     for name in names if name.endswith(".launches"))
+
+    monkeypatch.setattr(profiling, "count", lambda name, n=1: (site([name]), count(name, n)))
+    monkeypatch.setattr(profiling, "replayed", lambda counts: (site(counts), replayed(counts)))
     for k, mesh in enumerate(meshes):
         warmup(pipe, [n] * len(reqs), bucket=64, mesh=mesh)
-        before = (DR.launches, GC.launches, MK.launches)
+        before = build.launches()
+        sites.clear()
         generate_batch(pipe, reqs, tmp_path / f"mesh{k}", bucket=64, mesh=mesh)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip((DR.launches, GC.launches, MK.launches), before))
-        assert launched == (0, steps * mesh.size, 3), (mesh, launched)
+        launched = build.launches_since(before)
+        assert launched == {"decoder_rollout": 0, "decoder_train": 0,
+                            "gru_cell": steps * mesh.size, "mel_spectrogram": 3}, (mesh, launched)
+        assert sites == {("gru_cell.launches", "block"), ("mel_spectrogram.launches", "caller")}
         for r in reqs:
             a = bvh.load(tmp_path / "plain" / f"{r.file_name}.bvh")
             b = bvh.load(tmp_path / f"mesh{k}" / f"{r.file_name}.bvh")
@@ -809,7 +849,8 @@ def test_pipelined_chunks_on_the_card(small_models, tmp_path, monkeypatch):
     memory, collected two dispatches late): at depth 2 the BVHs of depth 0,
     text for text, in request order; over a mesh of two replicas on cuda:0
     within the pose MAE budget of 1e-3; at float16 transfer within
-    tests/test_batch_infer.py's float16 bounds."""
+    tests/test_batch_infer.py's float16 bounds, each chunk pulling half the
+    bytes it pulls at float32."""
     from zeggs_tpu_torch.infer import GesturePipeline
     from zeggs_tpu_torch.infer import batch as B
     from zeggs_tpu_torch.infer.batch import Request, generate_batch
@@ -823,12 +864,22 @@ def test_pipelined_chunks_on_the_card(small_models, tmp_path, monkeypatch):
     runs = {"depth2": ("float32", 2, None), "depth0": ("float32", 0, None),
             "mesh": ("float32", 2, create_mesh(devices=["cuda:0"] * 2)),
             "float16": ("float16", 2, None)}
+    pull, pulled = B._pull, {}
+
+    def recorded(out):
+        pulled[tag].append(sum(o.numel() * o.element_size() for o in out))
+        return pull(out)
+
+    monkeypatch.setattr(B, "_pull", recorded)
     for tag, (dtype, depth, mesh) in runs.items():
         monkeypatch.setattr(B, "PIPELINE_DEPTH", depth)
         pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
                                rollout_weights="float32", transfer_dtype=dtype)
+        pulled[tag] = []
         written = generate_batch(pipe, reqs, tmp_path / tag, bucket=64, max_batch=2, mesh=mesh)
         assert [p.name for p in written] == names, tag
+    assert len(pulled["depth2"]) == 4
+    assert pulled["depth2"] == [2 * n for n in pulled["float16"]]
     for name in names:
         a = bvh.load(tmp_path / "depth2" / name)
         assert (tmp_path / "depth2" / name).read_text() == (tmp_path / "depth0" / name).read_text()
@@ -879,6 +930,329 @@ def test_mesh_chunk_inputs_outlive_their_blocks(small_models, tmp_path, monkeypa
     assert [p.name for p in written] == [p.name for p in clean]
     for a, b in zip(clean, written):
         assert a.read_text() == b.read_text(), a.name
+
+
+def _bvh_mae(a_path, b_path):
+    """(position MAE, Euler angle MAE) of two BVHs of one length; the second
+    must be finite."""
+    from zeggs_tpu_torch.io import bvh
+
+    a, b = bvh.load(a_path), bvh.load(b_path)
+    assert a["rotations"].shape == b["rotations"].shape, b_path.name
+    assert np.isfinite(b["positions"]).all() and np.isfinite(b["rotations"]).all(), b_path.name
+    return (float(np.abs(a["positions"] - b["positions"]).mean()),
+            float(np.abs(a["rotations"] - b["rotations"]).mean()))
+
+
+def _requests_csv(m, path, style):
+    """A generate CLI CSV of the CLIPS: each styled by the style BVH, or by
+    a label with the style BVH as first pose."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["base_path", "audio", "style", "file_name", "temperature", "seed",
+                    "use_gpu", "frames", "first_pose", "generate"])
+        for i, clip in enumerate(CLIPS):
+            label = style == "label"
+            w.writerow([str(m["root"]), f"{clip}.wav", "AB"[i % 2] if label else "style.bvh",
+                        clip, "1.0", str(40 + i), "TRUE", "", "style.bvh" if label else "",
+                        "TRUE"])
+    return path
+
+
+@pytest.mark.parametrize("style", ["example", "label"])
+def test_generate_cli_paths_on_the_card(small_models, tmp_path, style):
+    """The generate CLI over CLIPS on the card, each kernel's launches
+    counted around each run: CSV mode (a decoder launch a request), `-b`
+    (the 4 s clip one decoder launch, the 10 and 12 s clips one chunk of
+    1023 steps replayed from the rollout programs: a GRU-cell launch a step
+    and one eager warm-up step a program) and `--int8` (a decoder launch a
+    request); one mel launch a request on every path; every BVH finite, at
+    60 fps, of its clip's length. Then at fp32 rollout weights the batched
+    requests against single requests: pose MAE < 1e-3."""
+    import csv
+    import json
+
+    from zeggs_tpu_torch.cli import generate as cli
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+    from zeggs_tpu_torch.infer.batch import generate_batch
+    from zeggs_tpu_torch.infer.programs import ladder_programs
+    from zeggs_tpu_torch.io import bvh
+
+    m, n = small_models, len(CLIPS)
+    models = m["root"] / ("npz" if style == "example" else "label")
+    options = tmp_path / "options.json"
+    options.write_text(json.dumps({**m["opts"].to_options_dict(), "paths": {
+        "base_path": str(m["data"].parent), "path_processed_data": m["data"].name,
+        "output_dir": str(tmp_path), "models_dir": str(models)}}))
+    requests = _requests_csv(m, tmp_path / "requests.csv", style)
+    chunk = 1024 - 1
+    runs = {"csv": ([], {"decoder_rollout": n}),
+            "batched": (["-b"], {"decoder_rollout": 1,
+                                 "gru_cell": chunk + ladder_programs([chunk])}),
+            "int8": (["--int8"], {"decoder_rollout": n})}
+    for tag, (flags, expected) in runs.items():
+        before = build.launches()
+        cli.main(["-o", str(options), "-c", str(requests), "-p", str(tmp_path / tag),
+                  "--device", "cuda", "-se", style, *flags])
+        torch.cuda.synchronize()
+        want = {k: 0 for k in build.KERNELS} | expected | {"mel_spectrogram": n}
+        assert build.launches_since(before) == want, tag
+        for clip, seconds in CLIPS.items():
+            anim = bvh.load(tmp_path / tag / f"{clip}.bvh")
+            assert anim["rotations"].shape[0] == round(60 * seconds), (tag, clip)
+            assert abs(anim["frametime"] - DT) < 1e-6, (tag, clip)
+            assert np.isfinite(anim["rotations"]).all(), (tag, clip)
+            assert np.isfinite(anim["positions"]).all(), (tag, clip)
+
+    pipe = GesturePipeline(models, m["data"], options=m["opts"], style_encoding_type=style,
+                           device="cuda", rollout_weights="float32")
+    with open(requests, newline="") as f:
+        reqs = cli._requests(list(csv.DictReader(f)), style)
+    generate_batch(pipe, reqs, tmp_path / "batched_fp32")
+    for r in reqs:
+        generate_gesture(r.audio, r.styles, None, None, tmp_path / "single_fp32",
+                         style_encoding_type=style, file_name=r.file_name,
+                         temperature=r.temperature, seed=r.seed, first_pose=r.first_pose,
+                         pipeline=pipe)
+        maes = _bvh_mae(tmp_path / "single_fp32" / f"{r.file_name}.bvh",
+                        tmp_path / "batched_fp32" / f"{r.file_name}.bvh")
+        assert max(maes) < 1e-3, (r.file_name, maes)
+
+
+def test_a_request_on_the_card_matches_the_cpu(small_models):
+    """The 4 s request at temperature 0 through `GesturePipeline.rollout` on
+    the card (fp32 rollout weights: one decoder launch) and on the CPU:
+    trajectories within the pose MAE budget of 1e-3."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+
+    m = small_models
+
+    def trajectories(device):
+        pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device=device,
+                               rollout_weights="float32")
+        with torch.inference_mode():
+            feats, n = pipe.audio_to_features(m["root"] / "clip_04s.wav")
+            speech = pipe.encode_speech(feats)
+            vec, f0 = pipe.style_example_from_bvh(m["root"] / "style.bvh")
+            style = pipe.encode_style(vec, 0.0)[0][:, None].expand(-1, n, -1).contiguous()
+            out = pipe.rollout(f0, f0.gaze_pos[0].expand(n, 3)[None], speech, style)
+        return [o.float().cpu() for o in out]
+
+    cpu = trajectories("cpu")
+    before = _launches("decoder_rollout")
+    card = trajectories("cuda")
+    assert _launches("decoder_rollout") == before + 1
+    assert max((a - b).abs().mean().item() for a, b in zip(card, cpu)) < 1e-3
+
+
+@pytest.mark.parametrize("style", ["example", "label"])
+def test_a_streaming_session_on_the_card(small_models, tmp_path, style):
+    """The 10 s clip in 0.5 s pushes through a session at quantum 16 on the
+    card (fp32 rollout weights; loudness normalisation off, since a stream
+    takes a fixed gain): 600 frames, 608 decoder steps (the tail padded to
+    the grain), a GRU-cell launch a step and one a program captured, no
+    decoder launch, the mel kernel launched, every frame finite. Styled by
+    the style BVH, the session's BVH is the offline request's within 1e-4
+    cm and 1e-3 degrees (tests/test_streaming.py's bounds)."""
+    import dataclasses
+
+    from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
+    from zeggs_tpu_torch.io import bvh, wav
+
+    m = small_models
+    label = style == "label"
+    pipe = GesturePipeline(m["root"] / ("label" if label else "npz"), m["data"],
+                           options=m["opts"], style_encoding_type=style, device="cuda",
+                           rollout_weights="float32")
+    pipe.mel_cfg = dataclasses.replace(pipe.mel_cfg, normalize_loudness=False)
+    styles = ["B"] if label else [(m["root"] / "style.bvh", None)]
+    first_pose = m["root"] / "style.bvh" if label else None
+    generate_gesture(m["root"] / "clip_10s.wav", styles, None, None, tmp_path,
+                     style_encoding_type=style, first_pose=first_pose, file_name="offline",
+                     seed=7, pipeline=pipe)
+    _, audio = wav.read_wavfile(m["root"] / "clip_10s.wav", rescale=True, desired_fs=16000,
+                                out_type="float32")
+    audio = np.asarray(audio, np.float32)
+    made, before = len(pipe.programs.programs()), build.launches()
+    sess = pipe.streaming_session(styles, first_pose=first_pose, seed=7, quantum=16)
+    for o in range(0, len(audio), 8000):
+        sess.push(audio[o : o + 8000])
+    sess.finish()
+    torch.cuda.synchronize()
+    launched = build.launches_since(before)
+    made = len(pipe.programs.programs()) - made
+    assert sess.frames_emitted == 600 and sess.decoder_steps == -(-599 // 16) * 16 and made >= 1
+    assert launched["gru_cell"] == sess.decoder_steps + made
+    assert launched["decoder_rollout"] == 0 and launched["mel_spectrogram"] > 0
+    path = sess.write_bvh(tmp_path, "stream")
+    assert np.isfinite(bvh.load(path)["rotations"]).all()
+    if not label:
+        pos, rot = _bvh_mae(tmp_path / "offline.bvh", path)
+        assert pos < 1e-4 and rot < 1e-3, (pos, rot)
+
+
+def _post(port, path, payload):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def _frames(f):
+    import base64
+
+    return {k: np.frombuffer(base64.b64decode(v["b64"]), np.float32).reshape(v["shape"])
+            for k, v in f["data"].items()}
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_the_daemon_on_the_card(small_models, tmp_path, replicas):
+    """The daemon on 127.0.0.1 over the card, or over a mesh of two replicas
+    on cuda:0 (each run's programs captured first by `warmup`), at fp32
+    rollout weights: /healthz names the card; four concurrent /synthesize of
+    CLIPS coalesce into one batch of four (the drain ends at the fourth),
+    one mel launch a request, each BVH within the pose MAE budget of 1e-3
+    of `generate_batch` without a mesh. Over one replica, a stream over
+    HTTP (the 4 s clip in five pushes, to a daemon that waits 50 ms for a
+    drain) equals the in-process session within 1e-5."""
+    import base64
+    import json
+    import threading
+    import urllib.request
+
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch, warmup
+    from zeggs_tpu_torch.io import wav
+    from zeggs_tpu_torch.parallel import create_mesh
+    from zeggs_tpu_torch.serve import GestureServer
+
+    m = small_models
+    pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
+                           rollout_weights="float32")
+    mesh = create_mesh(devices=["cuda:0"] * 2) if replicas > 1 else None
+    clips = [list(CLIPS)[i % len(CLIPS)] for i in range(4)]
+    reqs = [Request(audio=m["root"] / f"{clip}.wav", styles=[(m["root"] / "style.bvh", None)],
+                    file_name=f"serve_{i}", seed=50 + i) for i, clip in enumerate(clips)]
+    if mesh is not None:
+        warmup(pipe, [round(60 * CLIPS[clip]) for clip in clips], max_batch=4, mesh=mesh)
+    generate_batch(pipe, reqs, tmp_path / "plain")
+    style = base64.b64encode((m["root"] / "style.bvh").read_bytes()).decode()
+    replies = [None] * 4
+
+    def request(i):
+        replies[i] = _post(port, "/synthesize", {
+            "audio_wav_b64": base64.b64encode(reqs[i].audio.read_bytes()).decode(),
+            "styles": [{"bvh_b64": style}], "seed": reqs[i].seed,
+            "file_name": reqs[i].file_name})
+
+    srv = GestureServer(pipe, max_batch=4, max_wait_ms=60_000, mesh=mesh)
+    port = srv.start()
+    try:
+        health = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                                   timeout=60).read())
+        assert health.get("platform") == "cuda", health
+        assert health.get("device") == torch.cuda.get_device_name(0), health
+        before = build.launches()
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads) and None not in replies
+        assert build.launches_since(before)["mel_spectrogram"] == 4
+    finally:
+        srv.stop()
+    assert [r["batch_size"] for r in replies] == [4] * 4
+    for r in replies:
+        (tmp_path / f"{r['file_name']}.bvh").write_text(r["bvh"])
+        maes = _bvh_mae(tmp_path / "plain" / f"{r['file_name']}.bvh",
+                        tmp_path / f"{r['file_name']}.bvh")
+        assert max(maes) < 1e-3, (r["file_name"], maes)
+    if mesh is not None:
+        return
+
+    _, audio = wav.read_wavfile(m["root"] / "clip_04s.wav", rescale=True, desired_fs=16000,
+                                out_type="float32")
+    parts = np.array_split(np.asarray(audio, np.float32), 5)
+    srv = GestureServer(pipe, max_batch=4, max_wait_ms=50)
+    port = srv.start()
+    try:
+        start = _post(port, "/stream/start", {"styles": [{"bvh_b64": style}], "seed": 7})
+        chunks = [_frames(start["frames"])]
+        for part in parts:
+            chunks.append(_frames(_post(port, "/stream/push", {
+                "session_id": start["session_id"],
+                "audio_f32_b64": base64.b64encode(part.astype("<f4").tobytes()).decode(),
+            })["frames"]))
+        fin = _post(port, "/stream/finish", {"session_id": start["session_id"]})
+        chunks.append(_frames(fin["frames"]))
+    finally:
+        srv.stop()
+    sess = pipe.streaming_session([(m["root"] / "style.bvh", None)], seed=7, quantum=16)
+    direct = [sess._collect(0)] + [sess.push(p) for p in parts] + [sess.finish()]
+    assert fin["total_frames"] == 240
+    for k in direct[0]:
+        got, want = (np.concatenate([c[k] for c in cs]) for cs in (chunks, direct))
+        assert np.abs(got - want).max() <= 1e-5, k
+
+
+def _launches_after_last_replay(prof):
+    """From a torch.profiler run: the graph launches, and the CUDA runtime
+    calls on the host that launch work (kernels, copies, sets) after the
+    last graph launch, each with the innermost aten op around it on its
+    thread (None: outside any) -> (graph launches, [(call, op), ...])."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    graphs = [e for e in events if "GraphLaunch" in e.name]
+    if not graphs:
+        return 0, []
+    last = max(e.time_range.start for e in graphs)
+    ops = [e for e in events if e.name.startswith("aten::")]
+    after = []
+    for e in events:
+        if e.time_range.start <= last or "GraphLaunch" in e.name or not any(
+                w in e.name for w in ("Launch", "Memcpy", "Memset")):
+            continue
+        around = [o for o in ops if o.thread == e.thread
+                  and o.time_range.start <= e.time_range.start
+                  and o.time_range.end >= e.time_range.end]
+        op = max(around, key=lambda o: o.time_range.start).name if around else None
+        after.append((e.name, op))
+    return len(graphs), after
+
+
+def test_after_a_chunks_finish_program_only_copies_run(small_models, tmp_path):
+    """The 10 and 12 s clips as one chunk (T_pad 1024) at float16 transfer,
+    its programs captured by a first run, under torch.profiler: one graph
+    launch a grain replay of the 1023 steps and one for the finish program;
+    after the last, the host launches nothing but the copies of the
+    outputs (`aten::copy_`)."""
+    from zeggs_tpu_torch.infer import GesturePipeline
+    from zeggs_tpu_torch.infer.batch import Request, generate_batch
+    from zeggs_tpu_torch.infer.programs import ladder
+
+    m = small_models
+    pipe = GesturePipeline(m["root"] / "npz", m["data"], options=m["opts"], device="cuda",
+                           rollout_weights="float32", transfer_dtype="float16")
+    reqs = [Request(audio=m["root"] / f"{clip}.wav", styles=[(m["root"] / "style.bvh", None)],
+                    file_name=clip, seed=60 + i)
+            for i, clip in enumerate(("clip_10s", "clip_12s"))]
+    generate_batch(pipe, reqs, tmp_path / "first")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        generate_batch(pipe, reqs, tmp_path / "profiled")
+        torch.cuda.synchronize()
+    graphs, after = _launches_after_last_replay(prof)
+    assert graphs == sum(reps for _, reps in ladder(1023)) + 1
+    assert after and all(op == "aten::copy_" for _, op in after), after
 
 
 @pytest.fixture(scope="module")
@@ -940,17 +1314,54 @@ def small_run(device, tmp_path_factory):
     return dict(root=root, ds=ds)
 
 
+def test_the_corpus_pipeline_on_the_card(small_run, monkeypatch):
+    """The small run's raw corpus (three clips) through `data_pipeline` on
+    the card at the time-stretches 0.9 and 1.0: one mel launch a clip and
+    stretch, each against its plain chain on the same input within 2e-4,
+    and the processed arrays finite."""
+    from zeggs_tpu_torch import config as C
+    from zeggs_tpu_torch.data.pipeline import data_pipeline
+
+    root, tts, inputs = small_run["root"], M.mel_spectrogram_tts, []
+
+    def recording(x, cfg, fused=None):
+        inputs.append((x, cfg))
+        return tts(x, cfg, fused)
+
+    monkeypatch.setattr(M, "mel_spectrogram_tts", recording)
+    before = build.launches()
+    data_pipeline(C.PipelineConfig(
+        base_path=str(root), processed_data_path="processed_card", info_filename="info.csv",
+        len_ratios=(0.9, 1.0), save_trimmed_audio=False, save_trimmed_animation=False),
+        device="cuda")
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert build.launches_since(before) == _counts(mel_spectrogram=3 * 2)
+    assert len(inputs) == 3 * 2
+    with torch.inference_mode():
+        for x, cfg in inputs:
+            out, ref = tts(x, cfg), tts(x, cfg, False)
+            assert out.shape == ref.shape and torch.isfinite(out).all()
+            assert (out - ref).abs().max().item() <= 2e-4
+    with np.load(root / "processed_card" / "processed_data.npz") as data:
+        for k in data.files:
+            if data[k].dtype.kind == "f":
+                assert np.isfinite(data[k]).all(), k
+
+
 def test_evaluate_on_the_card_matches_the_cpu(small_run, monkeypatch):
     """`cli.eval_checkpoint.evaluate` on the card against the CPU: its
     rollouts replay the rollout programs, one GRU-cell launch a decoder
     step of the validation rollouts and one a program's capture; the
-    tolerances of tests/test_torch_quality.py (`chip_smoke.reports_agree`:
+    tolerances of tests/test_torch_quality.py (`tests/eval_agreement.py`:
     rtol 1e-3 and a rounding quantum; the jerk and variance ratios within
     the bounds derived from the two rollouts' difference); equal gate
     verdicts."""
-    from chip_smoke import eval_bounds, ladder_programs, reports_agree
+    # by module name from tests/, which pytest puts on sys.path: a `tests`
+    # package installed on the card's machine shadows the repository's
+    from eval_agreement import eval_bounds, reports_agree
     from zeggs_tpu_torch.cli import eval_checkpoint as E
-    from zeggs_tpu_torch.infer.programs import ProgramCache
+    from zeggs_tpu_torch.infer.programs import ProgramCache, ladder_programs
 
     rollouts = {"cuda": [], "cpu": []}
     original = ProgramCache.rollout
@@ -962,14 +1373,14 @@ def test_evaluate_on_the_card_matches_the_cpu(small_run, monkeypatch):
 
     monkeypatch.setattr(ProgramCache, "rollout", recording)
     root, ds = small_run["root"], small_run["ds"]
-    before = (DR.launches, GC.launches, MK.launches)
+    before = build.launches()
     card = E.evaluate(root, 0, device="cuda")
     torch.cuda.synchronize()
-    launched = tuple(n - b for n, b in zip((DR.launches, GC.launches, MK.launches), before))
+    launched = build.launches_since(before)
     cpu = E.evaluate(root, 0, device="cpu")
     steps = [len(r[1]) - 1 for r in rollouts["cuda"]]
     # every decoder step replayed, and one eager warm-up step a program
-    assert launched == (0, sum(steps) + ladder_programs(steps), 0)
+    assert launched == _counts(gru_cell=sum(steps) + ladder_programs(steps))
     assert card["n_valid_clips"] == cpu["n_valid_clips"] == len(rollouts["cpu"]) == 1
     assert reports_agree(card, cpu, eval_bounds(ds, rollouts["cuda"], rollouts["cpu"])) == []
     assert E.gate(card) == E.gate(cpu)
@@ -1212,10 +1623,10 @@ def test_synthesis_after_a_train_step_uses_the_new_weights(small_run, tmp_path, 
             return []
 
     monkeypatch.setattr(ProgramCache, "rollout", recording)
-    before = GC.launches
+    before = _launches("gru_cell")
     steps, programs = trainer.generate_samples(1, 2)
     torch.cuda.synchronize()
-    assert GC.launches - before == steps + programs and programs > 0
+    assert _launches("gru_cell") - before == steps + programs and programs > 0
     first = list(recorded)
     trainer.train_step(trainer._batch(*_draws(trainer, 1, seed=5)[0]))
     recorded.clear()
@@ -1227,6 +1638,74 @@ def test_synthesis_after_a_train_step_uses_the_new_weights(small_run, tmp_path, 
     assert len(first) == len(second) == len(recorded) == 2
     assert all(not torch.equal(a, b) for a, b in zip(first, second))
     assert _worst(second, recorded) <= 1e-6
+
+
+@pytest.mark.parametrize("host_batches", [False, True])
+def test_two_processes_sharing_the_card_equal_one_process(small_run, tmp_path, host_batches):
+    """Two processes of a gloo group on the card (the training CLI with the
+    three multi-process flags, tests/torch_ddp_worker.py), each replaying
+    graphs A (gather, forward, backward) and B (RAdam) around the eager
+    all-reduce, against one process (one graph) at the same seed: B=8,
+    window 32, 3 steps, on both data paths. Parameters within rtol 2e-5 /
+    atol 1e-6 (tests/test_torch_ddp.py's bound), equal generator states."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from zeggs_tpu_torch.cli import train as cli
+    from zeggs_tpu_torch.io import checkpoint
+
+    def options(name):
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps({
+            "net_opt": {"decoder": {"nhidden": 64},
+                        "speech_encoder": {"nhidden": 16, "speech_encoding_size": 16},
+                        "style_encoder": {"nhidden": 24, "style_encoding_size": 8,
+                                          "example_length": 32}},
+            "train_opt": {"batchsize": 8, "window": 32, "niterations": 1, "seed": 77,
+                          "generate_samples_step": 10_000, "use_tensorboard": False},
+            "paths": {"base_path": str(small_run["root"]), "path_processed_data": "processed",
+                      "output_dir": str(tmp_path / name), "models_dir": None}}))
+        return path
+
+    host = ["--host-batches"] if host_batches else []
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    worker = Path(__file__).parent / "torch_ddp_worker.py"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")}
+    # host batches: each rank its own directory (rank 0 writes)
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), f"127.0.0.1:{port}", "2", str(rank),
+         str(options(f"multi{rank if host_batches else 0}")), "3", str(int(host_batches)),
+         "--device", "cuda", "--dist-backend", "gloo"],
+        cwd=worker.parents[1], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in (0, 1)]
+    try:
+        outputs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, f"process {rank}:\n{out[-4000:]}"
+    one = cli.main(["-o", str(options("single")), "--device", "cuda", "--max-iterations", "3",
+                    *host])
+    assert len(one.program.graphs) == 1
+    multi, _, m_meta = checkpoint.load_train_state(tmp_path / "multi0" / "saved_models")
+    single, _, s_meta = checkpoint.load_train_state(tmp_path / "single" / "saved_models")
+    assert m_meta["step"] == s_meta["step"] == 3
+    assert m_meta["np_rng_state"] == s_meta["np_rng_state"]
+    assert m_meta["torch_generator_state"] == s_meta["torch_generator_state"]
+    flat_m, flat_s = checkpoint._flatten(multi), checkpoint._flatten(single)
+    assert flat_m.keys() == flat_s.keys()
+    for k, a in flat_m.items():
+        np.testing.assert_allclose(a, flat_s[k], rtol=2e-5, atol=1e-6, err_msg=k)
 
 
 def test_griffin_lim_on_the_card_matches_the_cpu(device):

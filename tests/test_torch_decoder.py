@@ -18,6 +18,7 @@ from zeggs_tpu.models import decoder as jdec
 from zeggs_tpu_torch.io import weights
 from zeggs_tpu_torch.models import decoder as tdec
 from zeggs_tpu_torch.models.decoder import Decoder
+from zeggs_tpu_torch.ops.kernels import build
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
 
 NJ = 8
@@ -103,12 +104,13 @@ def test_rollout_b1_plain_matches_pallas_kernel(case, dtype):
     jfn = jdec.make_fused_b1_fn(params, *_j(stats), DT, weights_dtype=getattr(jnp, dtype),
                                 interpret=True)
     ref = jfn(_j(state0), *_j(cond))
-    launches = DR.launches
+    launches = build.launches()
     with torch.no_grad():
         tfn = tdec.make_fused_b1_fn(dec, *_t(stats), DT, weights_dtype=getattr(torch, dtype))
         ours = tfn(_t(state0), *_t(cond))
     _assert_trajectories(ours, ref)
-    assert DR.launches == launches, "CPU tensors must take the plain version, not count a launch"
+    assert build.launches() == launches, \
+        "CPU tensors must take the plain version, not count a launch"
 
 
 def test_rollout_b1_plain_bf16_tracks_fp32(case):

@@ -16,12 +16,15 @@ train-step gradient budget of tests/test_torch_cuda.py (per leaf 1e-4 *
 max(1, max|g|)).
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.ops import quat
+from zeggs_tpu_torch.ops.kernels import build
 from zeggs_tpu_torch.ops.kernels import decoder_train as DT
 from zeggs_tpu_torch.ops.kernels import gru_cell as GC
 from zeggs_tpu_torch.utils import profiling
@@ -139,6 +142,17 @@ def _bptt_counts():
     return c.get("decoder_bptt.forwards", 0), c.get("decoder_bptt.backwards", 0)
 
 
+def _launches():
+    return build.launches()["decoder_train"]
+
+
+def _captured(launches):
+    """What a graph of one window's gradient captured: its kernel launches
+    and one pass each way."""
+    return Counter({"decoder_train.launches": launches, "decoder_bptt.forwards": 1,
+                    "decoder_bptt.backwards": 1})
+
+
 def _rollout(dec, stats, state, cond, **kw):
     gaze, speech, style = cond
     return D.rollout(dec, *state, gaze, speech, style, *stats, DT_S, **kw)
@@ -213,12 +227,14 @@ def test_the_inference_step_is_unchanged(monkeypatch):
 
 def test_counts_of_captured_passes_add_at_each_replay():
     """A graph's captured launches and passes count once for each replay."""
-    launches, before = DT.launches, _bptt_counts()
-    counts = DT.Counts(launches=12, forwards=1, backwards=1)
-    assert counts - DT.Counts(2, 1, 0) == DT.Counts(10, 0, 1)
+    launches, before = _launches(), _bptt_counts()
+    counts = Counter({"decoder_train.launches": 12, "decoder_bptt.forwards": 1,
+                      "decoder_bptt.backwards": 1})
+    assert counts - Counter({"decoder_train.launches": 2, "decoder_bptt.forwards": 1}) == \
+        Counter({"decoder_train.launches": 10, "decoder_bptt.backwards": 1})
     for _ in range(3):
-        DT.count_replay(counts)
-    assert DT.launches == launches + 36
+        profiling.replayed(counts)
+    assert _launches() == launches + 36
     assert _bptt_counts() == (before[0] + 3, before[1] + 3)
 
 
@@ -237,10 +253,10 @@ def test_the_train_program_counts_its_passes_on_the_cpu():
         return sum((o ** 2).mean() for o in outs), {"total_loss": outs[0].sum().detach()}
 
     program = TrainProgram(loss_fn, {"decoder": dec}, optimizer)
-    launches, before = DT.launches, _bptt_counts()
+    launches, before = build.launches(), _bptt_counts()
     for i in range(3):
         program.run({"x": np.zeros(2, np.float32)}, i)
-    assert _bptt_counts() == (before[0] + 3, before[1] + 3) and DT.launches == launches
+    assert _bptt_counts() == (before[0] + 3, before[1] + 3) and build.launches() == launches
 
 
 # -- on the card ------------------------------------------------------------
@@ -334,7 +350,7 @@ def test_each_kernel_matches_its_plain_version(device, shape):
     ragged small one, against its plain version on the same inputs on the
     card: 1e-5 of each output's scale."""
     B, _, H, J = SHAPES[shape]
-    launches = DT.launches
+    launches = _launches()
     for name, (args, written) in _op_cases(B, H, J, device).items():
         op = name.split("_first")[0].split("_last")[0].replace("_l0", "").replace("_l1", "")
         plain = [a.clone() if torch.is_tensor(a) and i in written else a
@@ -345,7 +361,7 @@ def test_each_kernel_matches_its_plain_version(device, shape):
         for i in written:
             assert torch.isfinite(args[i]).all(), (name, i)
             assert _close(args[i], plain[i], 1e-5), (name, i)
-    assert DT.launches == launches + 11
+    assert _launches() == launches + 11
 
 
 def _window(shape, device, seed=0):
@@ -362,15 +378,15 @@ def test_the_function_on_the_card_matches_its_plain_version(device, shape, monke
     kernels ran 8 launches a frame and 2 more, none in the plain run."""
     case = _window(shape, device)
     T = SHAPES[shape][1] - 1
-    launches = DT.launches
+    launches = _launches()
     outs, grads = _chunk(*case, True, bptt=True)
     torch.cuda.synchronize()
-    assert DT.launches - launches == 8 * T + 2
+    assert _launches() - launches == 8 * T + 2
     monkeypatch.setattr(DT, "step_ops", lambda _device: DT.PlainOps)
-    launches = DT.launches
+    launches = _launches()
     outs_ref, grads_ref = _chunk(*case, True, bptt=True)
     torch.cuda.synchronize()
-    assert DT.launches == launches
+    assert _launches() == launches
     for a, b in zip(outs, outs_ref):
         assert _close(a, b, 1e-4)
     for k, g in grads_ref.items():
@@ -378,15 +394,17 @@ def test_the_function_on_the_card_matches_its_plain_version(device, shape, monke
 
 
 @pytest.mark.cuda
-def test_the_train_program_replays_the_kernels(device):
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_the_train_program_replays_the_kernels(device, shape):
     """A `TrainProgram` on the card: its eager first step launches the
     kernels, its capture records them, and every replay counts them and
-    one pass each way; the replays' losses equal the eager steps'."""
+    one pass each way (at the v1 train cell's shape, 8 x 255 + 1
+    launches); the replays' losses equal the eager steps'."""
     from zeggs_tpu_torch.train.programs import TrainProgram
     from zeggs_tpu_torch.train.radam import RAdam, exponential_step_schedule
 
-    dec, stats, state, cond = _window("ragged", device)
-    T = SHAPES["ragged"][1] - 1
+    dec, stats, state, cond = _window(shape, device)
+    T = SHAPES[shape][1] - 1
 
     def loss_fn(nets, batch, iteration, generator=None):
         outs = _rollout(nets["decoder"], stats, state, cond)
@@ -400,12 +418,12 @@ def test_the_train_program_replays_the_kernels(device):
     per_step = 8 * T + 1  # frame 0's pose is data: no input product nor pose kernel there
     losses = []
     for i in range(4):
-        launches, passes = DT.launches, _bptt_counts()
+        launches, passes = _launches(), _bptt_counts()
         losses.append(prog.run({"x": np.zeros(2, np.float32)}, i)["total_loss"].item())
         torch.cuda.synchronize()
-        assert DT.launches - launches == per_step, i
+        assert _launches() - launches == per_step, i
         assert _bptt_counts() == (passes[0] + 1, passes[1] + 1), i
-    assert len(prog.graphs) == 1 and prog.bptt_counts == DT.Counts(per_step, 1, 1)
+    assert len(prog.graphs) == 1 and prog.counts == _captured(per_step)
     # the same four steps eagerly, from the same weights
     with torch.no_grad():
         for k, p in dec.named_parameters():
@@ -425,8 +443,7 @@ def test_the_train_program_replays_the_kernels(device):
 def test_the_profilers_graph_counts_the_kernels(device):
     """A profiler's captured section (`profilers.common.Graphed`) that holds
     the training rollout's gradient counts, at each replay, its launches
-    (as `bench.fixture.read_counts` reads them) and one pass each way."""
-    from zeggs_tpu_torch.bench import fixture as FX
+    and one pass each way."""
     from zeggs_tpu_torch.profilers.common import Graphed
 
     dec, stats, state, cond = _window("ragged", device)
@@ -438,10 +455,10 @@ def test_the_profilers_graph_counts_the_kernels(device):
         return torch.autograd.grad(sum((o ** 2).sum() for o in outs), params)
 
     graphed = Graphed(section, device, "the rollout's gradient")
-    assert graphed.bptt_counts == DT.Counts(per_window, 1, 1)
-    before, passes = FX.read_counts(), _bptt_counts()
+    assert graphed.counts == _captured(per_window)
+    before, passes = _launches(), _bptt_counts()
     for _ in range(3):
         graphed()
     torch.cuda.synchronize()
-    assert FX.read_counts()["decoder_train"] - before["decoder_train"] == 3 * per_window
+    assert _launches() - before == 3 * per_window
     assert _bptt_counts() == (passes[0] + 3, passes[1] + 3)

@@ -25,6 +25,7 @@ from zeggs_tpu.ops.pallas import decoder_kernel as DK
 from zeggs_tpu_torch.io import weights
 from zeggs_tpu_torch.models import decoder as tdec
 from zeggs_tpu_torch.models.decoder import Decoder
+from zeggs_tpu_torch.ops.kernels import build
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
 
 NJ = 8
@@ -126,11 +127,12 @@ def test_rollout_b1_plain_int8_matches_pallas_kernel(b1):
     params, dec, stats, state0, cond = b1
     jfn = jdec.make_fused_b1_fn(params, *_j(stats), DT, weights_dtype=jnp.int8, interpret=True)
     ref = jfn(_j(state0), *_j(cond))
-    launches = DR.launches
+    launches = build.launches()
     with torch.no_grad():
         tfn = tdec.make_fused_b1_fn(dec, *_t(stats), DT, weights_dtype=torch.int8)
         ours = tfn(_t(state0), *_t(cond))
-    assert DR.launches == launches, "CPU tensors must take the plain version, not count a launch"
+    assert build.launches() == launches, \
+        "CPU tensors must take the plain version, not count a launch"
     _assert_close(ours, ref)
     fp32 = jdec.rollout(params, *_j(state0), *_j(cond), *_j(stats), DT)
     _assert_within_quantization(ours, fp32)

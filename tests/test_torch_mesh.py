@@ -7,7 +7,7 @@ The CPU named several times stands for several devices: each entry of such
 a mesh is its own replica, run from a thread of its own over the same
 weights, so these tests drive the splitting, the worker threads (each in
 inference mode of its own) and the gathering; the copies between cards and
-the streams run only on a card (tests/test_torch_cuda.py, chip_smoke.py).
+the streams run only on a card (tests/test_torch_cuda.py).
 
 The synthetic corpus of tests/test_torch_batch.py (150 frames, 8 joints,
 small widths) is read by both packages. Budget: BVH channels atol 2e-3,
@@ -36,11 +36,11 @@ from zeggs_tpu.parallel import create_mesh as jax_create_mesh
 from zeggs_tpu_torch.infer import generate as G
 from zeggs_tpu_torch.infer.batch import Request, generate_batch
 from zeggs_tpu_torch.infer.programs import ProgramCache
+from zeggs_tpu_torch.ops.kernels import build
 from zeggs_tpu_torch.ops.kernels import decoder_rollout as DR
-from zeggs_tpu_torch.ops.kernels import gru_cell as GC
-from zeggs_tpu_torch.ops.kernels import mel as MK
 from zeggs_tpu_torch.parallel import Mesh, create_mesh, create_mesh_for_batch, shard_rows
 from zeggs_tpu_torch.serve import GestureServer
+from zeggs_tpu_torch.utils import profiling
 from tests.test_torch_batch import BUCKET, NFRAMES, _assert_bvh_close, _port, corpus  # noqa: F401
 from tests.test_torch_serve import _b64, _frames, _get, _post, _samples
 
@@ -270,17 +270,19 @@ def test_server_with_a_mesh_streams_as_before(corpus):  # noqa: F811
 # -- launch counters -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("module", [GC, MK, DR], ids=["gru_cell", "mel", "decoder_rollout"])
-def test_launch_counter_counts_every_launch_from_many_threads(module, monkeypatch):
+@pytest.mark.parametrize("kernel", ["gru_cell", "mel_spectrogram", "decoder_rollout"],
+                         ids=["gru_cell", "mel", "decoder_rollout"])
+def test_launch_counter_counts_every_launch_from_many_threads(kernel):
     """16 threads add 2,000 launches each with the interpreter switching
     threads every microsecond: no count is lost (an unguarded
     ``launches += 1`` can lose one between its read and its write)."""
-    monkeypatch.setattr(module, "launches", 0)
+    before = build.launches()[kernel]
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [module._count_launch() for _ in range(2000)])
-                   for _ in range(16)]
+        threads = [threading.Thread(
+            target=lambda: [profiling.count(f"{kernel}.launches") for _ in range(2000)])
+            for _ in range(16)]
         for t in threads:
             t.start()
         for t in threads:
@@ -288,4 +290,4 @@ def test_launch_counter_counts_every_launch_from_many_threads(module, monkeypatc
     finally:
         sys.setswitchinterval(switch)
     assert not any(t.is_alive() for t in threads)
-    assert module.launches == 16 * 2000
+    assert build.launches()[kernel] - before == 16 * 2000

@@ -15,6 +15,9 @@ at its own size 1e-5; generate_batch against zeggs_tpu's under the same
 policy, BVH channels atol 2e-3 (tests/test_torch_batch.py's budget).
 """
 
+import types
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -25,9 +28,10 @@ from zeggs_tpu.infer.batch import Request as JaxRequest
 from zeggs_tpu.io import wav
 from zeggs_tpu_torch.infer import batch as B
 from zeggs_tpu_torch.infer.batch import Request
-from zeggs_tpu_torch.infer.programs import GRAINS, ProgramCache
+from zeggs_tpu_torch.infer.programs import GRAINS, ProgramCache, ladder, ladder_programs
 from zeggs_tpu_torch.models import decoder as D
-from zeggs_tpu_torch.ops.kernels import gru_cell as GC
+from zeggs_tpu_torch.ops.kernels import build
+from zeggs_tpu_torch.utils import profiling
 from zeggs_tpu_torch.parallel import create_mesh
 from tests.test_torch_batch import BUCKET, NFRAMES, _assert_bvh_close, _port, corpus  # noqa: F401
 
@@ -198,7 +202,8 @@ def test_padded_chunk_rows_equal_the_unpadded_run(corpus):  # noqa: F811
 def test_program_ladder_equals_rollout_chunk(corpus, n, quantize_int8):  # noqa: F811
     """n steps through the cache (37 = 2 x 16 + 4 + 1: three programs and
     the carry passed between them) equal the eager `rollout_chunk` bit for
-    bit, trajectories and new carry."""
+    bit, trajectories and new carry; the cache made one program a grain of
+    the ladder, as `ladder_programs` counts them."""
     pipe = _port(corpus)
     state0, gaze, speech, style = _rows(pipe, 2, n + 1, seed=2)
     s = pipe.stats
@@ -214,6 +219,8 @@ def test_program_ladder_equals_rollout_chunk(corpus, n, quantize_int8):  # noqa:
     for a, b in zip(got + got_carry, ref + ref_carry):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert sum(grain * reps for grain, reps in ladder(n)) == n
+    assert len(pipe.programs.programs()) == ladder_programs([n]) == {37: 3, 16: 1, 3: 1, 0: 0}[n]
 
 
 def test_one_program_equals_rollout_chunk(corpus):  # noqa: F811
@@ -241,13 +248,17 @@ def test_one_program_equals_rollout_chunk(corpus):  # noqa: F811
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_replays_count_the_launches_they_captured(monkeypatch):
-    monkeypatch.setattr(GC, "launches", 0)
-    GC.count_replay(0)
-    assert GC.launches == 0
-    GC.count_replay(16)
-    GC._count_launch()
-    assert GC.launches == 17 and GC.captured_launches() == 0
+def test_replays_count_the_launches_they_captured():
+    """A replay adds what its graph captured; a launch outside a capture
+    adds to the totals and to no stream's tally."""
+    stream = types.SimpleNamespace(cuda_stream=0)
+    before, tally = build.launches()["gru_cell"], profiling.captured(stream)
+    profiling.replayed(Counter())
+    assert build.launches()["gru_cell"] == before
+    profiling.replayed(Counter({"gru_cell.launches": 16}))
+    profiling.count("gru_cell.launches")
+    assert build.launches()["gru_cell"] == before + 17
+    assert profiling.captured(stream) == tally
 
 
 # -- the session's padded tail -------------------------------------------------------

@@ -29,8 +29,9 @@ Tolerances, per clip and for the aggregates:
   variance, plus a quantum (two for the aggregate).
 * The gate verdicts are equal.
 
-`chip_smoke.py`'s `eval_bounds` and `reports_agree` implement these
-bounds; the script holds the evaluation on the card to the CPU's with them.
+`tests/eval_agreement.py`'s `eval_bounds` and `reports_agree` implement
+these bounds; tests/test_torch_cuda.py holds the evaluation on the card to
+the CPU's with them.
 """
 
 import json
@@ -44,7 +45,6 @@ import jax.numpy as jnp
 import optax
 
 import scripts.eval_checkpoint as jax_eval
-from chip_smoke import eval_bounds, reports_agree
 from zeggs_tpu import config as JC
 from zeggs_tpu.io import checkpoint as jax_checkpoint
 from zeggs_tpu.models import decoder as jdec
@@ -56,6 +56,7 @@ from zeggs_tpu_torch.data.pipeline import data_pipeline
 from zeggs_tpu_torch.io import checkpoint, weights
 from zeggs_tpu_torch.infer.programs import ProgramCache
 from zeggs_tpu_torch.train import loop as tloop
+from tests.eval_agreement import eval_bounds, reports_agree
 from tests.synthetic import write_raw_corpus
 
 OPTIONS = {"net_opt": {"decoder": {"nhidden": 32},
@@ -121,10 +122,10 @@ def record_rollouts(monkeypatch):
 
 def assert_reports_agree(ds, ours, ref, rec, node):
     """The port's report against the JAX script's, within the tolerances of
-    the module docstring (`chip_smoke.reports_agree`, which the card's
-    evaluation is held to as well); the readings go to the test ``node``'s
-    properties (the ``--junitxml`` report). Returns the per-clip (d, jerk bound, variance
-    bound)."""
+    the module docstring (`tests/eval_agreement.py::reports_agree`, which
+    the card's evaluation is held to as well); the readings go to the test
+    ``node``'s properties (the ``--junitxml`` report). Returns the per-clip
+    (d, jerk bound, variance bound)."""
     assert len(rec["port"]) == len(rec["jax"]) == ref["n_valid_clips"] == ours["n_valid_clips"]
     bounds = eval_bounds(ds, rec["port"], rec["jax"])
     for name, i in (("max_lpos_diff", 0), ("jerk_ratio_bound", 1), ("var_ratio_bound", 2)):

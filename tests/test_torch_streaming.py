@@ -25,8 +25,7 @@ from zeggs_tpu_torch import config as TC
 from zeggs_tpu_torch.infer import GesturePipeline, generate_gesture
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.ops import quat
-from zeggs_tpu_torch.ops.kernels import gru_cell as GC
-from zeggs_tpu_torch.ops.kernels import mel as MK
+from zeggs_tpu_torch.ops.kernels import build
 from tests.synthetic import write_corpus
 
 NFRAMES = 180
@@ -176,10 +175,10 @@ def test_session_counts_no_launches_on_cpu(corpus):
     the decoder steps it ran: at quantum 16 every chunk is a multiple of 16
     steps, the finish tail padded to that grain."""
     c = corpus
-    before = (MK.launches, GC.launches)
+    before = build.launches()
     sess, _ = _stream(c["pipe"], c["audio"], [(c["clips"][1][0], None)],
                       _chunk_plan(len(c["audio"]), "seconds"), quantum=16)
-    assert (MK.launches, GC.launches) == before
+    assert build.launches() == before
     assert sess.decoder_steps == -(-(NFRAMES - 1) // 16) * 16
 
 

@@ -18,6 +18,7 @@ the CPU, and the train program's replay counters on a card (``-m cuda``).
 import json
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -183,6 +184,25 @@ def test_counters_add_from_many_threads():
     assert not any(t.is_alive() for t in threads)
     delta = _delta(before)
     assert delta["test.adds"] == 16000 and delta["test.seconds"] == 8000.0
+
+
+def test_counts_while_a_stream_captures_wait_for_the_replays(monkeypatch):
+    """While the current stream captures, `count` adds to that stream's
+    tally and not to the totals; the difference of two readings around the
+    capture is what each replay adds, and another stream's tally is apart."""
+    side, other = (types.SimpleNamespace(cuda_stream=h) for h in (0x5EED01, 0x5EED02))
+    before, tally = profiling.counters(), profiling.captured(side)
+    monkeypatch.setattr(profiling, "_capturing_stream", lambda: side.cuda_stream)
+    profiling.count("test.captured", 3)
+    profiling.count("test.seconds", 0.25)
+    monkeypatch.setattr(profiling, "_capturing_stream", lambda: None)
+    counts = profiling.captured(side) - tally
+    assert counts == {"test.captured": 3, "test.seconds": 0.25}
+    assert _delta(before).get("test.captured", 0) == 0 and not profiling.captured(other)
+    for _ in range(2):
+        profiling.replayed(counts)
+    delta = _delta(before)
+    assert delta["test.captured"] == 6 and delta["test.seconds"] == 0.5
     snap = profiling.counters()
     snap["test.adds"] = -1  # a copy: the counters stay
     assert profiling.counters()["test.adds"] != -1

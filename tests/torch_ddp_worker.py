@@ -1,11 +1,14 @@
-"""One process of a two-process gloo group on the CPU for
-tests/test_torch_ddp.py: the port's training CLI with the multi-process
-flags, or with none of them and torchrun's environment (``RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``) set.
+"""One process of a two-process gloo group for tests/test_torch_ddp.py
+(on the CPU) and tests/test_torch_cuda.py (two processes sharing a card):
+the port's training CLI with the multi-process flags, or with none of them
+and torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_RANK``) set.
 
 argv: coordinator_address num_processes process_id options_json
-      max_iterations host_batches(0|1)
-with "env" for each of the first three to take the environment instead.
+      max_iterations host_batches(0|1) [training CLI flags ...]
+with "env" for each of the first three to take the environment instead;
+the flags after them go to the CLI last (``--device cuda`` overrides the
+CPU).
 """
 
 import sys
@@ -24,7 +27,7 @@ def main():
     argv = ["-o", options, "--device", "cpu", "--max-iterations", n_iter]
     if address != "env":
         argv += ["--coordinator-address", address, "--num-processes", nproc, "--process-id", pid]
-    trainer = train.main(argv + (["--host-batches"] if int(host_batches) else []))
+    trainer = train.main(argv + (["--host-batches"] if int(host_batches) else []) + sys.argv[7:])
     print(f"process {trainer.rank} of {trainer.world}, "
           f"local rank {distributed.local_rank()}: done at iteration {trainer.iteration}",
           flush=True)

@@ -34,6 +34,7 @@ from ..infer.generate import INT8_BATCHED_MIN
 from ..infer.programs import OUTPUTS, ProgramCache
 from ..models import decoder
 from ..models import pose as P
+from ..ops.kernels import build
 from ..ops.kernels import decoder_rollout as DR
 from ..train.loop import init_networks
 from . import fixture as FX
@@ -211,7 +212,7 @@ def run(w: FX.Width, device, batches, seconds, b1_runs):
     model = Model(w, device)
     correct, checks = check(model, min(batches), seconds)
     FX.log(f"core checks: {checks} -> {'pass' if correct else 'FAIL'}")
-    FX.reset_counts()
+    before = build.launches()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -241,7 +242,7 @@ def run(w: FX.Width, device, batches, seconds, b1_runs):
     _, _, cold_times = bench(model, cold, fn1, COLD_RUNS, warmup=1)
     lat_cold, lat_cold_p99 = (float(np.percentile(cold_times, q)) for q in (50, 99))
     FX.log(f"B=1 single dispatches: p50 {lat_cold * 1e3:.2f} ms, p99 {lat_cold_p99 * 1e3:.2f} ms")
-    launches = FX.read_counts()
+    launches = build.launches_since(before)
 
     return {
         "platform": "gpu" if device.type == "cuda" else "cpu",

@@ -1,6 +1,6 @@
 """What every bench stage shares: the model's widths, the synthetic inputs
-and serving corpus, the card's description, the kernels' launch counts, the
-stages' arguments and the watchdog.
+and serving corpus, the card's description, the kernels' launch counts by
+phase, the stages' arguments and the watchdog.
 
 The port's own copies of `__graft_entry__.py`'s constants, `_stats` and
 `_initial_state`, and of `scripts/bench_serve.py`'s `_skeleton`, `_motion`
@@ -43,8 +43,6 @@ TINY_JOINTS = 8
 #: the repository's root: stages run from it, and their files go under build/
 REPO = Path(__file__).resolve().parents[2]
 CORPUS_ROOT = REPO / "build" / "bench" / "corpus"
-#: the kernels of the port, by their launch counters
-KERNELS = ("decoder_rollout", "decoder_train", "gru_cell", "mel_spectrogram")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,27 +252,6 @@ def device_summary(device="cuda"):
             "count": torch.cuda.device_count()}
 
 
-def _counters():
-    from ..ops.kernels import decoder_rollout as DR
-    from ..ops.kernels import decoder_train as DT
-    from ..ops.kernels import gru_cell as GC
-    from ..ops.kernels import mel as MK
-
-    return dict(zip(KERNELS, (DR, DT, GC, MK)))
-
-
-def reset_counts():
-    """Set every kernel's launch count to 0."""
-    for module in _counters().values():
-        with module._launches_lock:
-            module.launches = 0
-
-
-def read_counts():
-    """Each kernel's launches since `reset_counts`: {kernel: count}."""
-    return {name: module.launches for name, module in _counters().items()}
-
-
 def missing_launches(counts, required, device):
     """The kernels of ``required`` a run on the card launched no time (on the
     CPU the wrappers run their plain versions and count nothing)."""
@@ -350,15 +327,20 @@ class PhaseCounts:
     starts when the object is made."""
 
     def __init__(self):
-        self.total = dict.fromkeys(KERNELS, 0)
+        from ..ops.kernels import build
+
+        self.total = dict.fromkeys(build.KERNELS, 0)
         self.by_phase = {}
-        reset_counts()
+        self._last = build.launches()
 
     def close(self, phase):
         """The launches since the last close (or the start) belong to
         ``phase``."""
-        counts = read_counts()
-        reset_counts()
+        from ..ops.kernels import build
+
+        now = build.launches()
+        counts = {k: n - self._last[k] for k, n in now.items()}
+        self._last = now
         self.by_phase[phase] = counts
         for k, n in counts.items():
             self.total[k] += n

@@ -46,7 +46,7 @@ lock a device orders the captures and the runs' copies and replays on the
 host, and one event a device orders them on the card, whatever stream
 each caller runs on. A run holds the lock only while it enqueues, so one
 caller enqueues while the card runs another's replays. Each replay counts
-the launches its graph captured (`ops/kernels/gru_cell.py`). A capture or
+what its graph captured (`utils.profiling.replayed`). A capture or
 replay that fails raises: there is no eager fall-back on a card.
 
 On the CPU a program runs its steps eagerly and a finish program runs
@@ -63,7 +63,6 @@ import torch
 
 from ..models import decoder
 from ..ops import quat, xform
-from ..ops.kernels import gru_cell as GC
 from ..utils import profiling
 
 #: the grains a chunk is cut into, largest first (JAX's decoder grain of 16
@@ -72,6 +71,25 @@ GRAINS = (16, 4, 1)
 #: the pose-state entries a chunk emits: root_pos, root_rot, lpos, ltxy
 OUTPUTS = (0, 1, 4, 5)
 _STATS = ("anim_input_mean", "anim_input_std", "anim_output_mean", "anim_output_std")
+
+
+def ladder(n):
+    """The grains that cover ``n`` decoder steps, as
+    `ProgramCache.rollout_chunk` replays them: (grain, replays) pairs,
+    largest grain first."""
+    t = 0
+    while t < n:
+        grain = next(g for g in GRAINS if g <= n - t)
+        reps = (n - t) // grain
+        yield grain, reps
+        t += reps * grain
+
+
+def ladder_programs(lengths):
+    """How many rollout programs `ProgramCache.rollout_chunk` captures for
+    chunks of ``lengths`` decoder steps of one batch size: one a grain that
+    some chunk's ladder uses."""
+    return len({grain for n in lengths for grain, _ in ladder(n)})
 
 
 def with_quaternions(out):
@@ -117,8 +135,9 @@ class DeviceSite:
         """``warm_up()`` eagerly, then ``body()`` captured as a CUDA graph
         (into ``pool``, or a pool of its own), both on the capture stream
         and after the device's last graph work -> (graph, body's outputs,
-        GRU-cell launches captured, bytes the capture reserved, seconds).
-        A failed capture raises. Counts one ``programs.captures``."""
+        the counts captured (`utils.profiling.captured`), bytes the capture
+        reserved, seconds). A failed capture raises. Counts one
+        ``programs.captures``."""
         profiling.count("programs.captures")
         with profiling.annotate("zeggs:program.capture"), self.lock:
             t0 = time.perf_counter()
@@ -128,7 +147,7 @@ class DeviceSite:
             with torch.cuda.stream(side):
                 warm_up()  # every kernel loaded on this stream
                 reserved = torch.cuda.memory_reserved(self.device)
-                captured = GC.captured_launches()
+                captured = profiling.captured(side)
                 graph = torch.cuda.CUDAGraph()
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
@@ -142,7 +161,7 @@ class DeviceSite:
                 graph.capture_end()
             self.done.record(side)
             torch.cuda.current_stream(self.device).wait_stream(side)
-            return (graph, outs, GC.captured_launches() - captured,
+            return (graph, outs, profiling.captured(side) - captured,
                     torch.cuda.memory_reserved(self.device) - reserved, time.perf_counter() - t0)
 
 
@@ -171,7 +190,7 @@ class RolloutProgram:
         self.rows = state[0].shape[0]
         self.capture_seconds = 0.0
         self.graph_bytes = 0  # static buffers and the graph's memory pool
-        self.launches = 0  # GRU-cell launches a replay runs
+        self.counts = {}  # what a replay counts (`utils.profiling.replayed`)
         if self.device.type != "cuda":
             return
         self._site = device_site(self.device)
@@ -199,7 +218,7 @@ class RolloutProgram:
         return outs
 
     def _capture(self):
-        self._graph, self._outs, self.launches, reserved, self.capture_seconds = \
+        self._graph, self._outs, self.counts, reserved, self.capture_seconds = \
             self._site.capture(lambda: self._body(1), lambda: self._body(self.steps),
                                f"the rollout program of {self.rows} rows and {self.steps} steps")
         self.graph_bytes += reserved
@@ -232,7 +251,7 @@ class RolloutProgram:
                 self._graph.replay()
                 for o, s in zip(outs, self._outs):
                     o[:, t : t + self.steps].copy_(s)
-                GC.count_replay(self.launches)
+                profiling.replayed(self.counts)
             state = tuple(s.clone() for s in self._state)
             self._site.done.record(stream)
         return state
@@ -377,9 +396,7 @@ class ProgramCache:
         outs = tuple(torch.empty((B, n) + tuple(state[2 + i].shape[1:]), dtype=state[2 + i].dtype,
                                  device=state[2 + i].device) for i in OUTPUTS)
         t = 0
-        while t < n:
-            steps = next(g for g in GRAINS if g <= n - t)
-            reps = (n - t) // steps
+        for steps, reps in ladder(n):
             program = self.program(state, steps, quantize_int8, slot)
             state = program.run(state, gaze_pos, pre_l0, pre_g0, outs, t, reps)
             t += reps * steps

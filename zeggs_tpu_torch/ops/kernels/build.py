@@ -20,13 +20,16 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ...utils import profiling
+
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "zeggs_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: every csrc/<name>.cu of the port
+#: every csrc/<name>.cu of the port; its wrapper counts its launches as
+#: the `utils.profiling` counter ``<name>.launches``
 KERNELS = ("decoder_rollout", "decoder_train", "gru_cell", "mel_spectrogram")
 _load_lock = threading.Lock()
 
@@ -83,3 +86,15 @@ def load(name):
     to call from several threads: the first call builds, the others wait."""
     with _load_lock:
         return _load(name)
+
+
+def launches():
+    """Each kernel's launches in this process so far, read from the
+    `utils.profiling` counters: {kernel: count}."""
+    totals = profiling.counters()
+    return {name: totals.get(f"{name}.launches", 0) for name in KERNELS}
+
+
+def launches_since(before):
+    """Each kernel's launches since the reading ``before`` (`launches`)."""
+    return {name: n - before[name] for name, n in launches().items()}

@@ -1,6 +1,7 @@
 """Whole B=1 decoder rollout in one launch: the CUDA kernel
-(csrc/decoder_rollout.cu), its weight packer, its plain PyTorch version and
-its launch count.
+(csrc/decoder_rollout.cu), its weight packer and its plain PyTorch version.
+Each launch counts one ``decoder_rollout.launches`` (`utils.profiling`); the
+plain version counts nothing.
 
 Replaces `zeggs_tpu/ops/pallas/decoder_kernel.py::rollout_fused_b1`. Each of
 the T-1 steps rotates the gaze into the root frame and normalises the
@@ -33,27 +34,14 @@ import ctypes
 import dataclasses
 import functools
 import heapq
-import threading
 
 import numpy as np
 import torch
 
 from ...models.layers import gru_gates
+from ...utils import profiling
 from .. import quat
 from . import build
-
-#: launches of the CUDA kernel in this process; the plain version on CPU
-#: tensors does not count
-launches = 0
-_launches_lock = threading.Lock()
-
-
-def _count_launch():
-    """Add one to `launches`; wrappers launch from several threads at once."""
-    global launches
-    with _launches_lock:
-        launches += 1
-
 
 #: weight dtype -> the kernel's instantiation
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -538,7 +526,7 @@ def rollout_b1(packed: PackedDecoder, cond_l0, cond_g0, gaze, p0, h_init, root0,
             plan.smem_bytes, float(dt), stream,
         )
     _raise_for(err, "decoder_rollout kernel")
-    _count_launch()
+    profiling.count("decoder_rollout.launches")
     return out
 
 

@@ -37,11 +37,9 @@ remat, int8 nor ``output_indices``. On CPU tensors every step op is its
 plain PyTorch version (`PlainOps`, any float dtype); on CUDA tensors the
 kernels run (`CudaOps`, float32), and anything they do not take raises.
 
-Counts: `launches` counts the kernels that ran on the card (a launch
-captured into a CUDA graph counts when the graph replays: `captured`,
-`count_replay`); the `utils.profiling` counters ``decoder_bptt.forwards``
-and ``decoder_bptt.backwards`` count the Function's passes, on either
-device.
+Counts (`utils.profiling`): each kernel launch counts one
+``decoder_train.launches``; ``decoder_bptt.forwards`` and
+``decoder_bptt.backwards`` count the Function's passes, on either device.
 """
 
 from __future__ import annotations
@@ -49,7 +47,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from typing import NamedTuple
 
 import torch
@@ -60,70 +57,6 @@ from ...models.layers import gru_gates
 from ...utils import profiling
 from .. import quat
 from . import build
-
-#: launches of the CUDA kernels in this process: the kernels that ran on the
-#: card. The plain versions do not count, nor does a launch captured into a
-#: CUDA graph; each replay of the graph counts what it captured
-#: (`count_replay`)
-launches = 0
-_launches_lock = threading.Lock()
-
-
-class Counts(NamedTuple):
-    """Kernel launches and the Function's passes."""
-
-    launches: int = 0
-    forwards: int = 0
-    backwards: int = 0
-
-    def __sub__(self, other):
-        return Counts(*(a - b for a, b in zip(self, other)))
-
-
-#: what each capture stream has captured (the backward runs on the
-#: autograd engine's thread, on the forward's stream, so counts are kept by
-#: stream and not by thread)
-_captured: dict[int, Counts] = {}
-
-
-def captured(stream=None) -> Counts:
-    """What has been captured into CUDA graphs on ``stream`` (the current
-    stream by default) so far: a graph holds the difference of two
-    readings around its capture."""
-    if stream is None:
-        stream = torch.cuda.current_stream()
-    with _launches_lock:
-        return _captured.get(stream.cuda_stream, Counts())
-
-
-def _count_launch(n=1):
-    """Add ``n`` to `launches`; wrappers launch from several threads at once."""
-    global launches
-    with _launches_lock:
-        launches += n
-
-
-def count_replay(counts: Counts):
-    """One replay of a graph that captured ``counts`` ran them all."""
-    if counts.launches:
-        _count_launch(counts.launches)
-    if counts.forwards:
-        profiling.count("decoder_bptt.forwards", counts.forwards)
-    if counts.backwards:
-        profiling.count("decoder_bptt.backwards", counts.backwards)
-
-
-def _count(device, n_launches=0, forwards=0, backwards=0):
-    """Count now, or, while the current stream captures, for its replays."""
-    counts = Counts(n_launches, forwards, backwards)
-    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        key = torch.cuda.current_stream(device).cuda_stream
-        with _launches_lock:
-            _captured[key] = Counts(*(a + b for a, b in zip(_captured.get(key, Counts()),
-                                                            counts)))
-        return
-    count_replay(counts)  # ran now
-
 
 # -- the backward of `ops/quat.py`'s functions --------------------------------
 
@@ -340,7 +273,7 @@ def _launch(name, ref, *args):
     if err != 0:
         raise RuntimeError(f"decoder_train {name} kernel failed: CUDA error {err} "
                            f"({lib.zeggs_dt_error_string(err).decode()})")
-    _count(ref.device, n_launches=1)
+    profiling.count("decoder_train.launches")
 
 
 def _contiguous_rows(*ts):
@@ -491,7 +424,7 @@ class DecoderBPTT(torch.autograd.Function):
             ops.pose_fwd(out, mean_out, std_out, None, rp, rr, P[:, t], RP[:, t],
                          RR[:, t], None if last else gaze[:, t + 1], mean_in, std_in,
                          None if last else pose[t + 1], dt)
-        _count(x0.device, forwards=1)
+        profiling.count("decoder_bptt.forwards")
         ctx.dt = dt
         ctx.bufs = (pose, act, hid, hs0, hs1, gates0, gates1)
         ctx.save_for_backward(rp0, rr0, gaze, P, RP, RR, mean_in, std_in, std_out, *weights)
@@ -559,7 +492,7 @@ class DecoderBPTT(torch.autograd.Function):
             if t > 0 or first_pose:
                 torch.mm(d_a[t], w_pose_t.t(), out=dpose)
                 boundary(t)
-        _count(rp0.device, backwards=1)
+        profiling.count("decoder_bptt.backwards")
 
         rows = T * B
 

@@ -1,6 +1,7 @@
 """One GRU step with PyTorch's equations: the CUDA kernel
-(csrc/gru_cell.cu), its weight packing, its plain PyTorch version and its
-launch count.
+(csrc/gru_cell.cu), its weight packing and its plain PyTorch version. Each
+launch counts one ``gru_cell.launches`` (`utils.profiling`); the plain
+version counts nothing.
 
 Replaces `zeggs_tpu/ops/pallas/gru_kernel.py::fused_gru_cell`:
 
@@ -29,41 +30,12 @@ import ctypes
 import dataclasses
 import functools
 import math
-import threading
 
 import torch
 import torch.nn as nn
 
+from ...utils import profiling
 from . import build
-
-#: launches of the CUDA kernel in this process: the kernels that ran on the
-#: card. The plain version on CPU tensors does not count, nor does a launch
-#: captured into a CUDA graph; each replay of the graph counts the launches
-#: it captured (`count_replay`)
-launches = 0
-_launches_lock = threading.Lock()
-#: launches captured by this thread's current CUDA graph capture
-_captured = threading.local()
-
-
-def _count_launch(n=1):
-    """Add ``n`` to `launches`; wrappers launch from several threads at once."""
-    global launches
-    with _launches_lock:
-        launches += n
-
-
-def captured_launches():
-    """Launches this thread has captured into CUDA graphs so far: a graph
-    holds the difference of two readings around its capture."""
-    return getattr(_captured, "n", 0)
-
-
-def count_replay(n):
-    """One replay of a graph that captured ``n`` launches ran them all."""
-    if n:
-        _count_launch(n)
-
 
 @dataclasses.dataclass
 class PackedGRU:
@@ -221,12 +193,8 @@ def fused_gru_cell(p: PackedGRU, x, h):
             p.b_rz.data_ptr(), p.b_in.data_ptr(), p.b_hn.data_ptr(), out.data_ptr(),
             B, in_dim, H, gru_plan(B, in_dim, H).tile, torch.cuda.current_stream(dev).cuda_stream,
         )
-        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"gru_cell kernel failed: CUDA error {err} "
                            f"({lib.zeggs_gru_cell_error_string(err).decode()})")
-    if capturing:
-        _captured.n = captured_launches() + 1  # runs only when its graph is replayed
-    else:
-        _count_launch()
+    profiling.count("gru_cell.launches")
     return out

@@ -1,6 +1,7 @@
 """Fused STFT magnitude + mel filterbank + dB: the CUDA kernel
-(csrc/mel_spectrogram.cu), its FFT plan and constants, its plain PyTorch
-version and its launch count.
+(csrc/mel_spectrogram.cu), its FFT plan and constants, and its plain PyTorch
+version. Each launch counts one ``mel_spectrogram.launches``
+(`utils.profiling`); the plain version counts nothing.
 
 Replaces `zeggs_tpu/ops/pallas/mel_kernel.py::fused_mel_spectrogram`. The
 core takes a signal that is already padded (and pre-emphasised) and a frame
@@ -27,26 +28,13 @@ import ctypes
 import dataclasses
 import functools
 import math
-import threading
 
 import numpy as np
 import torch
 
 from ...config import MelConfig
+from ...utils import profiling
 from . import build
-
-#: launches of the CUDA kernel in this process; the plain version on CPU
-#: tensors does not count
-launches = 0
-_launches_lock = threading.Lock()
-
-
-def _count_launch():
-    """Add one to `launches`; wrappers launch from several threads at once."""
-    global launches
-    with _launches_lock:
-        launches += 1
-
 
 #: radices with a butterfly of their own in the kernel, in the order the
 #: plan takes them; any other prime factor is one generic stage
@@ -283,5 +271,5 @@ def _launch(x, n_frames, c: MelConsts, groups, force_global=False):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_for(err)
-    _count_launch()
+    profiling.count("mel_spectrogram.launches")
     return out

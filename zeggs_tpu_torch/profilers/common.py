@@ -20,8 +20,7 @@ import torch
 
 from ..bench import fixture as FX
 from ..bench.train import graph_kernels
-from ..ops.kernels import decoder_train as DT
-from ..ops.kernels import gru_cell as GC
+from ..utils import profiling
 
 WARMUP = 2
 STEP_WARMUP = 2  # a TrainProgram's untimed runs: the eager first step, then the capture
@@ -88,8 +87,8 @@ class Graphed:
     `torch.Generator` on the card that ``fn`` draws from, registered with
     the graph. Calling the object replays the graph and returns ``fn``'s
     outputs of the capture (overwritten by every replay); each replay
-    counts the GRU-cell launches and the training rollout's launches and
-    passes it captured. ``kernels``: the graph's kernel nodes."""
+    counts what the capture counted (``counts``, `utils.profiling.replayed`).
+    ``kernels``: the graph's kernel nodes."""
 
     def __init__(self, fn, device, what, generator=None):
         side = torch.cuda.Stream(device)
@@ -97,7 +96,7 @@ class Graphed:
         with torch.cuda.stream(side):
             fn()
         torch.cuda.synchronize(device)
-        captured, bptt = GC.captured_launches(), DT.captured(side)
+        captured = profiling.captured(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
             graph.register_generator_state(generator)
@@ -115,14 +114,12 @@ class Graphed:
         graph.instantiate()
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = graph
-        self.gru_launches = GC.captured_launches() - captured
-        self.bptt_counts = DT.captured(side) - bptt
+        self.counts = profiling.captured(side) - captured
         self.kernels = graph_kernels(graph)[0]
 
     def __call__(self):
         self.graph.replay()
-        GC.count_replay(self.gru_launches)
-        DT.count_replay(self.bptt_counts)
+        profiling.replayed(self.counts)
         return self.outs
 
 
@@ -236,9 +233,3 @@ def on(device, arrays):
     if isinstance(arrays, dict):
         return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
     return tuple(torch.as_tensor(v, device=device) for v in arrays)
-
-
-def launches_since(before):
-    """Each kernel's launches since the reading ``before``
-    (`bench.fixture.read_counts`), without resetting the counters."""
-    return {k: n - before[k] for k, n in FX.read_counts().items()}

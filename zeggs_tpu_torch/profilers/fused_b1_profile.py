@@ -36,6 +36,7 @@ from ..bench import fixture as FX
 from ..device import HBM_BYTES_PER_S
 from ..infer.programs import OUTPUTS, ProgramCache
 from ..models import decoder
+from ..ops.kernels import build
 from ..train.loop import init_networks
 from . import common
 
@@ -78,16 +79,16 @@ def run(seconds, device, reps, tiny=False):
         def picked(o):
             return tuple(o[i] for i in OUTPUTS)
 
-        counts = FX.read_counts()
+        counts = build.launches()
         out["scan"] = common.timed(lambda: programs.rollout(*args), device, reps)
-        out["scan_launches"] = common.launches_since(counts)
+        out["scan_launches"] = build.launches_since(counts)
         t_scan = out["scan"]["host_ms"]
         print(f"scan (fp32 programs): {common.line(out['scan'])} for {seconds:g}s clip",
               flush=True)
         for key, fn, label in (("fused_bf16", fused, "bf16"), ("fused_int8", fused8, "int8")):
-            counts = FX.read_counts()
+            counts = build.launches()
             out[key] = common.timed(lambda: fn(*args), device, reps)
-            out[f"{key}_launches"] = common.launches_since(counts)
+            out[f"{key}_launches"] = build.launches_since(counts)
             print(f"fused kernel ({label}): {common.line(out[key])}  "
                   f"({t_scan / out[key]['host_ms']:.2f}x)", flush=True)
 

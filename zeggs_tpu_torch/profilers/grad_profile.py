@@ -38,6 +38,7 @@ import torch
 
 from ..bench import fixture as FX
 from ..models import decoder
+from ..ops.kernels import build
 from ..train import loop
 from ..train.loss import compute_loss
 from . import common
@@ -174,9 +175,9 @@ def run(which, device, reps, tiny=False):
 def main(argv=None):
     ap = common.parser(__doc__.splitlines()[0], SECTIONS, reps=5)
     args, device = common.parse(ap, argv)
-    before = FX.read_counts()
+    before = build.launches()
     out = run(args.which, device, args.reps, args.tiny)
-    out["launches"] = common.launches_since(before)
+    out["launches"] = build.launches_since(before)
     out["device"] = FX.device_summary(device)
     print("GRADPROFILE_DONE", flush=True)
     return out

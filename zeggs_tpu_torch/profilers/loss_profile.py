@@ -22,6 +22,7 @@ import torch
 from ..bench import fixture as FX
 from ..models import decoder
 from ..ops import fk, quat
+from ..ops.kernels import build
 from ..train.loop import POSE_KEYS, init_networks
 from ..train.loss import compute_loss
 from . import common
@@ -69,9 +70,9 @@ def run(which, device, reps, tiny=False):
 def main(argv=None):
     ap = common.parser(__doc__.splitlines()[0], SECTIONS, reps=10)
     args, device = common.parse(ap, argv)
-    before = FX.read_counts()
+    before = build.launches()
     out = run(args.which, device, args.reps, args.tiny)
-    out["launches"] = common.launches_since(before)
+    out["launches"] = build.launches_since(before)
     out["device"] = FX.device_summary(device)
     print("LOSSPROFILE_DONE", flush=True)
     return out

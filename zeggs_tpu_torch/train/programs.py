@@ -60,7 +60,6 @@ import torch
 
 from ..infer.programs import device_site
 from ..models.layers import RowShard
-from ..ops.kernels import decoder_train as DT
 from ..parallel import distributed
 from ..utils import profiling
 
@@ -93,9 +92,9 @@ class TrainProgram:
         self.steps = 0
         self.capture_seconds = 0.0
         self.graph_bytes = 0  # the graphs' memory pools
-        # the decoder rollout's kernel launches and passes a replay runs
-        # (`ops/kernels/decoder_train.py`): counted at each replay
-        self.bptt_counts = DT.Counts()
+        # what a replay counts (`utils.profiling.replayed`): the training
+        # rollout's kernel launches and passes
+        self.counts = {}
         # one graph (one process) or two (A, B); each keeps its captured
         # cudaGraph_t beside the executable (``keep_graph``), so that a
         # caller can count its nodes (`CUDAGraph.raw_cuda_graph`)
@@ -248,7 +247,7 @@ class TrainProgram:
         bodies = ([self._forward_backward, self._update] if self.several
                   else [lambda: (self._forward_backward(), self._update())[0]])
         graphs, outs = [], []
-        bptt_before = DT.captured()
+        captured = profiling.captured(torch.cuda.current_stream(self.device))
         for i, body in enumerate(bodies):
             profiling.count("programs.captures")
             graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -267,7 +266,7 @@ class TrainProgram:
             graph.instantiate()
             graphs.append(graph)
         self.graphs, self._metrics = graphs, outs[0]
-        self.bptt_counts = DT.captured() - bptt_before
+        self.counts = profiling.captured(torch.cuda.current_stream(self.device)) - captured
         self.graph_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.capture_seconds = time.perf_counter() - t0
 
@@ -287,7 +286,7 @@ class TrainProgram:
                 self._average(self._metrics)
                 self.graphs[1].replay()
             launched = time.perf_counter() - t0
-            DT.count_replay(self.bptt_counts)
+            profiling.replayed(self.counts)
             profiling.count("train.replays")
             profiling.count("train.replay_s", launched)
             metrics = self._metrics.clone()

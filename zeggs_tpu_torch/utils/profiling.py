@@ -17,11 +17,22 @@ time only): spans wrap the calls that replay graphs.
 
 Counters. `count` adds to a process-wide counter, always on, under one
 lock; `counters` is a snapshot. Each reading is a total since the process
-started, so a reader of a stretch takes two and subtracts.
+started, so a reader of a stretch takes two and subtracts. Each kernel
+wrapper of `ops/kernels/` counts its launches as ``<kernel>.launches``
+(names from `ops.kernels.build.KERNELS`).
+
+Work captured into a CUDA graph runs at each replay, not when it is
+captured. So while the current CUDA stream captures, `count` adds to that
+stream's tally and not to the totals. The tally is kept by stream, not by
+thread: a backward that the autograd engine runs on its own thread during
+a capture runs on the forward's stream, and lands in the same graph. A
+graph's owner takes two readings of the tally around its capture
+(`captured`); each replay adds their difference back (`replayed`).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -32,6 +43,8 @@ import torch
 
 _lock = threading.Lock()
 _counters = {}
+#: capture stream's handle -> what `count` added while the stream captured
+_captured = {}
 #: open `trace` contexts: while any is open, every thread's spans are made
 _tracing = 0
 _OFF = contextlib.nullcontext()
@@ -46,16 +59,42 @@ def annotate(name, rid=None):
     return torch.profiler.record_function(name if rid is None else f"{name}#{rid}")
 
 
+def _capturing_stream():
+    """The current CUDA stream's handle while it captures a graph, else None."""
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        return torch.cuda.current_stream().cuda_stream
+    return None
+
+
 def count(name, n=1):
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name``, or, while the current CUDA stream
+    captures a graph, to that stream's tally."""
+    stream = _capturing_stream()
     with _lock:
-        _counters[name] = _counters.get(name, 0) + n
+        store = _counters if stream is None else _captured.setdefault(stream, {})
+        store[name] = store.get(name, 0) + n
 
 
 def counters():
     """A copy of every counter: {name: total since the process started}."""
     with _lock:
         return dict(_counters)
+
+
+def captured(stream):
+    """A reading of ``stream``'s capture tally: a `collections.Counter` of
+    what `count` has added while the stream captured. The difference of two
+    readings around a capture is what each replay of its graph counts."""
+    with _lock:
+        return collections.Counter(_captured.get(stream.cuda_stream, {}))
+
+
+def replayed(counts):
+    """Count one replay of a graph that captured ``counts`` (the difference
+    of two `captured` readings): add each to its counter."""
+    with _lock:
+        for name, n in counts.items():
+            _counters[name] = _counters.get(name, 0) + n
 
 
 def _all_threads():
