@@ -25,7 +25,10 @@ example and label styles, batched requests against single ones; a request
 against the CPU; a streaming session against the offline request; the
 daemon's coalesced /synthesize (also over a mesh) and a stream over HTTP;
 only copies after a chunk's finish program; the corpus pipeline's mel
-launches; two processes sharing the card against one. The rollout
+launches; two processes sharing the card against one. The bake program
+(the BVH's channels of a 16 x 1024 chunk at 75 joints) against the stage
+on the CPU (positions 1e-4 cm, Euler degrees 1e-3 where well
+conditioned), a replay bit for bit the eager stage. The rollout
 programs (CUDA graphs of the decoder step) equal the eager chunk within
 1e-6, count their replays' launches, raise where the step cannot be
 captured, and give the single-thread result when two threads replay at
@@ -513,6 +516,56 @@ def test_finish_outputs_outlive_the_next_replay(device):
     assert _max_diff([g.float() for g in first], [g.float() for g in second]) > 0.0
 
 
+def test_bake_graph_equals_the_stage_on_the_cpu(device):
+    """The bake program for a chunk of 16 x 1024 frames at v1's 75 joints,
+    on unit quaternions and positions at the scale of a rollout, against
+    the same stage (`programs.bake`) on the CPU: positions within 1e-4 cm;
+    rotations, as the matrices of their Euler angles, within 1e-4
+    everywhere (float32's own error: 2.3e-5 against float64 on the CPU, at
+    the asin of gimbal lock), and as Euler degrees within 1e-3 where the
+    decomposition is well conditioned (|cos pitch| >= 0.05: an ulp of a
+    quaternion turns yaw and roll by at most ~20 ulps there; at gimbal lock
+    by any amount, on the host path as on the card). A replay equals the
+    eager stage on the card bit for bit."""
+    from zeggs_tpu_torch.infer.programs import FinishProgram, bake
+    from zeggs_tpu_torch.ops import quat
+
+    B, T, J = 16, 1024, 75
+    g = torch.Generator().manual_seed(31)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    def unit(*shape):
+        q = draw(*shape, 4)
+        return q / q.norm(dim=-1, keepdim=True)
+
+    host = (draw(B, T, 3, scale=100.0), unit(B, T), draw(B, T, J, 3, scale=10.0), unit(B, T, J))
+    on_card = tuple(t.to(device) for t in host)
+    with torch.inference_mode():
+        program = FinishProgram(on_card, bake)
+        got = program.run(on_card)
+        eager = bake(on_card)
+        torch.cuda.synchronize()
+        want = bake(host)
+    assert [tuple(t.shape) for t in got] == [(B, T, J, 3), (B, T, J, 3)]
+    assert all(t.dtype == torch.float32 for t in got)
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+    positions, rotations = (t.cpu() for t in got)
+    assert (positions - want[0]).abs().max() <= 1e-4
+
+    def matrices(deg):
+        return quat.to_xform(quat.from_euler(torch.deg2rad(deg.double()), "zyx"))
+
+    assert (matrices(rotations) - matrices(want[1])).abs().max() <= 1e-4
+    degrees = ((rotations - want[1] + 180.0) % 360.0 - 180.0).abs()
+    conditioned = torch.cos(torch.deg2rad(want[1][..., 1])).abs() >= 0.05
+    print(f"bake, card against CPU: positions {(positions - want[0]).abs().max():.3e} cm, "
+          f"degrees {degrees[conditioned].max():.3e} (all {degrees.max():.3e})")
+    assert degrees[conditioned].max() <= 1e-3
+
+
 def test_launch_counter_counts_replays(device):
     """A capture adds nothing and its one eager warm-up step adds one
     GRU-cell launch; each replay adds the launches its graph captured. 40
@@ -849,8 +902,9 @@ def test_pipelined_chunks_on_the_card(small_models, tmp_path, monkeypatch):
     memory, collected two dispatches late): at depth 2 the BVHs of depth 0,
     text for text, in request order; over a mesh of two replicas on cuda:0
     within the pose MAE budget of 1e-3; at float16 transfer within
-    tests/test_batch_infer.py's float16 bounds, each chunk pulling half the
-    bytes it pulls at float32."""
+    tests/test_batch_infer.py's float16 bounds, each chunk pulling the bytes
+    it pulls at float32: the float32 channels that its bake program
+    computes on the card."""
     from zeggs_tpu_torch.infer import GesturePipeline
     from zeggs_tpu_torch.infer import batch as B
     from zeggs_tpu_torch.infer.batch import Request, generate_batch
@@ -879,7 +933,7 @@ def test_pipelined_chunks_on_the_card(small_models, tmp_path, monkeypatch):
         written = generate_batch(pipe, reqs, tmp_path / tag, bucket=64, max_batch=2, mesh=mesh)
         assert [p.name for p in written] == names, tag
     assert len(pulled["depth2"]) == 4
-    assert pulled["depth2"] == [2 * n for n in pulled["float16"]]
+    assert pulled["depth2"] == pulled["float16"]
     for name in names:
         a = bvh.load(tmp_path / "depth2" / name)
         assert (tmp_path / "depth2" / name).read_text() == (tmp_path / "depth0" / name).read_text()
@@ -1231,9 +1285,9 @@ def _launches_after_last_replay(prof):
 def test_after_a_chunks_finish_program_only_copies_run(small_models, tmp_path):
     """The 10 and 12 s clips as one chunk (T_pad 1024) at float16 transfer,
     its programs captured by a first run, under torch.profiler: one graph
-    launch a grain replay of the 1023 steps and one for the finish program;
-    after the last, the host launches nothing but the copies of the
-    outputs (`aten::copy_`)."""
+    launch a grain replay of the 1023 steps, one for the finish program and
+    one for the bake program; after the last, the host launches nothing but
+    the copies of the outputs (`aten::copy_`)."""
     from zeggs_tpu_torch.infer import GesturePipeline
     from zeggs_tpu_torch.infer.batch import Request, generate_batch
     from zeggs_tpu_torch.infer.programs import ladder
@@ -1251,7 +1305,7 @@ def test_after_a_chunks_finish_program_only_copies_run(small_models, tmp_path):
         generate_batch(pipe, reqs, tmp_path / "profiled")
         torch.cuda.synchronize()
     graphs, after = _launches_after_last_replay(prof)
-    assert graphs == sum(reps for _, reps in ladder(1023)) + 1
+    assert graphs == sum(reps for _, reps in ladder(1023)) + 2
     assert after and all(op == "aten::copy_" for _, op in after), after
 
 

@@ -14,7 +14,12 @@ program's output stage against `with_quaternions` of the eager
 against zeggs_tpu's `generate_batch`, the paths in the same order and each
 BVH within tests/test_torch_batch.py's batched budget (BVH channels atol
 2e-3, rotations as matrix entries); chunks collected at depth 2 against
-depth 0, bit for bit.
+depth 0, bit for bit. The BVH's channels on the device, which
+`generate_batch` computes after each chunk's output stage:
+`utils.bvh_channels` over a batch against each clip's host path to float32
+rounding, `generate_batch`'s BVHs against `write_result`'s of the same
+rollouts within 1e-5 (and two float32 ulps), and the ``bvh.device_bakes`` /
+``bvh.host_bakes`` counters of both paths.
 """
 
 import csv
@@ -35,6 +40,7 @@ from zeggs_tpu_torch.infer.programs import ProgramCache, output_stage, with_quat
 from zeggs_tpu_torch.models import decoder as D
 from zeggs_tpu_torch.ops import quat
 from zeggs_tpu_torch.parallel import create_mesh
+from zeggs_tpu_torch.utils import bvh_channels, profiling, save_channels, write_bvh
 from tests.synthetic import make_audio
 from tests.test_torch_batch import ATOL, BUCKET, NFRAMES, _matrices, _port, _rollout_inputs
 from tests.test_torch_batch import corpus  # noqa: F401
@@ -46,6 +52,9 @@ MAX_BATCH = 2
 # rotation composes three such quaternions: the angle between a float16
 # transfer's rotations (normalised on the host) and float32's
 F16_ROTATION_DEG = 0.2
+#: two float32 ulps, relative: the rounding by which the same float32 math
+#: may differ on another shape
+F32_ULPS = 2.4e-7
 
 
 @pytest.fixture(scope="module")
@@ -257,8 +266,9 @@ def test_program_output_stage_is_the_eager_one_bit_for_bit(corpus, dtype):  # no
 @pytest.mark.parametrize("mesh", [None, 2], ids=["one_device", "mesh_of_two"])
 def test_warmup_makes_every_finish_program(corpus, requests_csv, tmp_path, mesh):  # noqa: F811
     """`warmup` over the seven requests' lengths makes one finish program
-    for each planned (B_pad, T_pad), of a block's rows under a mesh (the
-    blocks share it), and `generate_batch` afterwards makes none."""
+    and one bake program for each planned (B_pad, T_pad), of a block's rows
+    under a mesh (the blocks share them), and `generate_batch` afterwards
+    makes none."""
     pipe = _port(corpus)
     mesh = None if mesh is None else create_mesh(devices=["cpu"] * mesh)
     n_dev = 1 if mesh is None else mesh.size
@@ -267,5 +277,104 @@ def test_warmup_makes_every_finish_program(corpus, requests_csv, tmp_path, mesh)
     want = {(b // n_dev, t, torch.float32) for t, b in out["compiled"]}
     assert out["complete"] and len(want) == len(out["compiled"]) >= 2
     assert {key[1:] for key, _ in pipe.programs.finishes()} == want
+    assert {key[1:] for key, _ in pipe.programs.bakes()} == want
     generate_batch(pipe, requests_csv, tmp_path, bucket=BUCKET, max_batch=MAX_BATCH, mesh=mesh)
     assert {key[1:] for key, _ in pipe.programs.finishes()} == want
+    assert {key[1:] for key, _ in pipe.programs.bakes()} == want
+
+
+# -- the BVH's channels on the device ----------------------------------------------
+
+
+def _model_space(rng, shape, J):
+    """Random (root_pos, root_rot, lpos, lrot) of ``shape`` = (..., T), unit
+    quaternions, float32."""
+    def unit(*s):
+        q = rng.normal(size=s + (4,))
+        return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+    return tuple(torch.as_tensor(a, dtype=torch.float32) for a in (
+        rng.normal(size=shape + (3,)) * 50.0, unit(*shape), rng.normal(size=shape + (J, 3)) * 10.0,
+        unit(*shape, J)))
+
+
+def test_bvh_channels_of_a_batch_equal_each_clips_host_path(tmp_path):
+    """`bvh_channels` over a (3, 90) batch, re-anchored to the origin and
+    the identity, equals row by row the channels of each clip alone, as `write_bvh`
+    computes them on the host, to float32 rounding; and the written files
+    read back alike."""
+    B, T, J = 3, 90, 8
+    parents, names = [-1, 0, 1, 2, 3, 4, 3, 6], [f"j{j}" for j in range(J)]
+    clips = _model_space(np.random.default_rng(5), (B, T), J)
+    positions, rotations = bvh_channels(*clips, reanchor=True)
+    assert positions.shape == rotations.shape == (B, T, J, 3)
+    for b in range(B):
+        p, r = bvh_channels(*(x[b] for x in clips), reanchor=True)
+        torch.testing.assert_close(positions[b], p, rtol=1.3e-6, atol=1e-5)
+        torch.testing.assert_close(rotations[b], r, rtol=1.3e-6, atol=1e-5)
+        write_bvh(tmp_path / f"host{b}.bvh", *(x[b].numpy() for x in clips), parents, names,
+                  start_position=np.zeros(3), start_rotation=np.array([1.0, 0.0, 0.0, 0.0]))
+        save_channels(tmp_path / f"batch{b}.bvh", positions[b].numpy(), rotations[b].numpy(),
+                      parents, names)
+        host, batch = bvh.load(tmp_path / f"host{b}.bvh"), bvh.load(tmp_path / f"batch{b}.bvh")
+        for key in ("offsets", "positions", "rotations"):
+            np.testing.assert_allclose(batch[key], host[key], atol=1e-5, rtol=0)
+
+
+def test_generate_batch_writes_the_bvhs_of_the_host_path(corpus, requests_csv, tmp_path,  # noqa: F811
+                                                          monkeypatch):
+    """The seven requests through `generate_batch`, whose chunks' channels
+    are computed on the device, against each chunk's rollout on the same
+    inputs written by `write_result` (the host path): the BVHs read back
+    within 1e-5 and F32_ULPS of the value (the same float32 math, whose
+    vectorised and scalar loops split a chunk of T_pad frames at other
+    elements than a clip of n: an element may differ by an ulp, 1.5e-5 at
+    128)."""
+    pipe = _port(corpus)
+    rollout_batch, chunks = pipe.rollout_batch, []
+
+    def recorded(*args):
+        out = rollout_batch(*args)
+        chunks.append(args)
+        return out
+
+    monkeypatch.setattr(pipe, "rollout_batch", recorded)
+    written = iter(generate_batch(pipe, requests_csv, tmp_path / "batch", bucket=BUCKET,
+                                  max_batch=MAX_BATCH))
+    monkeypatch.undo()
+    n_written = 0
+    for args in chunks:  # every chunk is full: 4 + 3 requests in chunks of at most two
+        with torch.inference_mode():
+            out = pipe.rollout_batch(*args)
+        for row in range(out[0].shape[0]):
+            path = next(written)
+            n = _frames(path.stem)
+            host = pipe.write_result(tmp_path / "host", path.stem,
+                                     tuple(t[row : row + 1, :n] for t in out))
+            a, b = bvh.load(path), bvh.load(host)
+            assert a["rotations"].shape == (n, 8, 3)
+            for key in ("offsets", "positions", "rotations"):
+                np.testing.assert_allclose(a[key], b[key], atol=1e-5, rtol=F32_ULPS)
+            n_written += 1
+    assert n_written == len(requests_csv) and next(written, None) is None
+
+
+def test_counters_say_where_the_channels_were_computed(corpus, requests_csv, tmp_path):  # noqa: F811
+    """`generate_batch` counts a ``bvh.device_bakes`` a clip and no
+    ``bvh.host_bakes``; `generate_gesture` one host bake and no device
+    bake."""
+    c = corpus
+    pipe = _port(c)
+
+    def bakes(run):
+        before = profiling.counters()
+        run()
+        after = profiling.counters()
+        return tuple(after.get(k, 0) - before.get(k, 0)
+                     for k in ("bvh.device_bakes", "bvh.host_bakes"))
+
+    assert bakes(lambda: generate_batch(pipe, requests_csv, tmp_path / "batch", bucket=BUCKET,
+                                        max_batch=MAX_BATCH)) == (len(requests_csv), 0)
+    assert bakes(lambda: G.generate_gesture(c["clips"][0][1], [(c["clips"][1][0], None)], None,
+                                            None, tmp_path / "one", file_name="one",
+                                            temperature=0.0, pipeline=pipe)) == (0, 1)

@@ -8,7 +8,14 @@ programs (`infer/programs.py`: CUDA graphs of the decoder step) serve every
 chunk. A chunk of one row takes the B=1 decoder kernel on a card; larger
 chunks replay the programs, GRU1 of every step through the GRU-cell kernel,
 and then their output stage (quaternions, the transfer dtype) in one more
-program (`programs.FinishProgram`).
+program (`programs.FinishProgram`). Every chunk's (and every mesh block's)
+quaternion rollout then has its BVH channels computed on its device, in
+one more graph (`Replica.bake`, `programs.bake`: float32, re-anchored, the
+root baked into joint 0, Euler degrees), the math that
+`GesturePipeline.write_result` runs on the host for B=1 generation and
+streaming. So the float32 channels are what is copied to the host, and
+the writer threads take numpy views of the pinned rows and only format and
+write them (`GesturePipeline.write_channels`).
 
 Chunks are pipelined as `zeggs_tpu`'s are: as soon as a chunk's device work
 is enqueued, its outputs start to copy into pinned host buffers on a copy
@@ -338,8 +345,8 @@ def _shard_on(replica, rows, quantize_int8, slot):
     dev = replica.device
     *state0, gaze, audio, style = (t.to(dev, non_blocking=True) for t in rows)
     speech = replica.encode_speech_batched(audio)
-    return _pull(replica.rollout(tuple(state0), gaze, speech, style.contiguous(), quantize_int8,
-                                 slot))
+    return _pull(replica.bake(replica.rollout(tuple(state0), gaze, speech, style.contiguous(),
+                                              quantize_int8, slot)))
 
 
 def _rollout_shard(replica, ready, rows, quantize_int8, slot):
@@ -384,7 +391,8 @@ def _run_chunk(pipe, replicas, mesh, shards, state0, gaze, audio, style):
     mesh), each `_pull`'s (host tensors, event) or a future of it."""
     if mesh is None:
         speech = pipe.encode_speech_batched(audio)
-        return [_pull(pipe.rollout_batch(state0, gaze, speech, style.contiguous()))]
+        out = pipe.rollout_batch(state0, gaze, speech, style.contiguous())
+        return [_pull(pipe.replica(pipe.device).bake(out))]
     return _rollout_sharded(pipe, replicas, mesh, shards, state0, gaze, audio, style)
 
 
@@ -414,10 +422,11 @@ def _collect(blocks):
     return hosts
 
 
-def _write(pipe, results_path, req, rows):
-    """A writer thread's task: one request's rows to its BVH (and WAV)."""
+def _write(pipe, results_path, req, channels):
+    """A writer thread's task: one request's BVH channels (`_pull`'s host
+    rows as numpy views) formatted and written, and its WAV copied."""
     with profiling.annotate("zeggs:batch.write", req.file_name):
-        return pipe.write_result(results_path, req.file_name, rows, req.audio)
+        return pipe.write_channels(results_path, req.file_name, *channels, req.audio)
 
 
 @torch.inference_mode()
@@ -444,8 +453,9 @@ def generate_batch(pipe, requests, results_path, bucket=512, max_batch=64, mesh=
     ``zeggs:batch.write#<file_name>`` on a writer thread. Counters:
     ``batch.clips``, ``batch.frames`` (the requests' frames),
     ``batch.frames_rolled`` (B_pad x T_pad of every chunk),
-    ``batch.first_poses`` (first poses featurized) and
-    ``batch.first_pose_passes`` (their passes)."""
+    ``batch.first_poses`` (first poses featurized),
+    ``batch.first_pose_passes`` (their passes) and ``bvh.device_bakes``
+    (clips whose BVH channels were computed on the device)."""
     with profiling.annotate("zeggs:batch"):
         return _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh,
                                write_workers, resolve_batch_pad(batch_pad))
@@ -493,10 +503,12 @@ def _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh, write
                 hosts = _collect(blocks)  # only now may the chunk's inputs be freed
             rows = hosts[0][0].shape[0]  # a block's rows; every block has as many
             for i, (req, _, n, *_) in enumerate(chunk):
-                host = hosts[i // rows]
+                positions, rotations = hosts[i // rows]
+                r = i % rows
+                profiling.count("bvh.device_bakes")
                 futures.append(pool.submit(
                     _write, pipe, results_path, req,
-                    tuple(h[i % rows : i % rows + 1, :n] for h in host),
+                    (positions[r, :n].numpy(), rotations[r, :n].numpy()),
                 ))
 
         for T_pad, items in sorted(buckets.items()):

@@ -11,8 +11,12 @@ decoder step from the pipeline's program cache (`infer/programs.py`, the
 counterpart of `zeggs_tpu`'s ``_rollout_fn`` cache). A rollout's output
 stage converts the joint rotations to quaternions and casts the four
 trajectories to the pipeline's transfer dtype on the device, inside the
-programs for batched chunks (`programs.output_stage`); `write_result`
-upcasts them to float32 on the host. The batched entry
+programs for batched chunks (`programs.output_stage`). The BVH's channels
+(`utils.bvh_channels`: the upcast to float32, re-anchoring, root baking,
+Euler degrees) are computed from them on the host by `write_result`, for
+B=1 generation and streaming sessions, and on the device by
+`infer.batch.generate_batch`, whose writers take the channels to
+`write_channels`, which only formats and writes. The batched entry
 points used by `infer/batch.py` (`encode_speech_batched`,
 `encode_styles_batch`, `rollout_batch`) live here too, with
 `GesturePipeline.replica`, which puts the speech encoder and the decoder
@@ -40,8 +44,8 @@ from ..models.decoder import Decoder
 from ..models.speech_encoder import SpeechEncoder
 from ..models.style_encoder import StyleEncoder
 from ..ops.kernels import build
-from ..utils import profiling, split_by_ratio, write_bvh
-from .programs import ProgramCache, output_stage
+from ..utils import profiling, save_channels, split_by_ratio, write_bvh
+from .programs import ProgramCache, bake, output_stage
 from .streaming import StreamingSession
 
 _ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
@@ -135,6 +139,16 @@ class Replica:
         )
         return output_stage(out, self.transfer_dtype)
 
+    def bake(self, out):
+        """A rollout's (root_pos, root_rot, lpos, lrot) (B, T, ...) on this
+        replica's device -> its BVH channels (`programs.bake`: positions and
+        Euler degrees, float32 (B, T, J, 3)), computed there: by a bake
+        program of the cache (a CUDA graph on a card), or eagerly for the
+        ``film`` cell."""
+        if self.programs is not None:
+            return self.programs.bake(out)
+        return bake(out)
+
 
 class GesturePipeline:
     """Loads networks and statistics once and serves generation requests on
@@ -154,7 +168,9 @@ class GesturePipeline:
         error), "bfloat16" or "float32"; None reads ZEGGS_TRANSFER_DTYPE,
         and takes "float32" when it is unset. The cast runs on the device
         (inside the rollout programs for batched chunks), and `write_result`
-        upcasts to float32 on the host.
+        upcasts to float32 on the host. `infer.batch.generate_batch` upcasts
+        on the device instead (`Replica.bake`) and copies the float32
+        channels, so there the dtype rounds the output but halves no copy.
 
         B=1 rollouts run the kernel on a card. On the CPU they run the
         eager rollout, except with "int8", where the kernel's plain PyTorch
@@ -405,24 +421,32 @@ class GesturePipeline:
     def write_result(self, results_path, file_name, rollout_out, audio_file=None):
         """Write (root_pos, root_rot, lpos, lrot) (1, T, ...), on the device or
         on the host in any transfer dtype, as <file_name>.bvh: pulled first,
-        then upcast to float32 on the host (the BVH's re-anchoring and Euler
-        angles do not run in a reduced dtype). Quaternions that come in a
-        reduced dtype are normalised after the upcast: rounded to float16,
-        a unit quaternion's norm is off by up to ~1e-3, which the Euler
-        conversion turns into degrees near gimbal lock."""
+        then the BVH's channels computed on the host in float32 (`write_bvh`,
+        re-anchored to the origin and the identity rotation). B=1
+        generation, streaming sessions and the daemon's stream writes take
+        this path; `infer.batch.generate_batch` computes the channels on the
+        device and writes them with `write_channels`."""
         results_path = Path(results_path)
         results_path.mkdir(exist_ok=True, parents=True)
-        host = [t[0].cpu() for t in rollout_out]
-        root_pos, root_rot, lpos, lrot = (t.float() for t in host)
-        if host[3].dtype != torch.float32:
-            root_rot, lrot = (q / torch.linalg.norm(q, dim=-1, keepdim=True)
-                              for q in (root_rot, lrot))
-        root_pos, root_rot, lpos, lrot = (t.numpy() for t in (root_pos, root_rot, lpos, lrot))
         out_file = results_path / (file_name + ".bvh")
-        write_bvh(str(out_file), root_pos, root_rot, lpos, lrot, parents=self.parents,
+        write_bvh(str(out_file), *(t[0].cpu() for t in rollout_out), parents=self.parents,
                   names=self.bone_names, order="zyx", dt=self.dt,
                   start_position=np.array([0.0, 0.0, 0.0]),
                   start_rotation=np.array([1.0, 0.0, 0.0, 0.0]))
+        if audio_file is not None:
+            copyfile(audio_file, results_path / (file_name + ".wav"))
+        return out_file
+
+    def write_channels(self, results_path, file_name, positions, rotations, audio_file=None):
+        """Write one clip's BVH channels, host arrays (T, J, 3) of positions
+        and Euler degrees (order "zyx") as `utils.bvh_channels` computed
+        them (re-anchored), as <file_name>.bvh, only formatted; then copy
+        the .wav."""
+        results_path = Path(results_path)
+        results_path.mkdir(exist_ok=True, parents=True)
+        out_file = results_path / (file_name + ".bvh")
+        save_channels(str(out_file), positions, rotations, self.parents, self.bone_names,
+                      order="zyx", dt=self.dt)
         if audio_file is not None:
             copyfile(audio_file, results_path / (file_name + ".wav"))
         return out_file

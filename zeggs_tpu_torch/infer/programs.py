@@ -23,17 +23,21 @@ A batched chunk also runs its output stage in a graph, as `zeggs_tpu`'s
 rotations become quaternions and the four trajectories are cast to the
 pipeline's transfer dtype). A `FinishProgram` is one graph of that stage
 over a whole chunk of B rows and T frames, replayed once after the
-chunk's grains, so that after it only copies run on the card. Streaming
-sessions, sample synthesis and the evaluation keep the step's rot6d
-output.
+chunk's grains. `infer.batch.generate_batch` then replays one more, of the
+`bake` stage over the stage's outputs: the BVH's channels (re-anchoring,
+the root baked into joint 0, Euler degrees, in float32), which every other
+caller computes on the host (`GesturePipeline.write_result`). After the
+last of a chunk's graphs only copies run on the card. Streaming sessions,
+sample synthesis and the evaluation keep the step's rot6d output.
 
 A program is keyed by (device, slot, B, steps, int8). The slot keeps
 callers that run at once apart: each block of a mesh (`infer/batch.py`)
 has its own, and streaming sessions share ``"stream"``. A finish program
-is keyed by (device, B, T, transfer dtype) alone, since each of its runs
-copies its inputs in and its outputs out under the device's lock; the
-finish programs of a cache share one memory pool (its intermediates), as
-their replays never overlap.
+is keyed by (device, B, T, transfer dtype) alone, and a bake program by
+(device, B, T, the dtype it reads), since each of their runs copies its
+inputs in and its outputs out under the device's lock; the finish and bake
+programs of a cache share one memory pool (their intermediates), as their
+replays never overlap.
 
 Captures run on one high-priority stream a device, in ``thread_local``
 capture mode, so that other threads keep working on the card (a mesh's
@@ -49,13 +53,14 @@ caller enqueues while the card runs another's replays. Each replay counts
 what its graph captured (`utils.profiling.replayed`). A capture or
 replay that fails raises: there is no eager fall-back on a card.
 
-On the CPU a program runs its steps eagerly and a finish program runs
-`output_stage`: the plain versions, which the tests hold to
-`models.decoder.rollout_chunk` and `decoder.rollout`.
+On the CPU a program runs its steps eagerly and a finish program its stage
+(`output_stage` or `bake`): the plain versions, which the tests hold to
+`models.decoder.rollout_chunk`, `decoder.rollout` and `utils.write_bvh`.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 
@@ -63,7 +68,7 @@ import torch
 
 from ..models import decoder
 from ..ops import quat, xform
-from ..utils import profiling
+from ..utils import bvh_channels, profiling
 
 #: the grains a chunk is cut into, largest first (JAX's decoder grain of 16
 #: and the streaming ladder's 4 and 1)
@@ -103,6 +108,15 @@ def output_stage(out, dtype):
     scan): `with_quaternions`, then every trajectory cast to ``dtype``, the
     transfer dtype of the device-to-host copies."""
     return tuple(t.to(dtype) for t in with_quaternions(out))
+
+
+def bake(out):
+    """A rollout's (root_pos, root_rot, lpos, lrot) (B, T, ...), in the
+    transfer dtype, -> its BVH channels as `GesturePipeline.write_result`
+    writes them (`utils.bvh_channels`, re-anchored to the origin and the
+    identity rotation): (positions, Euler degrees in order "zyx"), float32
+    (B, T, J, 3)."""
+    return bvh_channels(*out, reanchor=True)
 
 
 class DeviceSite:
@@ -258,15 +272,16 @@ class RolloutProgram:
 
 
 class FinishProgram:
-    """The output stage (`output_stage`) of a chunk of B rows and T frames
+    """A stage that follows a chunk's rollout, over its B rows and T frames,
     as one CUDA graph on a card (the stage itself on the CPU), with static
-    buffers for the chunk's (root_pos, root_rot, lpos, ltxy) and for the
-    stage's outputs. ``like``: four (B, T, ...) tensors whose shapes and
-    dtypes the inputs take; ``pool``: the graph memory pool the capture
+    buffers for the stage's four inputs and for its outputs. ``like``: four
+    (B, T, ...) tensors whose shapes and dtypes the inputs take; ``stage``:
+    the function of the four that the graph runs (`output_stage` at a
+    transfer dtype, or `bake`); ``pool``: the graph memory pool the capture
     allocates from (None: a pool of its own)."""
 
-    def __init__(self, like, dtype, pool=None):
-        self.dtype = dtype
+    def __init__(self, like, stage, pool=None):
+        self.stage = stage
         self.device = like[0].device
         self.rows, self.frames = like[0].shape[:2]
         self.capture_seconds = 0.0
@@ -278,26 +293,25 @@ class FinishProgram:
             self._inputs = tuple(torch.zeros_like(t, memory_format=torch.contiguous_format)
                                  for t in like)
             self._graph, self._outs, _, reserved, self.capture_seconds = self._site.capture(
-                lambda: output_stage(self._inputs, dtype),
-                lambda: output_stage(self._inputs, dtype),
-                f"the output stage of {self.rows} rows and {self.frames} frames",
+                lambda: stage(self._inputs),
+                lambda: stage(self._inputs),
+                f"a finish stage of {self.rows} rows and {self.frames} frames",
                 pool=pool)
         self.graph_bytes = sum(t.numel() * t.element_size() for t in self._inputs) + reserved
 
     def run(self, out):
-        """The chunk's (root_pos, root_rot, lpos, ltxy) ``out`` through the
-        stage -> (root_pos, root_rot, lpos, lrot) (B, T, ...) in the
-        transfer dtype, tensors of the caller's. On a card ``out`` is copied
-        into the graph's inputs and the outputs out of its buffers, which
-        the next replay overwrites while this chunk's copies to the host may
-        still run; all under the device's lock and event, as a
+        """The chunk's four tensors ``out`` through the stage -> its outputs,
+        tensors of the caller's. On a card ``out`` is copied into the
+        graph's inputs and the outputs out of its buffers, which the next
+        replay overwrites while this chunk's copies to the host may still
+        run; all under the device's lock and event, as a
         `RolloutProgram` run."""
         with profiling.annotate("zeggs:program.finish"):
             return self._run(out)
 
     def _run(self, out):
         if self.device.type != "cuda":
-            return output_stage(out, self.dtype)
+            return self.stage(out)
         with self._site.lock, torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(self._site.done)  # the device's last graph work
@@ -312,8 +326,9 @@ class FinishProgram:
 class ProgramCache:
     """The rollout programs of one decoder on its device (counterpart of
     `zeggs_tpu`'s ``_rollout_cache`` and ``pipe._stream_fn_cache``), keyed
-    by (device, slot, B, steps, int8), and its finish programs, keyed by
-    (device, B, T, transfer dtype), made at their first use or by
+    by (device, slot, B, steps, int8), its finish programs, keyed by
+    (device, B, T, transfer dtype), and its bake programs, keyed by
+    (device, B, T, the dtype they read), made at their first use or by
     `infer.batch.warmup`. ``stats``: the decoder's pose statistics on the
     same device; ``dt``: the frame time."""
 
@@ -325,8 +340,10 @@ class ProgramCache:
         self.device = dec.cell.out.weight.device
         self._programs = {}
         self._finishes = {}
-        # the finish programs' shared graph pool; a pool is given up when the
-        # last graph captured into it is freed, so it lives with the cache
+        self._bakes = {}
+        # the finish and bake programs' shared graph pool; a pool is given up
+        # when the last graph captured into it is freed, so it lives with the
+        # cache
         self._finish_pool = None
         self._steps = {}
         self._lock = threading.RLock()
@@ -365,22 +382,38 @@ class ProgramCache:
         first use. Its runs are whole under the device's lock, so callers
         that run at once share it."""
         key = (self.device, like[0].shape[0], like[0].shape[1], dtype)
+        return self._made(self._finishes, key, like, functools.partial(output_stage, dtype=dtype))
+
+    def bake(self, out):
+        """A chunk's rollout ``out`` (root_pos, root_rot, lpos, lrot (B, T,
+        ...)) -> its BVH channels (`bake`), run by the bake program for its
+        shapes and dtype, made on first use and shared as a finish program
+        is."""
+        key = (self.device, out[0].shape[0], out[0].shape[1], out[0].dtype)
+        return self._made(self._bakes, key, out, bake).run(out)
+
+    def _made(self, table, key, like, stage):
         with self._lock:
-            if key not in self._finishes:
+            if key not in table:
                 if self._finish_pool is None and self.device.type == "cuda":
                     self._finish_pool = torch.cuda.graph_pool_handle()
                 try:
-                    self._finishes[key] = FinishProgram(like, dtype, self._finish_pool)
+                    table[key] = FinishProgram(like, stage, self._finish_pool)
                 except Exception:
-                    if not self._finishes:  # no graph holds the pool: it is given up
+                    if not (self._finishes or self._bakes):  # no graph holds the pool
                         self._finish_pool = None
                     raise
-            return self._finishes[key]
+            return table[key]
 
     def finishes(self):
         """(key, finish program) of every finish program made so far."""
         with self._lock:
             return list(self._finishes.items())
+
+    def bakes(self):
+        """(key, bake program) of every bake program made so far."""
+        with self._lock:
+            return list(self._bakes.items())
 
     def rollout_chunk(self, carry, gaze_pos, speech_encoding, style_encoding, quantize_int8=False,
                       slot=0):

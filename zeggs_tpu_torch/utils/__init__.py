@@ -11,42 +11,60 @@ import torch
 
 from ..io import bvh
 from ..ops import quat
+from . import profiling
+
+
+def bvh_channels(root_pos, root_rot, lpos, lrot, reanchor=False, order="zyx"):
+    """A model-space animation's BVH channels, over any leading dimensions
+    and on the tensors' device: (..., T, 3) root_pos, (..., T, 4) root_rot,
+    (..., T, J, 3) lpos and (..., T, J, 4) lrot in any float dtype ->
+    (positions (..., T, J, 3), rotations (..., T, J, 3) as Euler degrees in
+    ``order``), float32. The inputs are upcast first; quaternions that come
+    in a reduced dtype are normalised after the upcast (rounded to float16,
+    a unit quaternion's norm is off by up to ~1e-3, which the Euler
+    conversion turns into degrees near gimbal lock). With ``reanchor``,
+    frame 0's root is moved to the origin and the identity rotation; then
+    the root transform is baked into joint 0."""
+    reduced = torch.finfo(lrot.dtype).bits < 32
+    root_pos, root_rot, lpos, lrot = (t.float() for t in (root_pos, root_rot, lpos, lrot))
+    if reduced:
+        root_rot, lrot = (q / torch.linalg.norm(q, dim=-1, keepdim=True) for q in (root_rot, lrot))
+    if reanchor:
+        back = quat.inv(root_rot[..., 0:1, :])
+        root_pos = quat.mul_vec(back, root_pos - root_pos[..., 0:1, :])
+        root_rot = quat.mul(back, root_rot)
+    positions = torch.cat([(quat.mul_vec(root_rot, lpos[..., 0, :]) + root_pos)[..., None, :],
+                           lpos[..., 1:, :]], dim=-2)
+    rotations = torch.cat([quat.mul(root_rot, lrot[..., 0, :])[..., None, :],
+                           lrot[..., 1:, :]], dim=-2)
+    return positions, torch.rad2deg(quat.to_euler(rotations, order=order))
+
+
+def save_channels(filename, positions, rotations, parents, names, order="zyx", dt=1.0 / 60.0):
+    """Write one clip's BVH channels as they are, only formatted: host
+    arrays (T, J, 3) of positions and of Euler degrees; the offsets are
+    frame 0 of the positions."""
+    bvh.save(filename, dict(order=order, offsets=positions[0], names=list(names), frametime=dt,
+                            parents=np.asarray(parents), positions=positions,
+                            rotations=rotations))
 
 
 def write_bvh(filename, root_pos, root_rot, lpos, lrot, parents, names, order="zyx",
               dt=1.0 / 60.0, start_position=None, start_rotation=None):
-    """Write a model-space animation (host arrays or tensors, (T, ...)) to
-    BVH: optionally re-anchor the trajectory to (start_position,
-    start_rotation), bake the root transform into joint 0 and convert the
-    rotations to Euler degrees. The math runs in float32 on the host."""
-
-    def host(x):
-        return torch.as_tensor(np.asarray(x, np.float32))
-
-    root_pos, root_rot = host(root_pos), host(root_rot)
-    lpos, lrot = host(lpos).clone(), host(lrot).clone()
-    if start_position is not None and start_rotation is not None:
-        offset_pos, offset_rot = root_pos[0:1].clone(), root_rot[0:1].clone()
-        start_position, start_rotation = host(start_position), host(start_rotation)
-        root_pos = quat.mul_vec(quat.inv(offset_rot), root_pos - offset_pos)
-        root_rot = quat.mul(quat.inv(offset_rot), root_rot)
-        root_pos = quat.mul_vec(start_rotation[None], root_pos) + start_position[None]
-        root_rot = quat.mul(start_rotation[None], root_rot)
-
-    lpos[:, 0] = quat.mul_vec(root_rot, lpos[:, 0]) + root_pos
-    lrot[:, 0] = quat.mul(root_rot, lrot[:, 0])
-    bvh.save(
-        filename,
-        dict(
-            order=order,
-            offsets=lpos[0].numpy(),
-            names=list(names),
-            frametime=dt,
-            parents=np.asarray(parents),
-            positions=lpos.numpy(),
-            rotations=torch.rad2deg(quat.to_euler(lrot, order=order)).numpy(),
-        ),
-    )
+    """Write a model-space animation (host arrays or tensors, (T, ...), in
+    any float dtype) to BVH: its channels (`bvh_channels`) computed in
+    float32 on the host. Given a start pose, which must be the origin and
+    the identity rotation, frame 0 is re-anchored to it. Counts
+    ``bvh.host_bakes``."""
+    reanchor = start_position is not None and start_rotation is not None
+    if reanchor and not (np.allclose(np.asarray(start_position), 0.0)
+                         and np.allclose(np.asarray(start_rotation), [1.0, 0.0, 0.0, 0.0])):
+        raise ValueError("write_bvh re-anchors to the origin and the identity rotation only")
+    profiling.count("bvh.host_bakes")
+    positions, rotations = bvh_channels(
+        *(torch.as_tensor(x, device="cpu") for x in (root_pos, root_rot, lpos, lrot)),
+        reanchor=reanchor, order=order)
+    save_channels(filename, positions.numpy(), rotations.numpy(), parents, names, order, dt)
 
 
 def split_by_ratio(length, ratio):
