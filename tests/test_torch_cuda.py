@@ -32,7 +32,10 @@ conditioned), a replay bit for bit the eager stage. The rollout
 programs (CUDA graphs of the decoder step) equal the eager chunk within
 1e-6, count their replays' launches, raise where the step cannot be
 captured, and give the single-thread result when two threads replay at
-once. The train program (CUDA graphs of the train
+once; the FiLM cell's too, at v2's widths, and against its unhoisted
+plain step within pose MAE 1e-3; a FiLM job of the benchmark's
+``v2film.offline`` set-up replays every step, counted, and captures
+nothing after set-up. The train program (CUDA graphs of the train
 step) equals the plain step over three steps under every training option
 (bit for bit with cuDNN's deterministic algorithms, within rtol 2e-5 /
 atol 1e-6 with its default ones), draws fresh noise at each replay from
@@ -423,14 +426,16 @@ def _program_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
     return dec, stats, carry, (gaze[:, 1:], speech[:, 1:], style[:, 1:])
 
 
-def _rollout_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
+def _rollout_case(device, B=4, T=41, njoints=16, hidden=256, seed=21, rnn_cond="normal",
+                  style_size=64):
     """The decoder and statistics of `_program_case`, the frame-0 state and
     the (B, T) conditioning of a rollout."""
     from zeggs_tpu_torch.infer.programs import _STATS
 
     pose_in, pose_out = 6 + njoints * 15 + 3, 6 + njoints * 15
     torch.manual_seed(seed)
-    dec = D.Decoder(pose_in, pose_out, 64, 64, hidden).to(device).eval().requires_grad_(False)
+    dec = D.Decoder(pose_in, pose_out, 64, style_size, hidden, 2, rnn_cond).to(device)
+    dec = dec.eval().requires_grad_(False)
     rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0):
@@ -442,7 +447,7 @@ def _rollout_case(device, B=4, T=41, njoints=16, hidden=256, seed=21):
     state0 = (t(B, 3), q / q.norm(dim=-1, keepdim=True), t(B, 3, scale=0.1), t(B, 3, scale=0.1),
               t(B, njoints, 3), t(B, njoints, 2, 3), t(B, njoints, 3, scale=0.1),
               t(B, njoints, 3, scale=0.1))
-    gaze, speech, style = t(B, T, 3, scale=100.0), t(B, T, 64), t(B, T, 64)
+    gaze, speech, style = t(B, T, 3, scale=100.0), t(B, T, 64), t(B, T, style_size)
     return dec, dict(zip(_STATS, stats)), state0, (gaze, speech, style)
 
 
@@ -472,6 +477,78 @@ def test_graphed_chunk_equals_the_eager_chunk(device, quantize_int8):
     err = max(_max_diff(got, ref), _max_diff(got_carry, ref_carry))
     print(f"graphed against eager chunk (int8 {quantize_int8}): max|diff| {err:.3e}")
     assert err <= 1e-6
+
+
+def test_film_graphs_equal_the_eager_film_rollout(device):
+    """The FiLM cell at v2's widths (75 joints, H 1024, speech 64, 19
+    labels), 4 rows and 41 frames, through the program cache: against the
+    eager `rollout_chunk` on the card within 1e-6 (bitwise expected: the
+    same kernels on the same inputs); against `rollout_film` (the unhoisted
+    plain step, GRU1 by cuBLAS) within pose MAE 1e-3 (docs/DESIGN.md section
+    5); GRU1 of every step (and of each capture's warm-up step) through the
+    kernel, every step counted in ``programs.rollout_steps``."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache, ladder_programs
+    from zeggs_tpu_torch.utils import profiling
+
+    dec, stats, state0, cond = _rollout_case(device, njoints=75, hidden=1024, rnn_cond="film",
+                                             style_size=19)
+    n = cond[0].shape[1] - 1
+    with torch.inference_mode():
+        carry = D.init_carry(dec, *state0, cond[0][:, 0], cond[2][:, 0],
+                             *list(stats.values())[:2])
+        chunk = tuple(c[:, 1:] for c in cond)
+        ref_carry, ref = _eager_chunk(dec, stats, carry, chunk)
+        _, plain = D.rollout_film(dec, carry, *chunk, *stats.values(), DT,
+                                  output_indices=(0, 1, 4, 5))
+        before, steps = _launches("gru_cell"), profiling.counters().get("programs.rollout_steps", 0)
+        got_carry, got = ProgramCache(dec, stats, DT).rollout_chunk(carry, *chunk)
+        torch.cuda.synchronize()
+    launched = _launches("gru_cell") - before
+    err = max(_max_diff(got, ref), _max_diff(got_carry, ref_carry))
+    mae = max((g - p).abs().mean().item() for g, p in zip(got, plain))
+    print(f"FiLM graphs against the eager chunk: max|diff| {err:.3e}; against rollout_film: "
+          f"MAE {mae:.3e}")
+    assert err <= 1e-6 and mae < 1e-3
+    assert launched == n + ladder_programs([n])
+    assert profiling.counters()["programs.rollout_steps"] - steps == n
+
+
+def test_a_film_job_replays_the_programs(device):
+    """`generate_batch` at v2's widths with a FiLM decoder (the benchmark's
+    ``v2film.offline`` set-up over 4 clips of 5-11 s: chunks of 2 rows at
+    512 and 1,024 frames): for each of two jobs after set-up, the GRU-cell
+    kernel's launches and ``programs.rollout_steps`` equal the chunks' T_pad
+    - 1 steps, ``programs.rollout_device_s`` grows, and
+    ``programs.captures`` does not; the written clips agree with the plain
+    reference within the cell's limits."""
+    from benchmark.common import Cell
+    from benchmark.run import generator_of
+    from zeggs_tpu_torch.utils import profiling
+
+    cell = Cell("v2film.offline")
+    cell.mix = dict(cell.mix, lines=4, check_samples=2)
+    run = generator_of(cell).Run(cell, cell.config, 2**31 + 33, device)
+    run.setup()
+    try:
+        assert run.pipe.networks["decoder"].rnn_cond == "film"
+        steps = sum(n for _, n in run.decoder_steps())
+        assert [T for T, _ in run.shapes] == [512, 1024] and steps == 1534
+        for k in range(2):
+            before = profiling.counters()
+            run.jobs.append(run._job(k)[:2])
+            after = profiling.counters()
+            grew = {key: after.get(key, 0) - before.get(key, 0)
+                    for key in ("gru_cell.launches", "programs.rollout_steps",
+                                "programs.rollout_device_s", "programs.captures")}
+            print(f"FiLM job {k}: {grew}")
+            assert grew["gru_cell.launches"] == grew["programs.rollout_steps"] == steps
+            assert grew["programs.rollout_device_s"] > 0 and grew["programs.captures"] == 0
+        run.release()
+        checks = run.check()
+    finally:
+        run.close()
+    print(f"FiLM jobs against the reference: {checks}")
+    assert all(c["value"] <= c["limit"] for c in checks.values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])

@@ -238,11 +238,11 @@ def test_one_program_equals_rollout_chunk(corpus):  # noqa: F811
         ref_carry, ref = D.rollout_chunk(dec, carry, gaze[:, 1:], speech[:, 1:], style[:, 1:],
                                          *stats, output_indices=OUTPUTS)
         conditioning, step, plain = D.chunk_step(dec, *stats, pipe.njoints)
-        pre_l0, pre_g0 = conditioning(speech[:, 1:], style[:, 1:])
+        cond = (gaze[:, 1:], *conditioning(speech[:, 1:], style[:, 1:]))
         state = (carry[0][0], carry[0][1].contiguous(), *carry[1:])
-        program = cache.program(state, 4)
+        program = cache.program(state, cond, 4)
         outs = tuple(torch.empty_like(r) for r in ref)
-        new = program.run(state, gaze[:, 1:], pre_l0, pre_g0, outs, 0, 2)
+        new = program.run(state, cond, outs, 0, 2)
     assert not plain and program.rows == 3 and program.steps == 4
     for a, b in zip(outs + (torch.stack(new[:2]), *new[2:]), ref + ref_carry):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -494,6 +494,7 @@ def _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh, write
 
     n_dev = 1 if mesh is None else mesh.size
     replicas = None if mesh is None else [pipe.replica(d) for d in mesh.devices]
+    caches = [pipe.programs] if mesh is None else [r.programs for r in replicas]
     with ThreadPoolExecutor(max_workers=write_workers) as pool, \
             ThreadPoolExecutor(max_workers=n_dev, thread_name_prefix=SHARD_THREADS) as shards:
         futures, pending = [], []
@@ -501,6 +502,8 @@ def _generate_batch(pipe, requests, results_path, bucket, max_batch, mesh, write
         def collect(chunk, inputs, blocks):
             with profiling.annotate("zeggs:batch.collect"):
                 hosts = _collect(blocks)  # only now may the chunk's inputs be freed
+            for programs in caches:
+                programs.settle()  # the chunk's rollout device time, its outputs here
             rows = hosts[0][0].shape[0]  # a block's rows; every block has as many
             for i, (req, _, n, *_) in enumerate(chunk):
                 positions, rotations = hosts[i // rows]

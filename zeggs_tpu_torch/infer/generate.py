@@ -45,7 +45,7 @@ from ..models.speech_encoder import SpeechEncoder
 from ..models.style_encoder import StyleEncoder
 from ..ops.kernels import build
 from ..utils import profiling, save_channels, split_by_ratio, write_bvh
-from .programs import ProgramCache, bake, output_stage
+from .programs import ProgramCache, output_stage
 from .streaming import StreamingSession
 
 _ROLLOUT_WEIGHTS = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
@@ -102,14 +102,13 @@ def transfer_dtype_of(name):
 class Replica:
     """What a batched rollout runs on one device: the speech encoder and the
     decoder (``networks``), the statistics, the frame time, the decoder's
-    program cache (None for the ``film`` cell, which has none) and the
-    transfer dtype of the rollout's outputs."""
+    program cache and the transfer dtype of the rollout's outputs."""
 
     device: torch.device
     networks: dict
     stats: dict
     dt: float
-    programs: ProgramCache | None
+    programs: ProgramCache
     transfer_dtype: torch.dtype = torch.float32
 
     def encode_speech_batched(self, audio_features):
@@ -123,31 +122,18 @@ class Replica:
         graphs, GRU1 of every step through the GRU-cell kernel, and the
         programs of ``slot`` are used by this call alone (a mesh gives each
         block its own); products on int8 values with ``quantize_int8``; the
-        output stage (`programs.output_stage`) inside the programs. The
-        ``film`` cell has no programs and runs the eager `decoder.rollout`,
-        then the output stage. Returns (root_pos, root_rot, lpos, lrot)
-        (B, T, ...) in the transfer dtype."""
-        if self.programs is not None:
-            return self.programs.rollout(state0, gaze_pos, speech_enc, style_enc, quantize_int8,
-                                         slot, self.transfer_dtype)
-        s = self.stats
-        out = decoder.rollout(
-            self.networks["decoder"], *state0, gaze_pos, speech_enc, style_enc,
-            s["anim_input_mean"], s["anim_input_std"], s["anim_output_mean"],
-            s["anim_output_std"], self.dt, output_indices=(0, 1, 4, 5),
-            quantize_int8=quantize_int8,
-        )
-        return output_stage(out, self.transfer_dtype)
+        output stage (`programs.output_stage`) inside the programs; the
+        ``normal`` and the ``film`` cell alike. Returns (root_pos, root_rot,
+        lpos, lrot) (B, T, ...) in the transfer dtype."""
+        return self.programs.rollout(state0, gaze_pos, speech_enc, style_enc, quantize_int8,
+                                     slot, self.transfer_dtype)
 
     def bake(self, out):
         """A rollout's (root_pos, root_rot, lpos, lrot) (B, T, ...) on this
         replica's device -> its BVH channels (`programs.bake`: positions and
-        Euler degrees, float32 (B, T, J, 3)), computed there: by a bake
-        program of the cache (a CUDA graph on a card), or eagerly for the
-        ``film`` cell."""
-        if self.programs is not None:
-            return self.programs.bake(out)
-        return bake(out)
+        Euler degrees, float32 (B, T, J, 3)), computed there by a bake
+        program of the cache (a CUDA graph on a card)."""
+        return self.programs.bake(out)
 
 
 class GesturePipeline:
@@ -172,11 +158,14 @@ class GesturePipeline:
         on the device instead (`Replica.bake`) and copies the float32
         channels, so there the dtype rounds the output but halves no copy.
 
-        B=1 rollouts run the kernel on a card. On the CPU they run the
-        eager rollout, except with "int8", where the kernel's plain PyTorch
-        version runs on the int8 packing: the CPU takes the plain version of
-        each kernel. With "int8", batched rollouts of at least
-        INT8_BATCHED_MIN rows run their products on int8 values."""
+        B=1 rollouts of the ``normal`` cell run the kernel on a card. On
+        the CPU they run the eager rollout, except with "int8", where the
+        kernel's plain PyTorch version runs on the int8 packing: the CPU
+        takes the plain version of each kernel. The ``film`` cell has no
+        B=1 kernel: its B=1 rollouts replay the rollout programs, as its
+        batched ones do. With "int8", batched rollouts of the ``normal`` cell
+        of at least INT8_BATCHED_MIN rows run their products on int8
+        values."""
         if rollout_weights is None:
             rollout_weights = "int8" if os.environ.get("ZEGGS_FUSED_INT8") else "bfloat16"
         if rollout_weights not in _ROLLOUT_WEIGHTS:
@@ -210,7 +199,7 @@ class GesturePipeline:
                                     else self.opts.net.style_encoder.style_encoding_size)
         self._style_cache = {}
         self._replicas = {}
-        self.programs = self._program_cache(self.networks["decoder"], self.stats)
+        self.programs = ProgramCache(self.networks["decoder"], self.stats, self.dt)
 
         dec_cfg = self.opts.net.decoder
         self.rollout_weights = rollout_weights
@@ -225,9 +214,6 @@ class GesturePipeline:
                 self.stats["anim_input_std"], self.stats["anim_output_mean"],
                 self.stats["anim_output_std"], self.dt, weights_dtype=weights_dtype,
             )
-
-    def _program_cache(self, dec, stats):
-        return ProgramCache(dec, stats, self.dt) if dec.rnn_cond == "normal" else None
 
     # -- loading ----------------------------------------------------------
 
@@ -404,7 +390,7 @@ class GesturePipeline:
                         for n in ("speech_encoder", "decoder")}
                 stats = {k: v.to(device) for k, v in self.stats.items()}
             self._replicas[device] = Replica(device, nets, stats, self.dt,
-                                             self._program_cache(nets["decoder"], stats),
+                                             ProgramCache(nets["decoder"], stats, self.dt),
                                              self.transfer_dtype)
         return self._replicas[device]
 

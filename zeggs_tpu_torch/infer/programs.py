@@ -6,17 +6,23 @@ CUDA graphs (counterpart of `zeggs_tpu`'s compiled rollout programs,
 a jitted program kept in a cache by shape. A CUDA graph is the PyTorch
 counterpart on a card: fixed shapes and addresses, captured once, replayed
 with one launch. A `RolloutProgram` is one graph of ``steps`` decoder steps
-of the ``normal`` cell for B rows (`models.decoder.chunk_step`, GRU1
-through the GRU-cell kernel), with static buffers for its inputs (the
-carry, and ``steps`` columns of the gaze and of the hoisted speech/style
-products ``pre_l0`` / ``pre_g0``) and for its outputs (root_pos, root_rot,
-lpos, ltxy of each step). `ProgramCache.rollout_chunk` runs n steps as a
-ladder of grains, ``n // 16`` replays of the 16-step program and then the
-4- and 1-step ones for the rest (the streaming session's decoder ladder),
-so a length needs at most three graphs for each B. The speech/style
-products are computed once for the whole chunk, as `rollout_chunk` computes
-them, and copied in a grain at a time: a replayed chunk equals the eager
-one bit for bit.
+of the decoder's cell, ``normal`` or ``film``, for B rows
+(`models.decoder.chunk_step`, GRU1 through the GRU-cell kernel), with
+static buffers for its inputs (the carry, and ``steps`` columns of the gaze
+and of each tensor the cell's conditioning hoists: the speech/style
+products ``pre_l0`` / ``pre_g0``, and for ``film`` the style's gammas and
+betas) and for its outputs (root_pos, root_rot, lpos, ltxy of each step).
+`ProgramCache.rollout_chunk` runs n steps as a ladder of grains, ``n //
+16`` replays of the 16-step program and then the 4- and 1-step ones for
+the rest (the streaming session's decoder ladder), so a length needs at
+most three graphs for each B. The conditioning is computed once for the
+whole chunk (span ``zeggs:program.conditioning``), as `rollout_chunk`
+computes it, and copied in a grain at a time: a replayed chunk equals the
+eager one bit for bit. Counters: ``programs.rollout_steps``, the decoder
+steps run (each replay adds its grain), and ``programs.rollout_device_s``,
+the card's time from before a chunk's first replay to after its last
+(two CUDA events on the stream the replays run on), added once the events
+have passed, so it waits for nothing (`ProgramCache.settle`).
 
 A batched chunk also runs its output stage in a graph, as `zeggs_tpu`'s
 ``_rollout_fn`` does inside its jitted program (`output_stage`: the joint
@@ -183,6 +189,12 @@ _sites = {}
 _sites_lock = threading.Lock()
 
 
+def _timing_event(stream):
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(stream)
+    return event
+
+
 def device_site(device):
     with _sites_lock:
         if device not in _sites:
@@ -195,8 +207,8 @@ class RolloutProgram:
     eager loop on the CPU). ``step`` is `decoder.chunk_step`'s step,
     ``state`` the 10 state tensors it takes (h0, h1, root_pos, root_rot,
     root_vel, root_vrt, lpos, ltxy, lvel, lvrt; shapes and dtypes are
-    copied, not the values) and ``widths`` the last dimensions of the gaze,
-    pre_l0 and pre_g0 columns."""
+    copied, not the values) and ``widths`` the last dimensions of the
+    step's per-frame inputs: the gaze, then each conditioning tensor."""
 
     def __init__(self, step, state, widths, steps):
         self.step, self.steps = step, int(steps)
@@ -237,20 +249,25 @@ class RolloutProgram:
                                f"the rollout program of {self.rows} rows and {self.steps} steps")
         self.graph_bytes += reserved
 
-    def run(self, state, gaze, pre_l0, pre_g0, outs, start, reps):
+    def run(self, state, cond, outs, start, reps, events=None):
         """``reps`` x ``steps`` steps from ``state`` over the columns
-        [start, start + reps * steps) of the (B, n, ...) conditioning; each
-        step's outputs go to those columns of ``outs`` (root_pos, root_rot,
-        lpos, ltxy, each (B, n, ...)). Returns the new state (tensors of the
-        caller's)."""
+        [start, start + reps * steps) of ``cond`` (the (B, n, ...) gaze and
+        conditioning tensors, in the order of ``widths``); each step's
+        outputs go to those columns of ``outs`` (root_pos, root_rot, lpos,
+        ltxy, each (B, n, ...)). Returns the new state (tensors of the
+        caller's). ``events`` (a card): a list that gets a timing event
+        before the first replay if it is empty, and ends with one after the
+        last."""
         with profiling.annotate("zeggs:program.rollout"):
-            return self._run(state, gaze, pre_l0, pre_g0, outs, start, reps)
+            state = self._run(state, cond, outs, start, reps, events)
+        profiling.count("programs.rollout_steps", reps * self.steps)
+        return state
 
-    def _run(self, state, gaze, pre_l0, pre_g0, outs, start, reps):
+    def _run(self, state, cond, outs, start, reps, events):
         stop = start + reps * self.steps
         if self.device.type != "cuda":
             for t in range(start, stop):
-                state = self.step(gaze[:, t], pre_l0[:, t], pre_g0[:, t], *state)
+                state = self.step(*(c[:, t] for c in cond), *state)
                 for o, i in zip(outs, OUTPUTS):
                     o[:, t] = state[2 + i]
             return state
@@ -259,13 +276,17 @@ class RolloutProgram:
             stream.wait_event(self._site.done)  # the device's last graph work
             for dst, src in zip(self._state, state):
                 dst.copy_(src)
+            if events is not None and not events:
+                events.append(_timing_event(stream))
             for t in range(start, stop, self.steps):
-                for dst, src in zip(self._cond, (gaze, pre_l0, pre_g0)):
+                for dst, src in zip(self._cond, cond):
                     dst.copy_(src[:, t : t + self.steps])
                 self._graph.replay()
                 for o, s in zip(outs, self._outs):
                     o[:, t : t + self.steps].copy_(s)
                 profiling.replayed(self.counts)
+            if events is not None:
+                events[1:] = [_timing_event(stream)]
             state = tuple(s.clone() for s in self._state)
             self._site.done.record(stream)
         return state
@@ -324,17 +345,15 @@ class FinishProgram:
 
 
 class ProgramCache:
-    """The rollout programs of one decoder on its device (counterpart of
-    `zeggs_tpu`'s ``_rollout_cache`` and ``pipe._stream_fn_cache``), keyed
-    by (device, slot, B, steps, int8), its finish programs, keyed by
-    (device, B, T, transfer dtype), and its bake programs, keyed by
-    (device, B, T, the dtype they read), made at their first use or by
-    `infer.batch.warmup`. ``stats``: the decoder's pose statistics on the
-    same device; ``dt``: the frame time."""
+    """The rollout programs of one decoder, of either cell, on its device
+    (counterpart of `zeggs_tpu`'s ``_rollout_cache`` and
+    ``pipe._stream_fn_cache``), keyed by (device, slot, B, steps, int8),
+    its finish programs, keyed by (device, B, T, transfer dtype), and its
+    bake programs, keyed by (device, B, T, the dtype they read), made at
+    their first use or by `infer.batch.warmup`. ``stats``: the decoder's
+    pose statistics on the same device; ``dt``: the frame time."""
 
     def __init__(self, dec, stats, dt):
-        if dec.rnn_cond != "normal":
-            raise ValueError("rollout programs run the 'normal' decoder cell")
         self.dec, self.dt = dec, dt
         self.stats = tuple(stats[k] for k in _STATS)
         self.device = dec.cell.out.weight.device
@@ -347,6 +366,10 @@ class ProgramCache:
         self._finish_pool = None
         self._steps = {}
         self._lock = threading.RLock()
+        # (start, end) timing events of chunks whose device time is not yet
+        # in ``programs.rollout_device_s``
+        self._timed = []
+        self._timed_lock = threading.Lock()
 
     def _chunk_step(self, njoints, quantize_int8):
         key = (njoints, bool(quantize_int8))
@@ -360,15 +383,16 @@ class ProgramCache:
                 self._steps[key] = conditioning, step
             return self._steps[key]
 
-    def program(self, state, steps, quantize_int8=False, slot=0):
+    def program(self, state, cond, steps, quantize_int8=False, slot=0):
         """The program of ``steps`` steps for the shapes of ``state`` (the
-        10 step-state tensors), made on first use."""
+        10 step-state tensors) and of ``cond`` (the gaze and conditioning
+        tensors), made on first use."""
         key = (self.device, slot, state[0].shape[0], int(steps), bool(quantize_int8))
         with self._lock:
             if key not in self._programs:
                 _, step = self._chunk_step(state[6].shape[1], quantize_int8)
-                H = state[0].shape[1]
-                self._programs[key] = RolloutProgram(step, state, (3, H, 3 * H), steps)
+                self._programs[key] = RolloutProgram(step, state,
+                                                     tuple(c.shape[-1] for c in cond), steps)
             return self._programs[key]
 
     def programs(self):
@@ -415,24 +439,42 @@ class ProgramCache:
         with self._lock:
             return list(self._bakes.items())
 
+    def settle(self):
+        """Add to the counter ``programs.rollout_device_s`` the device time
+        of every timed chunk whose end event has passed; it waits for
+        nothing. `infer.batch.generate_batch` calls it once a chunk's
+        outputs are on the host, `rollout_chunk` before each chunk."""
+        with self._timed_lock:
+            passed = [end.query() for _, end in self._timed]
+            done = [pair for pair, p in zip(self._timed, passed) if p]
+            self._timed = [pair for pair, p in zip(self._timed, passed) if not p]
+        for start, end in done:
+            profiling.count("programs.rollout_device_s", start.elapsed_time(end) / 1e3)
+
     def rollout_chunk(self, carry, gaze_pos, speech_encoding, style_encoding, quantize_int8=False,
                       slot=0):
         """`decoder.rollout_chunk` with ``output_indices=(0, 1, 4, 5)``: n =
-        ``speech_encoding.shape[1]`` steps from ``carry``, the speech/style
-        products hoisted over all n, then the programs' grains. Returns
+        ``speech_encoding.shape[1]`` steps from ``carry``, the cell's
+        conditioning hoisted over all n, then the programs' grains. Returns
         (new_carry, (root_pos, root_rot, lpos, ltxy) (B, n, ...))."""
         B, n = speech_encoding.shape[:2]
+        self.settle()
         conditioning, _ = self._chunk_step(carry[5].shape[1], quantize_int8)
-        pre_l0, pre_g0 = conditioning(speech_encoding, style_encoding)
+        with profiling.annotate("zeggs:program.conditioning"):
+            cond = (gaze_pos, *conditioning(speech_encoding, style_encoding))
         h, *pose_state = carry
         state = (h[0], h[1].contiguous(), *pose_state)
         outs = tuple(torch.empty((B, n) + tuple(state[2 + i].shape[1:]), dtype=state[2 + i].dtype,
                                  device=state[2 + i].device) for i in OUTPUTS)
+        events = [] if self.device.type == "cuda" else None
         t = 0
         for steps, reps in ladder(n):
-            program = self.program(state, steps, quantize_int8, slot)
-            state = program.run(state, gaze_pos, pre_l0, pre_g0, outs, t, reps)
+            program = self.program(state, cond, steps, quantize_int8, slot)
+            state = program.run(state, cond, outs, t, reps, events)
             t += reps * steps
+        if events:
+            with self._timed_lock:
+                self._timed.append(tuple(events))
         return (torch.stack(state[:2]),) + tuple(state[2:]), outs
 
     def rollout(self, state0, gaze_pos, speech_enc, style_enc, quantize_int8=False, slot=0,

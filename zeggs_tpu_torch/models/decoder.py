@@ -22,8 +22,13 @@ devectorize_output and feeds the integrated pose back.
   that step and the hoisted products; `infer/programs.py` replays the
   inference step from CUDA graphs.
 ``film``: style enters only through per-layer (gamma, beta) modulation and
-  the GRU input is [hidden | pose | speech]; always the eager plain step,
-  at every batch size, as in the reference.
+  the GRU input is [hidden | pose | speech]. At inference `rollout_chunk`
+  runs it as it runs ``normal``: the speech part of layer0's and GRU0's
+  input products and the style's gammas and betas hoisted over all frames,
+  GRU1 through the GRU-cell kernel, and `infer/programs.py` replays the
+  step from CUDA graphs. Where autograd records, `rollout` takes
+  `rollout_film`, the reference's plain step over the live parameters.
+  Neither int8 products nor the B=1 kernel run it.
 
 At B=1 on a card `make_fused_b1_fn` runs a ``normal`` rollout as one
 launch of the CUDA kernel in `ops/kernels/decoder_rollout.py`.
@@ -154,23 +159,29 @@ def _qdot(xq_sx, wq_sw):
 
 def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, anim_output_std,
                dt, njoints, quantize_int8=False, compute_dtype=torch.float32):
-    """The ``normal`` cell's frame step as `rollout_chunk` runs it ->
+    """The frame step of ``dec``'s cell as `rollout_chunk` runs it ->
     (conditioning, step, plain).
 
-    ``conditioning(speech (B, n, S), style (B, n, C))`` gives the hoisted
-    speech/style part of layer0's and of GRU0's input product for all n
-    frames, (pre_l0 (B, n, H), pre_g0 (B, n, 3H)). ``step(gaze_t, l0_t,
-    g0_t, h0, h1, root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lvel,
-    lvrt)`` advances one frame from one column of each and returns the new
-    state in the same order. ``plain`` says whether the step is the
-    differentiable plain math (autograd records, or ``compute_dtype`` is
-    not float32); otherwise GRU1 runs through the GRU-cell kernel. The
-    weights are derived once, here, so a caller that keeps the step (a
-    CUDA graph of it) keeps them."""
+    ``conditioning(speech (B, n, S), style (B, n, C))`` gives the cell's
+    hoisted per-frame tensors for all n frames: for ``normal`` the
+    speech/style part of layer0's and of GRU0's input product, (pre_l0
+    (B, n, H), pre_g0 (B, n, 3H)); for ``film`` the speech part of the two
+    products and the style's modulation, (pre_l0, pre_g0, gammas (B, n,
+    2H), betas (B, n, 2H)). ``step(gaze_t, *cond_t, h0, h1, root_pos,
+    root_rot, root_vel, root_vrt, lpos, ltxy, lvel, lvrt)`` advances one
+    frame from one column of the gaze and of each conditioning tensor and
+    returns the new state in the same order. ``plain`` says whether the
+    step is the differentiable plain math (autograd records, or
+    ``compute_dtype`` is not float32); otherwise GRU1 runs through the
+    GRU-cell kernel. The weights are derived once, here, so a caller that
+    keeps the step (a CUDA graph of it) keeps them."""
     cp = dec.cell
+    film = dec.rnn_cond == "film"
     pose_dim = anim_input_mean.shape[-1]
     H = cp.gru1.weight_hh.shape[1]
     plain = _records_grad(dec) or compute_dtype != torch.float32
+    if quantize_int8 and film:
+        raise ValueError("int8 rollouts run the 'normal' cell only")
     if quantize_int8 and plain:
         raise ValueError("int8 rollouts are inference only, at float32 compute")
     cd = compute_dtype
@@ -180,9 +191,16 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
     w0_pose, wg_h, wg_pose = w0[:, :pose_dim], wg[:, :H], wg[:, H : H + pose_dim]
 
     def conditioning(speech_encoding, style_encoding):
-        cond = torch.cat([speech_encoding, style_encoding], dim=-1).to(cd)
-        return (F.linear(cond, w0[:, pose_dim:], cp.layer0.bias.to(cd)),
-                F.linear(cond, wg[:, H + pose_dim :], cp.gru0.bias_ih.to(cd)))
+        # layer0's input is [pose | speech | style] (film: [pose | speech])
+        cond = speech_encoding if film else torch.cat([speech_encoding, style_encoding], dim=-1)
+        cond = cond.to(cd)
+        hoisted = (F.linear(cond, w0[:, pose_dim:], cp.layer0.bias.to(cd)),
+                   F.linear(cond, wg[:, H + pose_dim :], cp.gru0.bias_ih.to(cd)))
+        if film:
+            style = style_encoding.to(cd)
+            hoisted += (F.linear(style, cp.gammas.weight.to(cd), cp.gammas.bias.to(cd)) + 1.0,
+                        F.linear(style, cp.betas.weight.to(cd), cp.betas.bias.to(cd)))
+        return hoisted
 
     if quantize_int8:
         q_w0_pose, q_wg_h, q_wg_pose = (_quantize_weight(w) for w in (w0_pose, wg_h, wg_pose))
@@ -191,7 +209,8 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
             for w in (cp.gru0.weight_hh, cp.gru1.weight_ih, cp.gru1.weight_hh, cp.out.weight)
         )
 
-        def cell(pose, l0_t, g0_t, h0, h1):
+        def cell(pose, cond_t, h0, h1):
+            l0_t, g0_t = cond_t
             pose_q = _quantize_act(pose)
             hidden = L.elu(l0_t + _qdot(pose_q, q_w0_pose))
             gi = g0_t + _qdot(_quantize_act(hidden), q_wg_h) + _qdot(pose_q, q_wg_pose)
@@ -204,6 +223,8 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
     else:
         whh0, bhh0 = cp.gru0.weight_hh.to(cd), cp.gru0.bias_hh.to(cd)
         w_out, b_out = cp.out.weight.to(cd), cp.out.bias.to(cd)
+        if film:
+            w2, b2 = cp.layer2.weight.to(cd), cp.layer2.bias.to(cd)
         if plain:
             g1 = [t.to(cd) for t in (cp.gru1.weight_ih, cp.gru1.bias_ih, cp.gru1.weight_hh,
                                      cp.gru1.bias_hh)]
@@ -216,19 +237,29 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
             def gru1_step(x, h):
                 return GC.fused_gru_cell(packed, x, h)
 
-        def cell(pose, l0_t, g0_t, h0, h1):
+        def cell(pose, cond_t, h0, h1):
+            l0_t, g0_t = cond_t[:2]
             pose_c, h0, h1 = pose.to(cd), h0.to(cd), h1.to(cd)
             hidden = L.elu(l0_t + pose_c @ w0_pose.T)
+            if film:
+                gammas, betas = cond_t[2:]
+                hidden = hidden * gammas[:, :H] + betas[:, :H]
             gi = g0_t + hidden @ wg_h.T + pose_c @ wg_pose.T
             h0_new = L.gru_gates(gi, F.linear(h0, whh0, bhh0), h0)
             h1_new = gru1_step(h0_new, h1)
+            top = h1_new
+            if film:
+                top = L.elu(F.linear(h1_new, w2, b2)) * gammas[:, H:] + betas[:, H:]
             sd = pose.dtype  # the state's dtype
-            return h0_new.to(sd), h1_new.to(sd), F.linear(h1_new, w_out, b_out).to(sd)
+            return h0_new.to(sd), h1_new.to(sd), F.linear(top, w_out, b_out).to(sd)
 
-    def step(gaze_t, l0_t, g0_t, h0, h1, rp, rr, rv, rw, jp, jt, jv, jw):
+    n_cond = 4 if film else 2
+
+    def step(gaze_t, *args):
+        cond_t, (h0, h1, rp, rr, rv, rw, jp, jt, jv, jw) = args[:n_cond], args[n_cond:]
         pose = P.vectorize_input(rp, rr, rv, rw, jp, jt, jv, jw, gaze_t,
                                  anim_input_mean, anim_input_std)
-        h0, h1, out = cell(pose, l0_t, g0_t, h0, h1)
+        h0, h1, out = cell(pose, cond_t, h0, h1)
         return (h0, h1) + P.devectorize_output(out, rp, rr, njoints, dt, anim_output_mean,
                                                anim_output_std)
 
@@ -239,43 +270,43 @@ def rollout_chunk(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding
                   anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
                   output_indices=None, quantize_int8=False, compute_dtype=torch.float32,
                   remat=False):
-    """Advance ``speech_encoding.shape[1]`` frames of the ``normal`` cell
-    from ``carry``; each column of the (B, n, ...) conditioning is one step.
+    """Advance ``speech_encoding.shape[1]`` frames of ``dec``'s cell from
+    ``carry``; each column of the (B, n, ...) conditioning is one step.
     Returns (new_carry, trajectories (B, n, ...)).
 
-    Where autograd records on the decoder's parameters at float32 compute,
-    without ``remat`` or ``output_indices``, the window runs as
-    `ops.kernels.decoder_train.DecoderBPTT` (the same math, backward
-    through time written by hand). Otherwise, where autograd records or
-    ``compute_dtype`` is not float32, every step is the differentiable
-    plain math of the reference's scan: products in ``compute_dtype`` over
-    the live parameters, states and pose integration in float32. ``remat``
-    recomputes each step in the backward pass instead of storing it.
-    Otherwise (inference) GRU1 runs through the GRU-cell kernel, one eager
-    launch a step; `infer/programs.py` replays the same step from CUDA
-    graphs.
+    Where autograd records on the ``normal`` decoder's parameters at
+    float32 compute, without ``remat`` or ``output_indices``, the window
+    runs as `ops.kernels.decoder_train.DecoderBPTT` (the same math,
+    backward through time written by hand). Otherwise, where autograd
+    records or ``compute_dtype`` is not float32, every step is the
+    differentiable plain math of the reference's scan: products in
+    ``compute_dtype`` over the live parameters, states and pose integration
+    in float32. ``remat`` recomputes each step in the backward pass instead
+    of storing it. Otherwise (inference) GRU1 runs through the GRU-cell
+    kernel, one eager launch a step; `infer/programs.py` replays the same
+    step from CUDA graphs.
 
-    quantize_int8 (inference): the in-step products run on symmetric int8
-    weights with one scale per output row and activations quantized
-    dynamically with one scale per batch row (floors 1e-12), as the JAX
-    package's batched int8 path does; the speech/style projections stay
-    float32."""
+    quantize_int8 (inference, ``normal`` cell): the in-step products run
+    on symmetric int8 weights with one scale per output row and activations
+    quantized dynamically with one scale per batch row (floors 1e-12), as
+    the JAX package's batched int8 path does; the speech/style projections
+    stay float32."""
     conditioning, step, plain = chunk_step(
         dec, anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
         carry[5].shape[1], quantize_int8, compute_dtype)
-    pre_l0, pre_g0 = conditioning(speech_encoding, style_encoding)
+    cond = conditioning(speech_encoding, style_encoding)
     # autograd records on the decoder (``plain`` at float32 compute), no
     # remat, every trajectory asked for
-    if (plain and compute_dtype == torch.float32 and not remat and output_indices is None
-            and speech_encoding.shape[1] > 0):
-        return DT.rollout_bptt(dec.cell, carry, gaze_pos, pre_l0, pre_g0, anim_input_mean,
+    if (dec.rnn_cond == "normal" and plain and compute_dtype == torch.float32 and not remat
+            and output_indices is None and speech_encoding.shape[1] > 0):
+        return DT.rollout_bptt(dec.cell, carry, gaze_pos, *cond, anim_input_mean,
                                anim_input_std, anim_output_mean, anim_output_std, dt)
     h, *pose_state = carry
     # the cell-state encoder's h is a transposed view
     state = (h[0], h[1].contiguous(), *pose_state)
     emitted = []
     for t in range(speech_encoding.shape[1]):
-        args = (gaze_pos[:, t], pre_l0[:, t], pre_g0[:, t]) + state
+        args = (gaze_pos[:, t], *(c[:, t] for c in cond)) + state
         state = checkpoint(step, *args, use_reentrant=False) if remat and plain else step(*args)
         new = state[2:]
         emitted.append(new if output_indices is None else tuple(new[i] for i in output_indices))
@@ -296,7 +327,8 @@ def rollout_film(dec: Decoder, carry, gaze_pos, speech_encoding, style_encoding,
                  anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt,
                  output_indices=None):
     """Advance ``speech_encoding.shape[1]`` frames of the ``film`` cell from
-    ``carry`` (`_rollout_film` of the reference, float32, every step plain).
+    ``carry`` (`_rollout_film` of the reference, float32, every step plain,
+    nothing hoisted): the training rollout of the ``film`` cell.
     Returns (new_carry, trajectories (B, n, ...))."""
     cp = dec.cell
     njoints = carry[5].shape[1]
@@ -330,15 +362,16 @@ def rollout(dec: Decoder, root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lv
     conditioning gaze_pos (B, T, 3), speech (B, T, S), style (B, T, C).
     Returns the 8 trajectories (B, T, ...), or those in ``output_indices``,
     with frame 0 equal to the inputs. ``quantize_int8``, ``compute_dtype``
-    and ``remat``: see `rollout_chunk`; the ``film`` cell takes none of them,
-    as in the reference."""
+    and ``remat``: see `rollout_chunk`. Where autograd records, the
+    ``film`` cell runs `rollout_film` and takes none of them, as in the
+    reference."""
     carry0 = init_carry(dec, root_pos, root_rot, root_vel, root_vrt, lpos, ltxy, lvel, lvrt,
                         gaze_pos[:, 0], style_encoding[:, 0], anim_input_mean, anim_input_std)
     args = (dec, carry0, gaze_pos[:, 1:], speech_encoding[:, 1:], style_encoding[:, 1:],
             anim_input_mean, anim_input_std, anim_output_mean, anim_output_std, dt)
-    if dec.rnn_cond == "film":
-        if quantize_int8:
-            raise ValueError("int8 rollouts run the 'normal' cell only")
+    if dec.rnn_cond == "film" and quantize_int8:
+        raise ValueError("int8 rollouts run the 'normal' cell only")
+    if dec.rnn_cond == "film" and _records_grad(dec):
         _, ys = rollout_film(*args, output_indices=output_indices)
     else:
         _, ys = rollout_chunk(*args, output_indices=output_indices, quantize_int8=quantize_int8,

@@ -11,10 +11,9 @@ a card. Either way the decoder rollout runs under autograd
 autograd Function with the step kernels of `ops/kernels/decoder_train.py`
 (their plain versions on the CPU), else as the differentiable plain step.
 The GRU-cell kernel runs only in sample synthesis, which is inference:
-the ``normal`` cell's rollouts there replay the rollout programs of
+its rollouts, of either decoder cell, replay the rollout programs of
 `infer/programs.py` (a cache of them made for each synthesis, so that
-none outlives a weight update), the FiLM cell's run eagerly (programs run
-the ``normal`` cell only).
+none outlives a weight update).
 
 Randomness: the batch order and example lengths come from a numpy
 Generator seeded with ``train.seed`` (the JAX package's draws, in its
@@ -358,18 +357,16 @@ class Trainer:
         """Ground/predict BVH pairs of ``n`` train and ``n`` validation clips
         (at most ``length_s`` seconds each), the style from an example of the
         clip (mu) or its label. Draws come from a generator of their own,
-        never the data order's. The ``normal`` cell's rollouts replay
-        rollout programs from a cache made here and dropped on return (its
-        graphs hold the weights' derived tensors); the FiLM cell's run
-        eagerly. Returns (decoder steps run, programs captured); rank 0 only
-        (other processes run none)."""
+        never the data order's. The rollouts replay rollout programs from a
+        cache made here and dropped on return (its graphs hold the weights'
+        derived tensors). Returns (decoder steps run, programs captured);
+        rank 0 only (other processes run none)."""
         if self.rank != 0:
             return 0, 0
         rng = np.random.default_rng([self.opts.train.seed, 0x5A11, self.iteration])
         ds, s, dev = self.ds, self.stats, self.device
         nets = self.nets
-        programs = (ProgramCache(nets["decoder"], s, ds.dt)
-                    if nets["decoder"].rnn_cond == "normal" else None)
+        programs = ProgramCache(nets["decoder"], s, ds.dt)
         steps = 0
         for which in ("train", "valid"):
             if not len(ds.ranges_train if which == "train" else ds.ranges_valid):
@@ -391,13 +388,7 @@ class Trainer:
                 state0 = tuple(torch.as_tensor(sample[k][:, 0], device=dev) for k in POSE_KEYS)
                 gaze = torch.as_tensor(sample["gaze_pos"], device=dev)
                 style_t = style[:, None].expand(-1, T, -1)
-                if programs is not None:
-                    out = programs.rollout(state0, gaze, speech, style_t)
-                else:
-                    out = decoder.rollout(
-                        nets["decoder"], *state0, gaze, speech, style_t, s["anim_input_mean"],
-                        s["anim_input_std"], s["anim_output_mean"], s["anim_output_std"], ds.dt,
-                        output_indices=(0, 1, 4, 5))
+                out = programs.rollout(state0, gaze, speech, style_t)
                 steps += T - 1
                 pairs = {
                     "ground": (sample["root_pos"][0], sample["root_rot"][0], sample["lpos"][0],
@@ -412,4 +403,4 @@ class Trainer:
                         rp, rr, lp, lrot, parents=ds.parents, names=ds.bone_names, order="zyx",
                         dt=ds.dt,
                     )
-        return steps, len(programs.programs()) if programs is not None else 0
+        return steps, len(programs.programs())
