@@ -16,11 +16,14 @@ kernel; with each plan's resident share), the GRU cell (B=1, 2, 3, 64 and
 800, 1024, 802 and 8192, the last through the global-workspace variant:
 the three clips, the streaming windows of 1 to 512 frames, an input
 shorter than n_fft and zero windows; timed at 1, 32 and the 10 s clip's
-frames, and the variant forced at n_fft 800) and the training rollout's
+frames, and the variant forced at n_fft 800), the training rollout's
 six kernels (csrc/decoder_train.cu, forward and backward, with the pose
 kernels' first- and last-frame forms, at the v1 train cell's B=32, H=1024,
-pose 1134/1131). It times each against its plain version and its bound
-(bytes over 3.35 TB/s or operations over the operands' peak), the mel
+pose 1134/1131) and the inference step's four (csrc/decoder_step.cu, bit
+for bit, at B=1, 16 and 2048, H=1024, 75 joints; then a whole step of each
+decoder cell at B=16 with them and with their plain versions). It times
+each against its plain version and its bound (bytes over 3.35 TB/s or
+operations over the operands' peak), the mel
 kernel at each launch shape, the GRU cell at B=1, 2 and 64 also against
 torch.gru_cell (CUDA graphs, TF32 off), and the decoder's barrier floor:
 599 x 4 grid barriers and nothing else, with the kernel's own barrier and
@@ -85,6 +88,15 @@ DT_SHAPE = (32, 1024, 75)  # B, H, joints
 # backward's 4 (`ops/kernels/decoder_train.py`)
 DT_FRAME = ("pose_fwd", "elu_fwd", "gru_fwd_l0", "gru_fwd_l1", "gru_bwd_l1", "gru_bwd_l0",
             "elu_bwd", "pose_bwd")
+# the inference step's kernels (csrc/decoder_step.cu) against their plain
+# versions, the step's own PyTorch expressions, at the offline cells' B=16
+# (also B=1 and the core bench's 2048), H=1024, 75 joints: they round as
+# those do, so every output must be equal bit for bit
+DS_SHAPE = (16, 1024, 75)  # B, H, joints
+DS_BATCHES = (1, 16, 2048)
+# a step's launches: `normal` 4, FiLM 5 (the second ELU its layer2's)
+DS_STEP = {"normal": ("pose_in", "elu", "gru_gates", "pose_out"),
+           "film": ("pose_in", "elu_film", "gru_gates", "elu_layer2", "pose_out")}
 # the mel spectrogram against its plain version (tests/test_pallas_kernels.py)
 MEL_TOL = 2e-4
 MEL_WINDOWS = (1, 2, 3, 8, 32, 33, 128, 512)
@@ -540,6 +552,158 @@ def check_decoder_train(torch, card):
     return report
 
 
+def decoder_step_cases(torch, B, H, J):
+    """{case: (op, args, floats the kernel touches)} of
+    `ops/kernels/decoder_step.py`'s kernels at one step, on the views the
+    step passes them (the local state as views of the last step's output,
+    columns of a program's 16-step conditioning); random inputs from SEED.
+    The floats touched: each input read and each output written, once."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    D = 6 + 15 * J
+    Din = D + 3
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def col(n, scale=1.0):  # a column of a (B, 16, n) tensor
+        return r(B, 16, n, scale=scale)[:, 3]
+
+    q = r(B, 4)
+    rp, rr = r(B, 3), q / q.norm(dim=-1, keepdim=True)
+    p = r(B, D)
+    o = 6
+    local = (p[:, 0:3], p[:, 3:6], p[:, o : o + 3 * J].reshape(B, J, 3),
+             p[:, o + 3 * J : o + 9 * J].reshape(B, J, 2, 3),
+             p[:, o + 9 * J : o + 12 * J].reshape(B, J, 3),
+             p[:, o + 12 * J : o + 15 * J].reshape(B, J, 3))
+    mean_in, std_in = r(Din, scale=0.1), r(Din).abs() + 0.5
+    mean_out, std_out = r(D, scale=0.1), r(D).abs() * 0.2 + 0.05
+    out = r(B, D)
+    out[0, 3:6] = -mean_out[3:6] / std_out[3:6]  # row 0: the exp map's small-angle branch
+    gammas, betas = col(2 * H, 0.5) + 1.0, col(2 * H, 0.5)
+    return {
+        "pose_in": ("pose_in", (rp, rr, *local, col(3, 5.0), mean_in, std_in),
+                    B * D + 10 * B + 2 * Din + B * Din),
+        "elu": ("elu", (col(H), r(B, H)), 3 * B * H),
+        "elu_film": ("elu", (col(H), r(B, H), gammas[:, :H], betas[:, :H]), 5 * B * H),
+        "elu_layer2": ("elu", (r(B, H), None, gammas[:, H:], betas[:, H:]), 4 * B * H),
+        "gru_gates": ("gru_gates", (col(3 * H), r(B, 3 * H), r(B, 3 * H), r(B, 3 * H),
+                                    r(B, 2 * H)[:, :H]), 14 * B * H),
+        "pose_out": ("pose_out", (out, rp, rr, J, DT, mean_out, std_out),
+                     2 * B * D + 2 * D + 14 * B),
+    }
+
+
+def step_case(torch, rnn_cond, B, H, J):
+    """A decoder of the cell at v2's widths (speech 64, 19 labels) from
+    SEED and one step of it at B rows: (step, its arguments)."""
+    from zeggs_tpu_torch.infer.programs import _STATS
+    from zeggs_tpu_torch.models import decoder as D
+
+    pose_in, pose_out = 6 + 15 * J + 3, 6 + 15 * J
+    torch.manual_seed(SEED)
+    dec = D.Decoder(pose_in, pose_out, 64, 19, H, 2, rnn_cond).cuda().eval()
+    dec.requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    stats = dict(zip(_STATS, (r(pose_in, scale=0.1), r(pose_in).abs() + 0.5,
+                              r(pose_out, scale=0.1), r(pose_out).abs() * 0.2 + 0.05)))
+    q = r(B, 4)
+    state0 = (r(B, 3), q / q.norm(dim=-1, keepdim=True), r(B, 3, scale=0.1), r(B, 3, scale=0.1),
+              r(B, J, 3), r(B, J, 2, 3), r(B, J, 3, scale=0.1), r(B, J, 3, scale=0.1))
+    gaze, speech, style = r(B, 2, 3, scale=100.0), r(B, 2, 64), r(B, 2, 19)
+    carry = D.init_carry(dec, *state0, gaze[:, 0], style[:, 0], *list(stats.values())[:2])
+    conditioning, step, _ = D.chunk_step(dec, *stats.values(), DT, J)
+    cols = tuple(c[:, 0] for c in conditioning(speech[:, 1:], style[:, 1:]))
+    return step, (gaze[:, 1], *cols, carry[0][0], carry[0][1].contiguous(), *carry[1:])
+
+
+def check_decoder_step(torch, card):
+    """Phase 1e: each kernel of the inference step against its plain version
+    on the same inputs at B of DS_BATCHES (bit for bit), and each one's
+    device time (CUDA graphs, kernel and plain in turns) against its bound
+    (the bytes it touches over the HBM bandwidth); then a whole step of
+    each cell at B=16 with its kernels and with their plain versions (the
+    step before the kernels), equal bit for bit, and both times."""
+    from zeggs_tpu_torch.ops.kernels import build
+    from zeggs_tpu_torch.ops.kernels import decoder_step as DS_K
+
+    _, H, J = DS_SHAPE
+    report = {"by_batch": {}}
+    launches = build.launches()["decoder_step"]
+    n_cases = 0
+    for B in DS_BATCHES:
+        by_kernel = report["by_batch"][B] = {}
+        for name, (op, args, floats) in decoder_step_cases(torch, B, H, J).items():
+            n_cases += 1
+            got = getattr(DS_K.CudaOps, op)(*args)
+            want = getattr(DS_K.PlainOps, op)(*args)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            torch.cuda.synchronize()
+            unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            print(f"decoder_step {name} (B={B}, H={H}, pose {6 + 15 * J + 3}/{6 + 15 * J}): "
+                  f"{unequal} elements unequal")
+            if unequal or not finite:
+                fail(f"decoder_step {name} at B={B}: {unequal} elements unequal to the plain "
+                     f"version, finite {finite}")
+
+            def kernel():
+                getattr(DS_K.CudaOps, op)(*args)
+
+            def plain_op():
+                getattr(DS_K.PlainOps, op)(*args)
+
+            p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain_op, kernel, kernel, plain_op))
+            bound_ms, bound_by = bound(4 * floats, 0, "float32")
+            ms = min(k1, k2)
+            print(f"time decoder_step {name} B={B} (device, CUDA graph): kernel {k1 * 1e3:.2f} / "
+                  f"{k2 * 1e3:.2f} us, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us, bound "
+                  f"{bound_ms * 1e3:.3f} us ({bound_by}: {4 * floats / 1e6:.3f} MB), "
+                  f"{bound_ms / ms:.1%} of the bound, {card}")
+            by_kernel[name] = dict(ms=ms, plain_ms=min(p1, p2), bound_ms=bound_ms,
+                                   bound_by=bound_by, unequal=unequal)
+    # each check launched once and each timing once before its capture
+    launched = build.launches()["decoder_step"] - launches
+    if launched != 3 * n_cases:
+        fail(f"decoder_step: {launched} launches, expected {3 * n_cases}")
+    B = DS_SHAPE[0]
+    report["step"] = {}
+    ops = DS_K.step_ops
+
+    def plain_ops(fn):  # fn() with the step's plain versions in its kernels' place
+        DS_K.step_ops = lambda state, plain: DS_K.PlainOps
+        try:
+            return fn()
+        finally:
+            DS_K.step_ops = ops
+
+    for cell, kernels in DS_STEP.items():
+        step, args = step_case(torch, cell, B, H, J)
+        got, want = step(*args), plain_ops(lambda: step(*args))
+        torch.cuda.synchronize()
+        p1 = plain_ops(lambda: graph_ms(torch, lambda: step(*args)))
+        k1, k2 = graph_ms(torch, lambda: step(*args)), graph_ms(torch, lambda: step(*args))
+        p2 = plain_ops(lambda: graph_ms(torch, lambda: step(*args)))
+        unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
+        if unequal:
+            fail(f"decoder_step: a {cell} step with the kernels has {unequal} elements unequal "
+                 f"to the plain step")
+        kernel_sum = {k: sum(report["by_batch"][B][c][k] for c in kernels)
+                      for k in ("ms", "plain_ms", "bound_ms")}
+        print(f"time decoder_step a whole {cell} step B={B} (device, CUDA graph): with the "
+              f"{len(kernels)} kernels {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us, with their plain "
+              f"versions {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us; the kernels alone "
+              f"{kernel_sum['ms'] * 1e3:.2f} us (plain {kernel_sum['plain_ms'] * 1e3:.2f}, bound "
+              f"{kernel_sum['bound_ms'] * 1e3:.3f}), {card}")
+        report["step"][cell] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), kernels=kernel_sum)
+    report["frame"] = report["step"]["normal"]["kernels"]
+    return report
+
+
 def read_wav(name):
     from zeggs_tpu_torch.io import wav
 
@@ -690,6 +854,7 @@ def main():
         gru = check_gru_cell(torch, card)
         mel = check_mel(torch, card)
         bptt = check_decoder_train(torch, card)
+        step = check_decoder_step(torch, card)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     if "jax" in sys.modules:
@@ -735,6 +900,14 @@ def main():
          "library_ms": None, "shape": dict(zip(("batch", "hidden", "joints"), DT_SHAPE)),
          "frame": list(DT_FRAME),
          "by_kernel": {k: v for k, v in bptt.items() if k not in ("err", "frame")}},
+        {"name": "decoder_step", "route": "cuda",
+         "source": "zeggs_tpu_torch/csrc/decoder_step.cu", "replaces": None,
+         "max_abs_err": 0.0, "tol": 0.0,
+         **{k: step["frame"][k] for k in ("ms", "plain_ms", "bound_ms")}, "bound_by": "bytes",
+         "library_ms": None, "shape": dict(zip(("batch", "hidden", "joints"), DS_SHAPE)),
+         "step_launches": {cell: list(k) for cell, k in DS_STEP.items()},
+         "by_batch": {str(B): v for B, v in step["by_batch"].items()},
+         "whole_step": step["step"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

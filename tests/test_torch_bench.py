@@ -177,7 +177,8 @@ def test_device_events_reads_the_profilers_raw_events():
 
 
 def test_missing_launches_on_a_card_only():
-    counts = {"decoder_rollout": 3, "decoder_train": 8, "gru_cell": 0, "mel_spectrogram": 5}
+    counts = {"decoder_rollout": 3, "decoder_step": 4, "decoder_train": 8, "gru_cell": 0,
+              "mel_spectrogram": 5}
     assert FX.missing_launches(counts, build.KERNELS, torch.device("cuda")) == ["gru_cell"]
     assert FX.missing_launches(counts, build.KERNELS, torch.device("cpu")) == []
 

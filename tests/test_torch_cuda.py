@@ -28,7 +28,12 @@ only copies after a chunk's finish program; the corpus pipeline's mel
 launches; two processes sharing the card against one. The bake program
 (the BVH's channels of a 16 x 1024 chunk at 75 joints) against the stage
 on the CPU (positions 1e-4 cm, Euler degrees 1e-3 where well
-conditioned), a replay bit for bit the eager stage. The rollout
+conditioned), a replay bit for bit the eager stage. The inference
+decoder step's kernels (csrc/decoder_step.cu: the pose in and out, the ELU
+with FiLM's scale and shift, GRU0's gates) give the plain step's outputs
+bit for bit at B=1 to 2048 for both cells, 4 launches a ``normal`` step and
+5 a FiLM step (none where autograd records), and a 16-step program replays
+the eager chunk bit for bit. The rollout
 programs (CUDA graphs of the decoder step) equal the eager chunk within
 1e-6, count their replays' launches, raise where the step cannot be
 captured, and give the single-thread result when two threads replay at
@@ -479,6 +484,100 @@ def test_graphed_chunk_equals_the_eager_chunk(device, quantize_int8):
     assert err <= 1e-6
 
 
+def _unpacked(t):
+    """``t``'s values in a view whose rows are not packed (every stride
+    doubled), as a caller's state may come."""
+    u = torch.empty(t.shape + (2,), dtype=t.dtype, device=t.device)[..., 0]
+    return u.copy_(t)
+
+
+def _step_args(dec, stats, state0, cond, njoints):
+    """The step of ``dec`` and its arguments at frame 1: the carry from
+    frame 0 (GRU0's hidden state a view with a row stride, as
+    `rollout_chunk` passes it; the root velocity and the joint velocities
+    views whose rows are not packed) and one column of the gaze and of the
+    cell's conditioning."""
+    gaze, speech, style = cond
+    state0 = tuple(_unpacked(t) if i in (2, 6) else t for i, t in enumerate(state0))
+    carry = D.init_carry(dec, *state0, gaze[:, 0], style[:, 0], *list(stats.values())[:2])
+    conditioning, step, plain = D.chunk_step(dec, *stats.values(), DT, njoints)
+    cols = tuple(c[:, 0] for c in conditioning(speech[:, 1:], style[:, 1:]))
+    return step, plain, (gaze[:, 1], *cols, carry[0][0], carry[0][1].contiguous(), *carry[1:])
+
+
+@pytest.mark.parametrize("hidden", [1024, 24])
+@pytest.mark.parametrize("B", [1, 2, 16, 64, 2048])
+@pytest.mark.parametrize("rnn_cond", ["normal", "film"])
+def test_kernel_step_equals_the_plain_step_bit_for_bit(device, monkeypatch, rnn_cond, B, hidden):
+    """One inference step with its element-wise math through the step's
+    kernels (`ops/kernels/decoder_step.py`) against the same step with
+    their plain versions on the card, the step as it ran before the
+    kernels: 75 joints, a non-identity root, state views of any strides;
+    every output equal bit for bit. The kernel step launches 4 of them (FiLM
+    5) and one GRU cell, the plain step the GRU cell alone."""
+    from zeggs_tpu_torch.ops.kernels import decoder_step as DS
+
+    dec, stats, state0, cond = _rollout_case(device, B, 2, 75, hidden, 5, rnn_cond)
+    with torch.inference_mode():
+        step, plain, args = _step_args(dec, stats, state0, cond, 75)
+        before = build.launches()
+        got = step(*args)
+        torch.cuda.synchronize()
+        launched = [build.launches_since(before)]
+        monkeypatch.setattr(DS, "step_ops", lambda state, plain: DS.PlainOps)
+        before = build.launches()
+        want = step(*args)
+        torch.cuda.synchronize()
+        launched.append(build.launches_since(before))
+    assert not plain
+    assert launched == [_counts(gru_cell=1, decoder_step=5 if rnn_cond == "film" else 4),
+                        _counts(gru_cell=1)]
+    assert len(got) == len(want) == 10
+    for i, (g, w) in enumerate(zip(got, want)):
+        unequal = int((g != w).sum())
+        assert g.shape == w.shape and unequal == 0, (i, unequal, (g - w).abs().max().item())
+
+
+def test_the_step_launches_none_of_its_kernels_where_autograd_records(device):
+    """With autograd recording on the decoder, the step is the plain
+    differentiable math: no kernel launches, and its gradient flows."""
+    dec, stats, state0, cond = _rollout_case(device, 3, 2, 16, 64)
+    dec.requires_grad_(True)
+    step, plain, args = _step_args(dec, stats, state0, cond, 16)
+    before = build.launches()
+    out = step(*args)
+    out[4].square().sum().backward()
+    torch.cuda.synchronize()
+    assert plain and build.launches_since(before) == _counts()
+    assert dec.cell.layer0.weight.grad is not None
+
+
+@pytest.mark.parametrize("rnn_cond", ["normal", "film"])
+def test_a_16_step_program_replays_the_eager_chunk_bit_for_bit(device, rnn_cond):
+    """A 16-step chunk of 16 rows at v2's widths (75 joints, H 1024) through
+    the program cache against the eager chunk on the card: trajectories and
+    carry equal bit for bit; the capture's warm-up step and the 16 replayed
+    ones each launch the GRU cell once and the step's kernels 4 times (FiLM
+    5)."""
+    from zeggs_tpu_torch.infer.programs import ProgramCache
+
+    film = rnn_cond == "film"
+    dec, stats, state0, cond = _rollout_case(device, 16, 17, 75, 1024, 9, rnn_cond,
+                                             19 if film else 64)
+    with torch.inference_mode():
+        carry = D.init_carry(dec, *state0, cond[0][:, 0], cond[2][:, 0],
+                             *list(stats.values())[:2])
+        chunk = tuple(c[:, 1:] for c in cond)
+        ref_carry, ref = _eager_chunk(dec, stats, carry, chunk)
+        before = build.launches()
+        got_carry, got = ProgramCache(dec, stats, DT).rollout_chunk(carry, *chunk)
+        torch.cuda.synchronize()
+    per_step = 5 if film else 4
+    assert build.launches_since(before) == _counts(gru_cell=17, decoder_step=per_step * 17)
+    for i, (g, r) in enumerate(zip(got + got_carry, ref + ref_carry)):
+        assert g.shape == r.shape and torch.equal(g, r), (i, (g - r).abs().max().item())
+
+
 def test_film_graphs_equal_the_eager_film_rollout(device):
     """The FiLM cell at v2's widths (75 joints, H 1024, speech 64, 19
     labels), 4 rows and 41 frames, through the program cache: against the
@@ -486,7 +585,8 @@ def test_film_graphs_equal_the_eager_film_rollout(device):
     same kernels on the same inputs); against `rollout_film` (the unhoisted
     plain step, GRU1 by cuBLAS) within pose MAE 1e-3 (docs/DESIGN.md section
     5); GRU1 of every step (and of each capture's warm-up step) through the
-    kernel, every step counted in ``programs.rollout_steps``."""
+    GRU-cell kernel and its element-wise math through the step's 5 kernels,
+    every step counted in ``programs.rollout_steps``."""
     from zeggs_tpu_torch.infer.programs import ProgramCache, ladder_programs
     from zeggs_tpu_torch.utils import profiling
 
@@ -500,16 +600,17 @@ def test_film_graphs_equal_the_eager_film_rollout(device):
         ref_carry, ref = _eager_chunk(dec, stats, carry, chunk)
         _, plain = D.rollout_film(dec, carry, *chunk, *stats.values(), DT,
                                   output_indices=(0, 1, 4, 5))
-        before, steps = _launches("gru_cell"), profiling.counters().get("programs.rollout_steps", 0)
+        before, steps = build.launches(), profiling.counters().get("programs.rollout_steps", 0)
         got_carry, got = ProgramCache(dec, stats, DT).rollout_chunk(carry, *chunk)
         torch.cuda.synchronize()
-    launched = _launches("gru_cell") - before
+    launched = build.launches_since(before)
     err = max(_max_diff(got, ref), _max_diff(got_carry, ref_carry))
     mae = max((g - p).abs().mean().item() for g, p in zip(got, plain))
     print(f"FiLM graphs against the eager chunk: max|diff| {err:.3e}; against rollout_film: "
           f"MAE {mae:.3e}")
     assert err <= 1e-6 and mae < 1e-3
-    assert launched == n + ladder_programs([n])
+    assert launched == _counts(gru_cell=n + ladder_programs([n]),
+                               decoder_step=5 * (n + ladder_programs([n])))
     assert profiling.counters()["programs.rollout_steps"] - steps == n
 
 
@@ -518,7 +619,8 @@ def test_a_film_job_replays_the_programs(device):
     ``v2film.offline`` set-up over 4 clips of 5-11 s: chunks of 2 rows at
     512 and 1,024 frames): for each of two jobs after set-up, the GRU-cell
     kernel's launches and ``programs.rollout_steps`` equal the chunks' T_pad
-    - 1 steps, ``programs.rollout_device_s`` grows, and
+    - 1 steps, the step kernels' launches 5 times as many,
+    ``programs.rollout_device_s`` grows, and
     ``programs.captures`` does not; the written clips agree with the plain
     reference within the cell's limits."""
     from benchmark.common import Cell
@@ -538,16 +640,56 @@ def test_a_film_job_replays_the_programs(device):
             run.jobs.append(run._job(k)[:2])
             after = profiling.counters()
             grew = {key: after.get(key, 0) - before.get(key, 0)
-                    for key in ("gru_cell.launches", "programs.rollout_steps",
-                                "programs.rollout_device_s", "programs.captures")}
+                    for key in ("gru_cell.launches", "decoder_step.launches",
+                                "programs.rollout_steps", "programs.rollout_device_s",
+                                "programs.captures")}
             print(f"FiLM job {k}: {grew}")
             assert grew["gru_cell.launches"] == grew["programs.rollout_steps"] == steps
+            assert grew["decoder_step.launches"] == 5 * steps
             assert grew["programs.rollout_device_s"] > 0 and grew["programs.captures"] == 0
         run.release()
         checks = run.check()
     finally:
         run.close()
     print(f"FiLM jobs against the reference: {checks}")
+    assert all(c["value"] <= c["limit"] for c in checks.values())
+
+
+def test_a_v2_job_launches_the_step_kernels_four_times_a_step(device):
+    """`generate_batch` at v2's widths with the ``normal`` decoder (the
+    benchmark's ``v2.offline`` set-up over 4 clips of 5-11 s: chunks of 2
+    rows at 512 and 1,024 frames): for each of two jobs after set-up, the
+    step kernels' launches are 4 times ``programs.rollout_steps``, which
+    equals the GRU-cell kernel's launches and the chunks' T_pad - 1 steps,
+    and nothing is captured; the written clips agree with the plain
+    reference within the cell's limits."""
+    from benchmark.common import Cell
+    from benchmark.run import generator_of
+    from zeggs_tpu_torch.utils import profiling
+
+    cell = Cell("v2.offline")
+    cell.mix = dict(cell.mix, lines=4, check_samples=2)
+    run = generator_of(cell).Run(cell, cell.config, 2**31 + 35, device)
+    run.setup()
+    try:
+        assert run.pipe.networks["decoder"].rnn_cond == "normal"
+        steps = sum(n for _, n in run.gru_calls())
+        assert [T for T, _ in run.shapes] == [512, 1024] and steps == 1534
+        for k in range(2):
+            before = profiling.counters()
+            run.jobs.append(run._job(k)[:2])
+            after = profiling.counters()
+            grew = {key: after.get(key, 0) - before.get(key, 0)
+                    for key in ("gru_cell.launches", "decoder_step.launches",
+                                "programs.rollout_steps", "programs.captures")}
+            print(f"v2 job {k}: {grew}")
+            assert grew["gru_cell.launches"] == grew["programs.rollout_steps"] == steps
+            assert grew["decoder_step.launches"] == 4 * steps and grew["programs.captures"] == 0
+        run.release()
+        checks = run.check()
+    finally:
+        run.close()
+    print(f"v2 jobs against the reference: {checks}")
     assert all(c["value"] <= c["limit"] for c in checks.values())
 
 
@@ -645,9 +787,10 @@ def test_bake_graph_equals_the_stage_on_the_cpu(device):
 
 def test_launch_counter_counts_replays(device):
     """A capture adds nothing and its one eager warm-up step adds one
-    GRU-cell launch; each replay adds the launches its graph captured. 40
-    steps: the 16- and 4-step programs, 40 + 2 launches at the first call,
-    40 at the next."""
+    GRU-cell launch and 4 of the step's kernels; each replay adds the
+    launches its graph captured. 40 steps: the 16- and 4-step programs, 40 +
+    2 GRU-cell launches at the first call, 40 at the next, and 4 times as
+    many of the step's kernels."""
     from zeggs_tpu_torch.infer.programs import ProgramCache
 
     dec, stats, carry, cond = _program_case(device)
@@ -655,28 +798,32 @@ def test_launch_counter_counts_replays(device):
     counts = []
     with torch.inference_mode():
         for _ in range(2):
-            before = _launches("gru_cell")
+            before = build.launches()
             cache.rollout_chunk(carry, *cond)
-            counts.append(_launches("gru_cell") - before)
-    assert counts == [42, 40]
+            counts.append(build.launches_since(before))
+    assert counts == [_counts(gru_cell=42, decoder_step=168),
+                      _counts(gru_cell=40, decoder_step=160)]
     assert sorted(p.counts["gru_cell.launches"] for _, p in cache.programs()) == [4, 16]
+    assert sorted(p.counts["decoder_step.launches"] for _, p in cache.programs()) == [16, 64]
 
 
 def test_an_uncapturable_step_raises(device, monkeypatch):
-    """A host sync inside the step (injected into the pose integration)
-    makes the capture fail: the rollout raises instead of returning the
-    eager result, and the card keeps working afterwards."""
+    """A host sync inside the step (injected into the pose integration, the
+    step's `pose_out` kernel) makes the capture fail: the rollout raises
+    instead of returning the eager result, and the card keeps working
+    afterwards."""
     from zeggs_tpu_torch.infer.programs import ProgramCache
+    from zeggs_tpu_torch.ops.kernels import decoder_step as DS
 
     dec, stats, carry, cond = _program_case(device)
-    integrate = P.devectorize_output
+    integrate = DS.CudaOps.pose_out
 
     def syncing(*args, **kw):
         out = integrate(*args, **kw)
         out[0].sum().item()  # waits for the card: not allowed while capturing
         return out
 
-    monkeypatch.setattr(P, "devectorize_output", syncing)
+    monkeypatch.setattr(DS.CudaOps, "pose_out", staticmethod(syncing))
     with torch.inference_mode(), pytest.raises(RuntimeError, match="capturing the rollout"):
         ProgramCache(dec, stats, DT).rollout_chunk(carry, *cond)
     monkeypatch.undo()
@@ -774,8 +921,9 @@ def _step(opts, stats, parents, batch, dims, lengths, dev, generator=None, frame
 @pytest.mark.parametrize("rnn_cond", ["normal", "film"])
 def test_train_step_gradients_match_the_cpu(device, rnn_cond):
     """One deterministic small-width step on the card against the CPU; no
-    inference kernel launches inside it, and the ``normal`` cell's rollout
-    runs the training rollout's kernels on the card (none on the CPU)."""
+    inference kernel launches inside it (the decoder step's kernels
+    neither), and the ``normal`` cell's rollout runs the training rollout's
+    kernels on the card (none on the CPU)."""
     case = _train_case(rnn_cond)
     grads = {}
     for dev in ("cpu", device):
@@ -925,9 +1073,10 @@ def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path, monkeypa
     several cards, over every card, at fp32 rollout weights: each BVH within
     the pose MAE budget of 1e-3 of the run without a mesh; with the mesh's
     programs captured first by `warmup`, GRU-cell launches = decoder steps
-    x blocks (the chunk padded to a multiple of the mesh), no decoder
-    launch, one mel launch a request; the GRU cell's launches counted on
-    the mesh's block threads, the mel kernel's on the caller's."""
+    x blocks (the chunk padded to a multiple of the mesh) and 4 step-kernel
+    launches each, no decoder launch, one mel launch a request; the GRU
+    cell's and the step kernels' launches counted on the mesh's block
+    threads, the mel kernel's on the caller's."""
     import threading
 
     from zeggs_tpu_torch.infer import GesturePipeline
@@ -963,9 +1112,10 @@ def test_generate_batch_over_a_mesh_on_the_card(small_models, tmp_path, monkeypa
         generate_batch(pipe, reqs, tmp_path / f"mesh{k}", bucket=64, mesh=mesh)
         torch.cuda.synchronize()
         launched = build.launches_since(before)
-        assert launched == {"decoder_rollout": 0, "decoder_train": 0,
-                            "gru_cell": steps * mesh.size, "mel_spectrogram": 3}, (mesh, launched)
-        assert sites == {("gru_cell.launches", "block"), ("mel_spectrogram.launches", "caller")}
+        assert launched == _counts(gru_cell=steps * mesh.size, decoder_step=4 * steps * mesh.size,
+                                   mel_spectrogram=3), (mesh, launched)
+        assert sites == {("gru_cell.launches", "block"), ("decoder_step.launches", "block"),
+                         ("mel_spectrogram.launches", "caller")}
         for r in reqs:
             a = bvh.load(tmp_path / "plain" / f"{r.file_name}.bvh")
             b = bvh.load(tmp_path / f"mesh{k}" / f"{r.file_name}.bvh")
@@ -1097,8 +1247,9 @@ def test_generate_cli_paths_on_the_card(small_models, tmp_path, style):
     """The generate CLI over CLIPS on the card, each kernel's launches
     counted around each run: CSV mode (a decoder launch a request), `-b`
     (the 4 s clip one decoder launch, the 10 and 12 s clips one chunk of
-    1023 steps replayed from the rollout programs: a GRU-cell launch a step
-    and one eager warm-up step a program) and `--int8` (a decoder launch a
+    1023 steps replayed from the rollout programs: a GRU-cell launch and 4
+    step-kernel launches a step and one eager warm-up step a program) and
+    `--int8` (a decoder launch a
     request); one mel launch a request on every path; every BVH finite, at
     60 fps, of its clip's length. Then at fp32 rollout weights the batched
     requests against single requests: pose MAE < 1e-3."""
@@ -1121,7 +1272,8 @@ def test_generate_cli_paths_on_the_card(small_models, tmp_path, style):
     chunk = 1024 - 1
     runs = {"csv": ([], {"decoder_rollout": n}),
             "batched": (["-b"], {"decoder_rollout": 1,
-                                 "gru_cell": chunk + ladder_programs([chunk])}),
+                                 "gru_cell": chunk + ladder_programs([chunk]),
+                                 "decoder_step": 4 * (chunk + ladder_programs([chunk]))}),
             "int8": (["--int8"], {"decoder_rollout": n})}
     for tag, (flags, expected) in runs.items():
         before = build.launches()
@@ -1216,6 +1368,7 @@ def test_a_streaming_session_on_the_card(small_models, tmp_path, style):
     made = len(pipe.programs.programs()) - made
     assert sess.frames_emitted == 600 and sess.decoder_steps == -(-599 // 16) * 16 and made >= 1
     assert launched["gru_cell"] == sess.decoder_steps + made
+    assert launched["decoder_step"] == 4 * launched["gru_cell"]
     assert launched["decoder_rollout"] == 0 and launched["mel_spectrogram"] > 0
     path = sess.write_bvh(tmp_path, "stream")
     assert np.isfinite(bvh.load(path)["rotations"]).all()
@@ -1511,7 +1664,8 @@ def test_evaluate_on_the_card_matches_the_cpu(small_run, monkeypatch):
     cpu = E.evaluate(root, 0, device="cpu")
     steps = [len(r[1]) - 1 for r in rollouts["cuda"]]
     # every decoder step replayed, and one eager warm-up step a program
-    assert launched == _counts(gru_cell=sum(steps) + ladder_programs(steps))
+    n = sum(steps) + ladder_programs(steps)
+    assert launched == _counts(gru_cell=n, decoder_step=4 * n)
     assert card["n_valid_clips"] == cpu["n_valid_clips"] == len(rollouts["cpu"]) == 1
     assert reports_agree(card, cpu, eval_bounds(ds, rollouts["cuda"], rollouts["cpu"])) == []
     assert E.gate(card) == E.gate(cpu)

@@ -52,7 +52,7 @@ B1_MAE = 1e-3
 #: graphed against eager batched rows: MAE (PERF.md section 2)
 GRAPH_MAE = 1e-6
 #: the kernels the stage's path must launch on a card
-REQUIRED = ("decoder_rollout", "gru_cell")
+REQUIRED = ("decoder_rollout", "decoder_step", "gru_cell")
 
 
 class Model:

@@ -43,8 +43,9 @@ from ..infer.generate import GesturePipeline, generate_gesture
 from . import fixture as FX
 
 #: the kernels the stage's path must launch on a card: the mel kernel a
-#: request, the GRU cell in batched chunks, the decoder at B=1
-REQUIRED = ("decoder_rollout", "gru_cell", "mel_spectrogram")
+#: request, the GRU cell and the step's kernels in batched chunks, the
+#: decoder at B=1
+REQUIRED = ("decoder_rollout", "decoder_step", "gru_cell", "mel_spectrogram")
 
 
 def main(argv=None):

@@ -33,7 +33,7 @@ from ..infer.generate import GesturePipeline
 from . import fixture as FX
 
 #: the kernels the stage's path must launch on a card
-REQUIRED = ("gru_cell", "mel_spectrogram")
+REQUIRED = ("decoder_step", "gru_cell", "mel_spectrogram")
 
 
 def _latencies(lats, frames, total, ttff, finish):

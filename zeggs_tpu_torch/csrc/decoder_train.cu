@@ -35,69 +35,15 @@
 // each over all B x T rows, from the (T, B, ...) buffers these kernels
 // write, so no weight gradient is read or written a frame.
 // Everything is float32, with the plain step's operations in its order.
-// The forward rounds as the plain step does, so that it gives the same
-// trajectories bit for bit: each of its products is `mul` (__fmul_rn,
-// which the compiler never contracts into a fused multiply-add), so each
-// product and sum rounds on its own as PyTorch's element-wise operators
-// do; the cross product follows PyTorch's CUDA kernel (det2), a division
-// by a constant is a product with its float32 reciprocal (PyTorch's
-// division by a scalar), sinc is torch.sinc's, sums of three or four run
-// left to right. The backward's own arithmetic may contract: it differs
-// from autograd's in the order of its sums all the same.
+// The forward's math is decoder_fwd.cuh's, which the inference step's
+// kernels (decoder_step.cu) share: it rounds as the plain step does, so the
+// forward gives the same trajectories bit for bit. The backward's own
+// arithmetic may contract: it differs from autograd's in the order of its
+// sums all the same.
 
-#include <cuda_runtime.h>
+#include "decoder_fwd.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr float kEps = 1e-5f;  // quat.from_helical's
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kInvPi = 1.f / kPi;  // `halfangle / math.pi`: PyTorch multiplies
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// a * b rounded before any sum it feeds (never fused into an FMA)
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-
-struct V3 {
-  float x, y, z;
-};
-struct Q4 {
-  float w, x, y, z;
-};
-
-// a1 b2 - a2 b1 as PyTorch's CUDA cross-product kernel rounds it: the
-// second product rounded, the first fused (it matched torch.linalg.cross
-// on 1M random products on an H100, and neither other rounding did)
-__device__ __forceinline__ float det2(float a1, float b2, float a2, float b1) {
-  return fmaf(a1, b2, -mul(a2, b1));
-}
-
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {det2(a.y, b.z, a.z, b.y), det2(a.z, b.x, a.x, b.z), det2(a.x, b.y, a.y, b.x)};
-}
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 scale(float s, V3 a) {
-  return {mul(s, a.x), mul(s, a.y), mul(s, a.z)};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 vec(Q4 q) { return {q.x, q.y, q.z}; }
-__device__ __forceinline__ Q4 inv(Q4 q) { return {q.w, -q.x, -q.y, -q.z}; }
-__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
-__device__ __forceinline__ Q4 load4(const float* p) { return {p[0], p[1], p[2], p[3]}; }
-__device__ __forceinline__ void store3(float* p, V3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
-__device__ __forceinline__ void store4(float* p, Q4 q) {
-  p[0] = q.w; p[1] = q.x; p[2] = q.y; p[3] = q.z;
-}
-
-// quat.mul(x, y)
-__device__ __forceinline__ Q4 qmul(Q4 x, Q4 y) {
-  return {mul(y.w, x.w) - mul(y.x, x.x) - mul(y.y, x.y) - mul(y.z, x.z),
-          mul(y.w, x.x) + mul(y.x, x.w) - mul(y.y, x.z) + mul(y.z, x.y),
-          mul(y.w, x.y) + mul(y.x, x.z) + mul(y.y, x.w) - mul(y.z, x.x),
-          mul(y.w, x.z) - mul(y.x, x.y) + mul(y.y, x.x) + mul(y.z, x.w)};
-}
 
 // (dx, dy) of qmul under g
 __device__ __forceinline__ void qmul_bwd(Q4 x, Q4 y, Q4 g, Q4* dx, Q4* dy) {
@@ -111,13 +57,6 @@ __device__ __forceinline__ void qmul_bwd(Q4 x, Q4 y, Q4 g, Q4* dx, Q4* dy) {
          -g.w * x.z + g.x * x.y - g.y * x.x + g.z * x.w};
 }
 
-// quat.mul_vec(q, v): v + w t + u x t, t = 2 u x v
-__device__ __forceinline__ V3 mul_vec(Q4 q, V3 v) {
-  const V3 u = vec(q);
-  const V3 t = scale(2.f, cross(u, v));
-  return add(add(v, scale(q.w, t)), cross(u, t));
-}
-
 // (dq, dv) of mul_vec under g
 __device__ __forceinline__ void mul_vec_bwd(Q4 q, V3 v, V3 g, Q4* dq, V3* dv) {
   const V3 u = vec(q);
@@ -126,24 +65,6 @@ __device__ __forceinline__ void mul_vec_bwd(Q4 q, V3 v, V3 g, Q4* dq, V3* dv) {
   const V3 du = add(cross(t, g), scale(2.f, cross(v, dt)));
   *dq = {dot(g, t), du.x, du.y, du.z};
   *dv = add(g, scale(2.f, cross(dt, u)));
-}
-
-// torch.sinc(a): sin(pi a) / (pi a), 1 at 0
-__device__ __forceinline__ float sinc(float a) {
-  if (a == 0.f) return 1.f;
-  const float p = kPi * a;
-  return sinf(p) / p;
-}
-
-// quat.exp(x): [cos |x|, x sinc(|x| / pi)], or normalize([1, x], eps) below eps
-__device__ __forceinline__ Q4 qexp(V3 x) {
-  const float ha = sqrtf(mul(x.x, x.x) + mul(x.y, x.y) + mul(x.z, x.z));
-  if (ha < kEps) {
-    const float n = sqrtf(1.f + mul(x.x, x.x) + mul(x.y, x.y) + mul(x.z, x.z)) + kEps;
-    return {1.f / n, x.x / n, x.y / n, x.z / n};
-  }
-  const float s = sinc(ha * kInvPi);
-  return {cosf(ha), mul(x.x, s), mul(x.y, s), mul(x.z, s)};
 }
 
 // dx of qexp under g
@@ -183,20 +104,17 @@ pose_fwd_kernel(const float* __restrict__ out,
   if (out != nullptr) {
     const float* o = out + (size_t)b * D;
     for (int j = tid; j < D; j += kThreads) {
-      const float p = mul(o[j], std_out[j]) + mean_out[j];
+      const float p = denormalize(o[j], std_out[j], mean_out[j]);
       p_dst[(size_t)b * p_ld + j] = p;
-      if (pose != nullptr) pose[(size_t)b * Din + j] = (p - mean_in[j]) / std_in[j];
+      if (pose != nullptr) pose[(size_t)b * Din + j] = normalize(p, mean_in[j], std_in[j]);
     }
     if (tid == 0) {
       float p6[6];
-      for (int j = 0; j < 6; ++j) p6[j] = mul(o[j], std_out[j]) + mean_out[j];
-      const V3 v = {mul(p6[0], dt), mul(p6[1], dt), mul(p6[2], dt)};
-      const V3 w = {mul(p6[3], dt), mul(p6[4], dt), mul(p6[5], dt)};
-      const Q4 rr = load4(rr_prev + (size_t)b * rr_prev_ld);
-      const V3 rp = load3(rp_prev + (size_t)b * rp_prev_ld);
-      const V3 rp1 = add(mul_vec(rr, v), rp);
-      const V3 e = mul_vec(rr, w);
-      const Q4 rr1 = qmul(qexp({e.x / 2.f, e.y / 2.f, e.z / 2.f}), rr);
+      for (int j = 0; j < 6; ++j) p6[j] = denormalize(o[j], std_out[j], mean_out[j]);
+      V3 rp1;
+      Q4 rr1;
+      integrate_root(p6, load3(rp_prev + (size_t)b * rp_prev_ld),
+                     load4(rr_prev + (size_t)b * rr_prev_ld), dt, &rp1, &rr1);
       store3(rp_dst + (size_t)b * rp_ld, rp1);
       store4(rr_dst + (size_t)b * rr_ld, rr1);
       store3(root, rp1);
@@ -205,7 +123,7 @@ pose_fwd_kernel(const float* __restrict__ out,
   } else {
     if (pose != nullptr)
       for (int j = tid; j < D; j += kThreads)
-        pose[(size_t)b * Din + j] = (x0[(size_t)b * D + j] - mean_in[j]) / std_in[j];
+        pose[(size_t)b * Din + j] = normalize(x0[(size_t)b * D + j], mean_in[j], std_in[j]);
     if (tid == 0) {
       store3(root, load3(rp_prev + (size_t)b * rp_prev_ld));
       store4(root + 3, load4(rr_prev + (size_t)b * rr_prev_ld));
@@ -213,13 +131,9 @@ pose_fwd_kernel(const float* __restrict__ out,
   }
   if (pose == nullptr) return;
   __syncthreads();
-  if (tid == 0) {
-    const V3 a = sub(load3(gaze + (size_t)b * gaze_ld), load3(root));
-    const V3 gd = mul_vec(inv(load4(root + 3)), a);
-    const float g[3] = {gd.x, gd.y, gd.z};
-    for (int k = 0; k < 3; ++k)
-      pose[(size_t)b * Din + D + k] = (g[k] - mean_in[D + k]) / std_in[D + k];
-  }
+  if (tid == 0)
+    gaze_input(load3(gaze + (size_t)b * gaze_ld), load3(root), load4(root + 3), mean_in + D,
+               std_in + D, pose + (size_t)b * Din + D);
 }
 
 // act = pre + a, hid = elu(act), one thread an element
@@ -231,7 +145,7 @@ __global__ void elu_fwd_kernel(const float* __restrict__ pre, int pre_ld,
   const int b = i / H, j = i % H;
   const float x = pre[(size_t)b * pre_ld + j] + a[(size_t)b * a_ld + j];
   act[i] = x;
-  hid[i] = x > 0.f ? x : expm1f(x);
+  hid[i] = elu(x);
 }
 
 // gi = (s0 (+ s1)) (+ s2); h' and [r | z | n | gh_n] from gi and gh
@@ -244,25 +158,14 @@ __global__ void gru_fwd_kernel(const float* __restrict__ s0, int ld0,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= B * H) return;
   const int b = i / H, j = i % H;
-  float gi[3], gg[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int c = k * H + j;
-    float v = s0[(size_t)b * ld0 + c];
-    if (s1 != nullptr) v += s1[(size_t)b * ld1 + c];
-    if (s2 != nullptr) v += s2[(size_t)b * ld2 + c];
-    gi[k] = v;
-    gg[k] = gh[(size_t)b * 3 * H + c];
-  }
-  const float r = sigmoid(gi[0] + gg[0]);
-  const float z = sigmoid(gi[1] + gg[1]);
-  const float n = tanhf(gi[2] + mul(r, gg[2]));
-  h_new[i] = mul(1.f - z, n) + mul(z, h[(size_t)b * h_ld + j]);
+  float r, z, n, ghn;
+  h_new[i] = gru_gates(s0, ld0, s1, ld1, s2, ld2, gh, h[(size_t)b * h_ld + j], b, j, H, &r, &z,
+                       &n, &ghn);
   float* gt = gates + (size_t)b * 4 * H + j;
   gt[0] = r;
   gt[H] = z;
   gt[2 * H] = n;
-  gt[3 * H] = gg[2];
+  gt[3 * H] = ghn;
 }
 
 // ---------------------------------------------------------------------------
@@ -377,10 +280,6 @@ pose_bwd_kernel(const float* __restrict__ dpose, const float* __restrict__ std_i
     }
   }
 }
-
-int blocks(int n) { return (n + kThreads - 1) / kThreads; }
-
-int last_error() { return (int)cudaGetLastError(); }
 
 }  // namespace
 

@@ -20,13 +20,18 @@ devectorize_output and feeds the integrated pose back.
   remat) every step is the plain differentiable math over the live
   parameters, with the products in ``compute_dtype``. `chunk_step` gives
   that step and the hoisted products; `infer/programs.py` replays the
-  inference step from CUDA graphs.
+  inference step from CUDA graphs. On float32 CUDA tensors the inference
+  step's element-wise math (the pose in and out, the ELU, GRU0's gates) is
+  four launches of `ops/kernels/decoder_step.py`'s kernels between the
+  products, bit for bit the plain expressions the CPU runs.
 ``film``: style enters only through per-layer (gamma, beta) modulation and
   the GRU input is [hidden | pose | speech]. At inference `rollout_chunk`
   runs it as it runs ``normal``: the speech part of layer0's and GRU0's
   input products and the style's gammas and betas hoisted over all frames,
-  GRU1 through the GRU-cell kernel, and `infer/programs.py` replays the
-  step from CUDA graphs. Where autograd records, `rollout` takes
+  GRU1 through the GRU-cell kernel, the element-wise math through the same
+  kernels as ``normal`` (the scale and shift an operand of the ELU kernel,
+  which also runs layer2's), and `infer/programs.py` replays the step from
+  CUDA graphs. Where autograd records, `rollout` takes
   `rollout_film`, the reference's plain step over the live parameters.
   Neither int8 products nor the B=1 kernel run it.
 
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import decoder_rollout as DR
+from ..ops.kernels import decoder_step as DS
 from ..ops.kernels import decoder_train as DT
 from ..ops.kernels import gru_cell as GC
 from . import layers as L
@@ -173,8 +179,11 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
     returns the new state in the same order. ``plain`` says whether the
     step is the differentiable plain math (autograd records, or
     ``compute_dtype`` is not float32); otherwise GRU1 runs through the
-    GRU-cell kernel. The weights are derived once, here, so a caller that
-    keeps the step (a CUDA graph of it) keeps them."""
+    GRU-cell kernel and, on a float32 CUDA state, the step's element-wise
+    math through the kernels of `ops/kernels/decoder_step.py`
+    (`decoder_step.step_ops`; int8: its pose kernels). The weights are
+    derived once, here, so a caller that keeps the step (a CUDA graph of
+    it) keeps them."""
     cp = dec.cell
     film = dec.rnn_cond == "film"
     pose_dim = anim_input_mean.shape[-1]
@@ -209,7 +218,7 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
             for w in (cp.gru0.weight_hh, cp.gru1.weight_ih, cp.gru1.weight_hh, cp.out.weight)
         )
 
-        def cell(pose, cond_t, h0, h1):
+        def cell(ops, pose, cond_t, h0, h1):
             l0_t, g0_t = cond_t
             pose_q = _quantize_act(pose)
             hidden = L.elu(l0_t + _qdot(pose_q, q_w0_pose))
@@ -237,19 +246,20 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
             def gru1_step(x, h):
                 return GC.fused_gru_cell(packed, x, h)
 
-        def cell(pose, cond_t, h0, h1):
+        def cell(ops, pose, cond_t, h0, h1):
             l0_t, g0_t = cond_t[:2]
             pose_c, h0, h1 = pose.to(cd), h0.to(cd), h1.to(cd)
-            hidden = L.elu(l0_t + pose_c @ w0_pose.T)
+            scale_shift = ((), ())
             if film:
                 gammas, betas = cond_t[2:]
-                hidden = hidden * gammas[:, :H] + betas[:, :H]
-            gi = g0_t + hidden @ wg_h.T + pose_c @ wg_pose.T
-            h0_new = L.gru_gates(gi, F.linear(h0, whh0, bhh0), h0)
+                scale_shift = ((gammas[:, :H], betas[:, :H]), (gammas[:, H:], betas[:, H:]))
+            hidden = ops.elu(l0_t, pose_c @ w0_pose.T, *scale_shift[0])
+            h0_new = ops.gru_gates(g0_t, hidden @ wg_h.T, pose_c @ wg_pose.T,
+                                   F.linear(h0, whh0, bhh0), h0)
             h1_new = gru1_step(h0_new, h1)
             top = h1_new
             if film:
-                top = L.elu(F.linear(h1_new, w2, b2)) * gammas[:, H:] + betas[:, H:]
+                top = ops.elu(F.linear(h1_new, w2, b2), None, *scale_shift[1])
             sd = pose.dtype  # the state's dtype
             return h0_new.to(sd), h1_new.to(sd), F.linear(top, w_out, b_out).to(sd)
 
@@ -257,11 +267,12 @@ def chunk_step(dec: Decoder, anim_input_mean, anim_input_std, anim_output_mean, 
 
     def step(gaze_t, *args):
         cond_t, (h0, h1, rp, rr, rv, rw, jp, jt, jv, jw) = args[:n_cond], args[n_cond:]
-        pose = P.vectorize_input(rp, rr, rv, rw, jp, jt, jv, jw, gaze_t,
-                                 anim_input_mean, anim_input_std)
-        h0, h1, out = cell(pose, cond_t, h0, h1)
-        return (h0, h1) + P.devectorize_output(out, rp, rr, njoints, dt, anim_output_mean,
-                                               anim_output_std)
+        ops = DS.step_ops(rp, plain)
+        pose = ops.pose_in(rp, rr, rv, rw, jp, jt, jv, jw, gaze_t, anim_input_mean,
+                           anim_input_std)
+        h0, h1, out = cell(ops, pose, cond_t, h0, h1)
+        return (h0, h1) + ops.pose_out(out, rp, rr, njoints, dt, anim_output_mean,
+                                       anim_output_std)
 
     return conditioning, step, plain
 

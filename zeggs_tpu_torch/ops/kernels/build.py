@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 #: every csrc/<name>.cu of the port; its wrapper counts its launches as
 #: the `utils.profiling` counter ``<name>.launches``
-KERNELS = ("decoder_rollout", "decoder_train", "gru_cell", "mel_spectrogram")
+KERNELS = ("decoder_rollout", "decoder_step", "decoder_train", "gru_cell", "mel_spectrogram")
 _load_lock = threading.Lock()
 
 
